@@ -1,0 +1,400 @@
+"""SubTreePrepare (paper §4.2.2), the elastic-range batched engine — PyTorch port.
+
+Counterpart of ``repro.core.prepare``, word-key branch.  Every virtual
+tree's leaf positions are stacked into one padded (G, F) state; each
+iteration reads ``w`` symbols after every active leaf (the
+``range_gather_words`` kernel through :func:`packing.word_sort_keys`),
+sorts each group's rows stably with the area id as the major key,
+detects divergence between adjacent rows by XOR + clz on the dense words,
+and re-derives the areas with a cumulative-max segment sweep.  Where the
+JAX package ``vmap``s one group's step over G, this module writes the
+batch dimension out: every tensor of the step is (G, F) and each sort runs
+along dim 1, so groups never mix.
+
+Exactness against the JAX package rests on two sort rules (hazard C2:
+torch has no ``lexsort``):
+
+* fused keys (:func:`_fused_sort_order`) pack (major, window, tie) into
+  32-bit lanes exactly as the JAX code does; pairs of lanes become one
+  int64 key whose signed order equals their unsigned order, and a chain
+  of stable sorts (least significant key first) gives the lexsort's
+  permutation;
+* the unfused oracle sorts ``tie``, then the words in reverse, then the
+  major key, each with a stable sort.
+
+The host loop reads back the per-group active counts once per iteration,
+as the reference does; nothing else syncs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.packing import MASK32, PackedText, to_u64
+from repro_torch.core.vertical import VirtualTree
+from repro_torch.kernels import ops as kops
+
+DONE = -1
+
+
+class PrepareState(NamedTuple):
+    """(G, F) state of the batched engine; every field is int32."""
+
+    L: torch.Tensor      # leaf positions (suffix offsets), -1 pad
+    start: torch.Tensor  # symbols consumed so far per element
+    area: torch.Tensor   # active-area id (= index of first element), -1 done
+    b_off: torch.Tensor  # B offset, -1 undefined (b_*[:, 0] unused)
+    b_c1: torch.Tensor   # first divergent symbol of left branch
+    b_c2: torch.Tensor   # first divergent symbol of right branch
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticConfig:
+    """Memory-budget knobs (paper §4.4)."""
+
+    r_budget_symbols: int = 1 << 20  # |R|: total symbols fetched per scan
+    w_min: int = 4
+    w_max: int = 256
+    elastic: bool = True  # False = static range (paper Fig. 9b ablation)
+    static_w: int = 16
+
+
+def _init_arrays(groups: list[VirtualTree], capacity: int, device):
+    """(L, start, area) as (G, capacity) int32 tensors on ``device``.
+
+    Each prefix's segment gets its own initial area (id = segment start);
+    frequency-1 prefixes are born resolved.  One scatter per field: the
+    prefixes' positions are concatenated in group order and placed by a
+    flat index built with ``repeat_interleave``.
+    """
+    g = len(groups)
+    L = torch.full((g, capacity), -1, dtype=torch.int32, device=device)
+    start = torch.zeros((g, capacity), dtype=torch.int32, device=device)
+    area = torch.full((g, capacity), -1, dtype=torch.int32, device=device)
+    seg_start, seg_freq, seg_len, seg_area, pos = [], [], [], [], []
+    for g_i, group in enumerate(groups):
+        total = group.total_freq
+        if total > capacity:
+            raise ValueError(f"group frequency {total} exceeds capacity {capacity}")
+        off = 0
+        for p in group.prefixes:
+            seg_start.append(g_i * capacity + off)
+            seg_freq.append(p.freq)
+            seg_len.append(p.length)
+            seg_area.append(off if p.freq > 1 else -1)
+            pos.append(torch.as_tensor(p.positions, device=device))
+            off += p.freq
+    if not pos:
+        return L, start, area
+    freq = torch.tensor(seg_freq, dtype=torch.int64, device=device)
+    first = torch.cumsum(freq, 0) - freq           # segment start in ``pos``
+    total = int(sum(seg_freq))
+    rank = torch.arange(total, device=device) - torch.repeat_interleave(first, freq)
+    base = torch.tensor(seg_start, dtype=torch.int64, device=device)
+    flat = torch.repeat_interleave(base, freq) + rank
+    L.view(-1)[flat] = torch.cat(pos).to(torch.int32)
+    start.view(-1)[flat] = torch.repeat_interleave(
+        torch.tensor(seg_len, dtype=torch.int32, device=device), freq)
+    area.view(-1)[flat] = torch.repeat_interleave(
+        torch.tensor(seg_area, dtype=torch.int32, device=device), freq)
+    return L, start, area
+
+
+def init_batch(groups: list[VirtualTree], capacity: int,
+               device="cuda") -> PrepareState:
+    """Stack ALL groups into one padded (G, F) state for the batched engine."""
+    if not groups:
+        raise ValueError("init_batch needs at least one group")
+    dev = kops.resolve_device(device)
+    L, start, area = _init_arrays(groups, capacity, dev)
+    shape = L.shape
+    return PrepareState(
+        L=L, start=start, area=area,
+        b_off=torch.full(shape, -1, dtype=torch.int32, device=dev),
+        b_c1=torch.zeros(shape, dtype=torch.int32, device=dev),
+        b_c2=torch.zeros(shape, dtype=torch.int32, device=dev),
+    )
+
+
+def _signed_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two unsigned 32-bit lanes (int64) as ONE int64 whose signed order
+    is the lexicographic unsigned order of (hi, lo)."""
+    return (hi - (1 << 31)) * (1 << 32) + lo
+
+
+def _stable_order(keys: list[torch.Tensor]) -> torch.Tensor:
+    """Row-wise (dim 1) stable lexicographic order of (G, F) int64 keys,
+    most significant first: a chain of stable sorts, least significant
+    key first — the permutation ``jnp.lexsort`` gives per row."""
+    order = None
+    for key in reversed(keys):
+        k = key if order is None else torch.gather(key, 1, order)
+        step = torch.sort(k, dim=1, stable=True).indices
+        order = step if order is None else torch.gather(order, 1, step)
+    return order
+
+
+def _fused_sort_order(major, keys, tie, *, w: int, bits: int,
+                      f: int) -> torch.Tensor | None:
+    """Stable row-wise sort order on (major, window, tie) packed into the
+    fewest 32-bit lanes, exactly as ``repro.core.prepare._fused_sort_order``
+    packs them; the lanes are then sorted as int64 pairs.
+
+    Returns None when the packing cannot beat the oracle sort (major + tie
+    alone overflow one lane)."""
+    mb = max(1, int(np.ceil(np.log2(max(f, 2)))))
+    tb = max(1, int(np.ceil(np.log2(w + 2))))
+    if mb + tb > 32:
+        return None
+    kw = w * bits
+    total = mb + kw + tb
+    n_lanes = -(-total // 32)
+    lanes = [torch.zeros(major.shape, dtype=torch.int64, device=major.device)
+             for _ in range(n_lanes)]
+
+    def place(value, pos, width):
+        # OR a right-aligned ``width``-bit field into the conceptual
+        # bitstring at MSB-offset ``pos`` (lane bitrange [32j, 32j+32));
+        # the mask keeps the 32-bit truncation of the uint32 original
+        end = pos + width
+        lane0, lane1 = pos // 32, (end - 1) // 32
+        if lane0 == lane1:
+            lanes[lane0] |= (value << (32 * (lane0 + 1) - end)) & MASK32
+        else:  # field straddles a lane boundary: split high/low
+            lanes[lane0] |= value >> (end - 32 * (lane0 + 1))
+            lanes[lane1] |= (value << (32 * (lane1 + 1) - end)) & MASK32
+
+    place(major.to(torch.int64), 0, mb)
+    for j in range(keys.shape[-1]):
+        m_j = min(32, kw - 32 * j)  # meaningful top bits of word j
+        place(to_u64(keys[..., j]) >> (32 - m_j), mb + 32 * j, m_j)
+    place(tie.to(torch.int64), mb + kw, tb)
+    if n_lanes % 2:
+        lanes.append(torch.zeros_like(lanes[0]))
+    pairs = [_signed_pair(lanes[i], lanes[i + 1])
+             for i in range(0, len(lanes), 2)]
+    return _stable_order(pairs)
+
+
+def prepare_step(pt: PackedText, state: PrepareState, *, w: int,
+                 sort_fuse: bool = False) -> tuple[PrepareState, torch.Tensor]:
+    """One elastic-range iteration of a (G, F) batch for static range ``w``
+    (the word-key branch of ``repro.core.prepare.prepare_step``, batched).
+
+    Returns (new_state, n_active) with ``n_active`` int64[G] on the device.
+    """
+    g, f = state.L.shape
+    dev = state.L.device
+    iota = torch.arange(f, dtype=torch.int32, device=dev).expand(g, f)
+    active = state.area >= 0
+
+    offs = torch.where(active, state.L + state.start, 0)
+    major = torch.where(active, state.area, iota)
+
+    # 1. read the dense word keys (range_gather_words kernel on the card)
+    keys, tie = packing.word_sort_keys(pt, offs.reshape(-1), w,
+                                       gather_words=kops.range_gather_words)
+    nw = keys.shape[1]
+    keys = torch.where(active[..., None], keys.view(g, f, nw), 0)
+    tie = torch.where(active, tie.view(g, f), 0)
+
+    # 2. segmented stable sort; the tiebreak lane is the least significant
+    order = None
+    if sort_fuse:
+        order = _fused_sort_order(major, keys, tie, w=w, bits=pt.bits, f=f)
+    if order is None:
+        order = _stable_order([major.to(torch.int64)]
+                              + [to_u64(keys[..., j]) for j in range(nw)]
+                              + [tie.to(torch.int64)])
+    L = torch.gather(state.L, 1, order)
+    start = torch.gather(state.start, 1, order)
+    keys = torch.gather(keys, 1, order[..., None].expand(g, f, nw))
+
+    # 3. adjacent divergence: XOR + clz + terminal-limit rules
+    lim = packing.word_limit(pt.n_real, L + start, w)
+    prev_rows = torch.cat([keys[:, :1], keys[:, :-1]], dim=1)
+    prev_lim = torch.cat([lim[:, :1], lim[:, :-1]], dim=1)
+    lcp, c1, c2 = packing.lcp_adjacent_words(
+        prev_rows, keys, prev_lim, lim, w, pt.bits, pt.terminal)
+
+    area_prev = torch.roll(state.area, 1, dims=1)  # wraps within a group
+    same_area = (state.area == area_prev) & active & (iota > 0)
+    new_split = same_area & (lcp < w)
+    b_off = torch.where(new_split, start + lcp, state.b_off)
+    b_c1 = torch.where(new_split, c1, state.b_c1)
+    b_c2 = torch.where(new_split, c2, state.b_c2)
+
+    # 4. recompute areas: a run starts where the old area changes or a new
+    #    split landed; singleton runs are done
+    run_start = active & (
+        (iota == 0)
+        | (state.area != area_prev)
+        | ~torch.roll(active, 1, dims=1)
+        | new_split
+    )
+    seg = torch.cummax(torch.where(run_start, iota, -1), dim=1).values
+    tail_true = torch.ones((g, 1), dtype=torch.bool, device=dev)
+    nxt_start = torch.cat([run_start[:, 1:], tail_true], dim=1)
+    nxt_active = torch.cat([active[:, 1:], ~tail_true], dim=1)
+    right_bound = nxt_start | ~nxt_active
+    singleton = run_start & right_bound
+    area = torch.where(active & ~singleton, seg, DONE).to(torch.int32)
+
+    # 5. elastic advance for survivors
+    start = torch.where(area >= 0, start + w, start)
+
+    new_state = PrepareState(L=L, start=start, area=area,
+                             b_off=b_off.to(torch.int32),
+                             b_c1=b_c1, b_c2=b_c2)
+    return new_state, (area >= 0).sum(dim=1)
+
+
+def compact_step_batch(pt: PackedText, states: PrepareState, *, f_prime: int,
+                       w: int, sort_fuse: bool):
+    """One elastic iteration on only the ACTIVE rows of each group.
+
+    Each group's active rows are gathered (ascending) into a (G, f_prime)
+    buffer, :func:`prepare_step` runs there unchanged, and the results are
+    scattered back with ``area`` translated through the gather index map
+    both ways (see ``repro.core.prepare.compact_step_batch`` for why that
+    is exact).  ``f_prime`` must be >= every group's active count.
+    """
+    g, f = states.area.shape
+    dev = states.area.device
+    active = states.area >= 0
+    # batched ``nonzero(size=f_prime, fill_value=f)``: scatter each active
+    # row's index to its rank; inactive rows land in a trash column
+    rank = torch.cumsum(active, dim=1) - 1
+    slot = torch.where(active, rank, f_prime)
+    idx = torch.full((g, f_prime + 1), f, dtype=torch.int64, device=dev)
+    idx.scatter_(1, slot, torch.arange(f, device=dev).expand(g, f))
+    idx = idx[:, :f_prime].contiguous()
+    valid = idx < f
+    safe = torch.clamp(idx, max=f - 1)
+
+    def take(x, fill):
+        return torch.where(valid, torch.gather(x, 1, safe), fill)
+
+    # run-start positions -> compacted positions (run starts are active)
+    carea = torch.where(
+        valid,
+        torch.searchsorted(idx, torch.clamp(take(states.area, 0), min=0)
+                           .to(torch.int64)).to(torch.int32),
+        DONE).to(torch.int32)
+    cst = PrepareState(L=take(states.L, -1), start=take(states.start, 0),
+                       area=carea, b_off=take(states.b_off, -1),
+                       b_c1=take(states.b_c1, 0), b_c2=take(states.b_c2, 0))
+    new, _ = prepare_step(pt, cst, w=w, sort_fuse=sort_fuse)
+    # compacted run starts -> full-layout positions
+    narea = torch.where(
+        new.area >= 0,
+        torch.gather(idx, 1, torch.clamp(new.area, min=0).to(torch.int64))
+        .to(torch.int32), DONE).to(torch.int32)
+    scat = torch.where(valid, idx, f)  # padding goes to the trash column
+
+    def put(full, vals):
+        buf = torch.cat([full, full[:, :1]], dim=1)
+        buf.scatter_(1, scat, vals.to(full.dtype))
+        return buf[:, :f].contiguous()
+
+    new_states = PrepareState(L=put(states.L, new.L),
+                              start=put(states.start, new.start),
+                              area=put(states.area, narea),
+                              b_off=put(states.b_off, new.b_off),
+                              b_c1=put(states.b_c1, new.b_c1),
+                              b_c2=put(states.b_c2, new.b_c2))
+    return new_states, (new_states.area >= 0).sum(dim=1)
+
+
+def compaction_width(maxact: int, capacity: int) -> int | None:
+    """The compacted row width for a global max active count (pow2 bucket),
+    or None while compaction cannot beat the full-width step."""
+    f_prime = max(32, 1 << max(maxact - 1, 0).bit_length())
+    return None if f_prime * 2 > capacity else f_prime
+
+
+def elastic_range(cfg: ElasticConfig, n_active: int) -> int:
+    """range = |R| / |L'| (paper §4.4), bucketed to a power of two."""
+    if not cfg.elastic:
+        return max(4, (cfg.static_w + 3) // 4 * 4)
+    w = max(cfg.w_min, min(cfg.w_max, cfg.r_budget_symbols // max(1, n_active)))
+    return 1 << int(np.floor(np.log2(w)))
+
+
+@dataclasses.dataclass
+class PrepareStats:
+    iterations: int = 0
+    ranges: list = dataclasses.field(default_factory=list)
+    active_history: list = dataclasses.field(default_factory=list)
+    symbols_fetched: int = 0
+
+
+def subtree_prepare_batch(
+    pt: PackedText,
+    groups: list[VirtualTree],
+    capacity: int,
+    cfg: ElasticConfig = ElasticConfig(),
+    stats: PrepareStats | None = None,
+    max_iters: int = 10_000,
+    sort_fuse: bool | None = None,
+    compact: bool | None = None,
+) -> PrepareState:
+    """Run SubTreePrepare to completion for ALL virtual trees at once on
+    the device that holds ``pt``.
+
+    ``sort_fuse``/``compact`` default to the promoted engine (fused sort
+    keys + tail compaction); ``REPRO_SORT=lexsort`` / ``REPRO_COMPACT=off``
+    — or the explicit arguments — pin the oracle paths.  The elastic range
+    is shared across the batch, keyed to the busiest group.
+    """
+    kops._use_word_compare()  # the byte-key currency is refused up front
+    states = init_batch(groups, capacity, pt.device)
+    if sort_fuse is None:
+        sort_fuse = kops._use_sort_fuse()
+    if compact is None:
+        compact = kops._use_compaction()
+    n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
+    it = 0
+    while int(n_active.max()) > 0:
+        w = elastic_range(cfg, int(n_active.max()))
+        if it >= max_iters:
+            live = np.nonzero(n_active > 0)[0]
+            detail = "; ".join(
+                f"group {g}: {len(groups[g].prefixes)} prefixes, "
+                f"total_freq={groups[g].total_freq}, n_active={int(n_active[g])}"
+                for g in live[:8])
+            raise RuntimeError(
+                f"SubTreePrepare failed to converge after {it} iterations "
+                f"(w={w}, {len(live)}/{len(groups)} groups active): {detail}")
+        f_prime = (compaction_width(int(n_active.max()), capacity)
+                   if compact else None)
+        if f_prime is not None:
+            states, n_active_dev = compact_step_batch(
+                pt, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse)
+        else:
+            states, n_active_dev = prepare_step(pt, states, w=w,
+                                                sort_fuse=sort_fuse)
+        if stats is not None:
+            total_active = int(n_active.sum())
+            stats.iterations += 1
+            stats.ranges.append(w)
+            stats.active_history.append(total_active)
+            stats.symbols_fetched += total_active * w
+        n_active = n_active_dev.cpu().numpy()  # the one sync per iteration
+        it += 1
+    return states
+
+
+def segments_of(group: VirtualTree) -> list[tuple[int, int]]:
+    """(offset, length) of each prefix's slice in the packed state arrays."""
+    segs = []
+    off = 0
+    for p in group.prefixes:
+        segs.append((off, p.freq))
+        off += p.freq
+    return segs

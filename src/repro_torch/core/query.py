@@ -1,0 +1,340 @@
+"""Device-resident batched query engine — PyTorch port of ``repro.core.query``.
+
+:class:`DeviceIndex` holds the flattened index on the device: ``ell`` (the
+concatenated leaf arrays in prefix order, i.e. the suffix array), the
+per-sub-tree tables, and a dense top-trie routing table at depth
+``k_route``.  :meth:`DeviceIndex.find_batch_ranges` resolves a whole
+``(B, m)`` batch with one routing gather and a fixed-trip lower/upper
+bound binary search whose only text read is the ``pattern_probe_words``
+kernel — ``n_iter`` launches per batch, one per search step (the JAX
+``fori_loop`` written out as a Python loop).
+
+Only the word currency is ported: the served string is a dense
+:class:`repro_torch.core.packing.PackedText`, and a batch carrying the
+terminal code (which the JAX package answers through its byte-key probe)
+raises until the byte-key slice lands.  Archives keep the JAX package's
+npz layout, so indexes load in both directions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing as packing_mod
+from repro_torch.kernels import ops as kops
+
+
+def npz_path(path: str) -> str:
+    """The path ``np.savez_compressed`` actually writes (``.npz`` appended)."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def route_depth(base: int, max_plen: int, route_cap: int) -> int:
+    """Depth of the dense top-trie routing table: the deepest ``k`` with
+    ``base**k`` cells under ``route_cap`` (and within the shallowest
+    prefix)."""
+    k_route = 1
+    while base ** (k_route + 1) <= route_cap and k_route < max_plen:
+        k_route += 1
+    return k_route
+
+
+def _pack_query_batch(s_text: packing_mod.PackedText, patterns: torch.Tensor,
+                      lengths: torch.Tensor):
+    """Pattern packing (once per batch, word branch): zero symbols past
+    each length in both the dense pattern and its all-ones-field mask."""
+    m_pad = patterns.shape[1]
+    in_pat = (torch.arange(m_pad, device=patterns.device)[None, :]
+              < lengths[:, None])
+    bits = s_text.bits
+    pat_words = packing_mod.pack_pattern_dense(
+        torch.where(in_pat, patterns, 0), bits, s_text.terminal)
+    mask_words = packing_mod.pack_dense(
+        torch.where(in_pat, (1 << bits) - 1, 0), bits)
+    return pat_words, mask_words
+
+
+def _route_window(win_lo, win_hi, pows, spans, lengths, route_syms,
+                  k_route: int):
+    """Routing: one gather into the dense table bounds the binary search
+    to the slice of ``ell`` owned by the pattern's depth-k_route cells."""
+    k = torch.clamp(lengths, max=k_route)
+    in_route = (torch.arange(k_route, device=lengths.device)[None, :]
+                < k[:, None])
+    c_lo = torch.sum(torch.where(in_route, route_syms, 0) * pows[None, :],
+                     dim=1)
+    c_hi = c_lo + spans[k.to(torch.int64)]
+    lo0 = win_lo[c_lo]
+    hi0 = torch.maximum(win_hi[c_hi], lo0)
+    return lo0, hi0
+
+
+def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
+                   *, n_iter: int):
+    """Fixed-trip binary search; the lower and upper bound run fused as
+    one 2B-row probe launch per step.  Returns (llo, ulo) into ``ell``."""
+    b = pat_words.shape[0]
+    total = ell.shape[0]
+    len2 = torch.cat([lengths, lengths])
+    pat2 = torch.cat([pat_words, pat_words], dim=0)
+    mask2 = torch.cat([mask_words, mask_words], dim=0)
+    llo, lhi, ulo, uhi = lo0, hi0, lo0, hi0
+    for _ in range(n_iter):
+        lmid = (llo + lhi) // 2
+        umid = (ulo + uhi) // 2
+        mids = torch.cat([lmid, umid])
+        pos = ell[torch.clamp(mids, 0, total - 1)]
+        cmp = kops.pattern_probe_words(s_text, pos, pat2, mask2, len2)
+        lcmp, ucmp = cmp[:b], cmp[b:]
+        lact = llo < lhi
+        uact = ulo < uhi
+        # lower bound: first suffix >= pattern (prefix match counts as >=)
+        llo, lhi = (torch.where(lact & (lcmp < 0), lmid + 1, llo),
+                    torch.where(lact & (lcmp >= 0), lmid, lhi))
+        # upper bound: first suffix > pattern
+        ulo, uhi = (torch.where(uact & (ucmp <= 0), umid + 1, ulo),
+                    torch.where(uact & (ucmp > 0), umid, uhi))
+    return llo, ulo
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceIndex:
+    """Flattened, device-resident index (dense word currency)."""
+
+    base: int                 # |Σ| + 1 including the terminal
+    k_route: int              # routing-trie depth (base**k_route cells)
+    n_iter: int               # binary-search trip count (covers ``total``)
+    max_pattern_len: int      # padding guarantee baked into ``s_text``
+    s_text: packing_mod.PackedText  # the served string, dense k-bit words
+    ell: torch.Tensor         # int32[total] concatenated leaf arrays (= SA)
+    ell_host: np.ndarray      # host copy of ell (result materialization)
+    sub_off: torch.Tensor     # int32[T] slice start of sub-tree t in ell
+    sub_freq: torch.Tensor    # int32[T]
+    sub_prefix: torch.Tensor  # int32[T, max_plen] prefix symbols, -1 pad
+    sub_plen: torch.Tensor    # int32[T]
+    win_lo: torch.Tensor      # int32[base**k_route] routing slice starts
+    win_hi: torch.Tensor      # int32[base**k_route] routing slice ends
+    pows: torch.Tensor        # int32[k_route] base**(k_route-1-j)
+    spans: torch.Tensor       # int32[k_route+1] base**(k_route-k) - 1
+    epoch: int = 0            # mutation generation (kept for archives)
+
+    @property
+    def n_leaves(self) -> int:
+        return int(self.ell.shape[0])
+
+    @property
+    def n_subtrees(self) -> int:
+        return int(self.sub_off.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.ell.device
+
+    def string_codes(self) -> np.ndarray:
+        """The indexed string back as uint8 codes (terminal included)."""
+        return packing_mod.unpack_text(self.s_text, n=self.n_leaves)
+
+    # ---- construction -----------------------------------------------------
+
+    @classmethod
+    def from_prepare(cls, *, alphabet, s: np.ndarray, prefixes, freqs,
+                     ell, route_cap: int = 1 << 18,
+                     max_pattern_len: int = 512,
+                     packing: str = "auto",
+                     k_route: int | None = None,
+                     epoch: int = 0, device="cuda") -> "DeviceIndex":
+        """Assemble from construction output: sorted prefix tuples, their
+        leaf counts and the concatenated leaf arrays (a device tensor from
+        the batched engine stays on the device; the routing tables are
+        computed on the host from the prefix metadata)."""
+        dev = kops.resolve_device(device)
+        if not packing_mod.resolve_dense(packing, alphabet):
+            raise NotImplementedError(
+                "a byte-per-symbol served string belongs to the byte-key "
+                "currency, which the PyTorch port has not reached yet "
+                "(ROADMAP A7)")
+        base = alphabet.base
+        if not prefixes:
+            raise ValueError("cannot flatten an empty index")
+        freqs = np.asarray(freqs, np.int32)
+        offs = np.concatenate([[0], np.cumsum(freqs)[:-1]]).astype(np.int32)
+        total = int(freqs.sum())
+
+        max_plen = max(len(p) for p in prefixes)
+        plen = np.array([len(p) for p in prefixes], np.int32)
+        pref = np.full((len(prefixes), max_plen), -1, np.int32)
+        for t, p in enumerate(prefixes):
+            pref[t, : len(p)] = p
+
+        if k_route is None:
+            k_route = route_depth(base, max_plen, route_cap)
+        n_cells = base**k_route
+
+        # each sub-tree owns the depth-k_route code interval [clo, chi] of
+        # its (truncated) prefix; prefix-freeness keeps them sorted
+        clo = np.zeros(len(prefixes), np.int64)
+        chi = np.zeros(len(prefixes), np.int64)
+        for t, p in enumerate(prefixes):
+            kk = min(len(p), k_route)
+            c = 0
+            for j in range(kk):
+                c = c * base + p[j]
+            clo[t] = c * base ** (k_route - kk)
+            chi[t] = clo[t] + base ** (k_route - kk) - 1
+        codes = np.arange(n_cells, dtype=np.int64)
+        off_ext = np.concatenate([offs, [total]]).astype(np.int32)
+        win_lo = off_ext[np.searchsorted(chi, codes, side="left")]
+        t_last = np.searchsorted(clo, codes, side="right") - 1
+        win_hi = np.where(t_last >= 0, offs[np.maximum(t_last, 0)]
+                          + freqs[np.maximum(t_last, 0)], 0).astype(np.int32)
+
+        n_iter = int(np.ceil(np.log2(total + 1))) + 1
+        pows = (base ** np.arange(k_route - 1, -1, -1)).astype(np.int32)
+        spans = (base ** (k_route - np.arange(k_route + 1)) - 1).astype(np.int32)
+        s_text = packing_mod.pack_text(np.asarray(s), alphabet,
+                                       extra=max_pattern_len + 8, device=dev)
+        ell_dev = torch.as_tensor(ell).to(device=dev, dtype=torch.int32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return cls(
+            base=base, k_route=k_route, n_iter=n_iter,
+            max_pattern_len=max_pattern_len, s_text=s_text,
+            ell=ell_dev, ell_host=ell_dev.cpu().numpy(),
+            sub_off=t(offs), sub_freq=t(freqs), sub_prefix=t(pref),
+            sub_plen=t(plen), win_lo=t(win_lo), win_hi=t(win_hi),
+            pows=t(pows), spans=t(spans), epoch=int(epoch),
+        )
+
+    # ---- persistence (the JAX package's npz layout) -------------------------
+
+    _BLOB_FIELDS = ("ell", "sub_off", "sub_freq", "sub_prefix",
+                    "sub_plen", "win_lo", "win_hi", "pows", "spans")
+
+    def to_blobs(self) -> dict[str, np.ndarray]:
+        """Dense-layout blobs: ``s_words`` (uint32) and the 7-entry meta
+        ``[base, k_route, n_iter, max_pattern_len, s_bits, n_real, epoch]``."""
+        meta = [self.base, self.k_route, self.n_iter, self.max_pattern_len,
+                self.s_text.bits, self.s_text.n_real, self.epoch]
+        blobs = {"s_words": self.s_text.words_numpy(),
+                 "meta": np.array(meta, np.int64)}
+        for name in self._BLOB_FIELDS:
+            blobs[name] = getattr(self, name).cpu().numpy()
+        return blobs
+
+    @classmethod
+    def from_blobs(cls, data, device="cuda") -> "DeviceIndex":
+        """Restore from :meth:`to_blobs` output or from the JAX package's
+        ``DeviceIndex.to_blobs()`` (dense layout)."""
+        dev = kops.resolve_device(device)
+        if "s_words" not in data:
+            raise NotImplementedError(
+                "byte-format archives (s_padded) belong to the byte-key "
+                "currency, which the PyTorch port has not reached yet "
+                "(ROADMAP A7)")
+        meta = np.asarray(data["meta"])
+        s_text = packing_mod.PackedText.from_numpy(
+            np.asarray(data["s_words"]), int(meta[5]), int(meta[4]),
+            int(meta[0]) - 1, dev)
+        epoch = int(meta[6]) if meta.size > 6 else 0
+        fields = {name: torch.from_numpy(np.array(data[name], np.int32)).to(dev)
+                  for name in cls._BLOB_FIELDS}
+        return cls(base=int(meta[0]), k_route=int(meta[1]), n_iter=int(meta[2]),
+                   max_pattern_len=int(meta[3]), s_text=s_text,
+                   ell_host=np.asarray(data["ell"], np.int32), epoch=epoch,
+                   **fields)
+
+    def save(self, path: str) -> None:
+        """Persist the flattened index (npz); ``load`` restores it exactly."""
+        np.savez_compressed(npz_path(path), **self.to_blobs())
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "DeviceIndex":
+        with np.load(npz_path(path)) as data:
+            return cls.from_blobs(data, device=device)
+
+    # ---- queries ----------------------------------------------------------
+
+    def pad_batch(self, patterns, *, m_pad: int | None = None,
+                  b_pad: int | None = None,
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Pad a list of 1-D code arrays to (B, m_pad) + lengths + route
+        rows (host numpy), exactly as the JAX ``pad_batch`` does."""
+        if not len(patterns):
+            raise ValueError("empty batch")
+        lengths = np.array([len(p) for p in patterns], np.int32)
+        if (lengths < 1).any():
+            raise ValueError("patterns must have length >= 1")
+        m_max = int(lengths.max())
+        m_nat = -(-m_max // 4) * 4
+        if m_pad is None:
+            m_pad = m_nat
+        elif m_pad % 4 or m_pad < m_nat:
+            raise ValueError(
+                f"m_pad={m_pad} must be a multiple of 4 and >= {m_nat}")
+        if m_pad > self.max_pattern_len:
+            raise ValueError(
+                f"pattern length {m_max} exceeds max_pattern_len="
+                f"{self.max_pattern_len}; rebuild with a larger max_pattern_len")
+        b = len(patterns)
+        if b_pad is None:
+            b_pad = b
+        elif b_pad < b:
+            raise ValueError(f"b_pad={b_pad} < batch size {b}")
+        padded = np.zeros((b_pad, m_pad), np.int32)
+        route = np.zeros((b_pad, self.k_route), np.int32)
+        for i, p in enumerate(patterns):
+            arr = np.asarray(p, np.int32)
+            if arr.size and (arr.min() < 0 or arr.max() >= self.base):
+                raise ValueError(f"pattern {i} has codes outside [0, {self.base})")
+            padded[i, : len(arr)] = arr
+            route[i, : min(len(arr), self.k_route)] = arr[: self.k_route]
+        if b_pad > b:
+            lengths = np.concatenate(
+                [lengths, np.ones(b_pad - b, np.int32)])
+        return padded, lengths, route
+
+    def _word_gate(self, patterns, pat_max: int | None) -> None:
+        """The word probe serves batches of real symbols only.  The JAX
+        package answers a batch carrying the terminal code through its
+        byte-key probe; the port refuses it rather than answer differently."""
+        kops._use_word_compare()
+        if pat_max is None:
+            if isinstance(patterns, torch.Tensor):
+                pat_max = int(patterns.max()) if patterns.numel() else 0
+            else:
+                pat_max = int(np.asarray(patterns).max(initial=0))
+        if pat_max >= self.s_text.terminal:
+            raise ValueError(
+                "a pattern batch carrying the terminal code needs the "
+                "byte-key probe, which the PyTorch port has not reached yet "
+                "(ROADMAP A7)")
+
+    def find_batch_ranges(self, patterns, lengths, route_syms,
+                          *, pat_max: int | None = None):
+        """(B, m_pad)/(B,)/(B, k_route) → (start, count) int32 slices of
+        ``ell`` on the device (matches are ``ell[start:start+count]``)."""
+        self._word_gate(patterns, pat_max)
+        dev = self.device
+        patterns = torch.as_tensor(patterns, dtype=torch.int32, device=dev)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        route_syms = torch.as_tensor(route_syms, dtype=torch.int32, device=dev)
+        pat_words, mask_words = _pack_query_batch(self.s_text, patterns,
+                                                  lengths)
+        lo0, hi0 = _route_window(self.win_lo, self.win_hi, self.pows,
+                                 self.spans, lengths, route_syms, self.k_route)
+        llo, ulo = _search_bounds(self.s_text, self.ell, pat_words,
+                                  mask_words, lengths, lo0, hi0,
+                                  n_iter=self.n_iter)
+        return llo, torch.clamp(ulo - llo, min=0)
+
+    def find_batch(self, patterns) -> list[np.ndarray]:
+        """All occurrence positions for each pattern (sorted, int64)."""
+        padded, lengths, route = self.pad_batch(patterns)
+        start, count = self.find_batch_ranges(padded, lengths, route)
+        start = start.cpu().numpy()
+        count = count.cpu().numpy()
+        ell = self.ell_host  # avoid a full device->host copy per batch
+        return [np.sort(ell[s : s + c].astype(np.int64))
+                for s, c in zip(start, count)]

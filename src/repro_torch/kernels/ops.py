@@ -1,0 +1,95 @@
+"""Kernel dispatch for the port (counterpart of ``repro.kernels.ops``).
+
+Dispatch goes by the device of the tensors a call is given, never by a
+knob: a CUDA tensor always reaches the hand-written kernel (a build or
+launch failure raises), a CPU tensor runs the kernel's plain version.
+Entry points therefore choose the path through their ``device`` argument
+(:func:`resolve_device`), which defaults to ``"cuda"`` and refuses to run
+silently on the CPU when the card is missing.
+
+The construction and search knobs keep the JAX package's names and
+meanings, so one CI leg covers both packages:
+
+* ``REPRO_WORD_COMPARE=word`` (default) — dense words are the compare
+  currency; ``byte`` selects the byte-key currency, which the port has not
+  reached yet and therefore refuses;
+* ``REPRO_SORT=fused|lexsort`` — fused single-lane sort keys or the
+  multi-key oracle sort;
+* ``REPRO_COMPACT=tail|off`` — tail compaction of the elastic step.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from repro_torch.kernels.kmer_histogram import kmer_histogram
+from repro_torch.kernels.packed_gather import (
+    pattern_probe_words,
+    range_gather_words,
+)
+
+KERNELS = {
+    "range_gather_words": range_gather_words,
+    "pattern_probe_words": pattern_probe_words,
+    "kmer_histogram": kmer_histogram,
+}
+
+__all__ = ["KERNELS", "kmer_histogram", "launch_counts", "pattern_probe_words",
+           "range_gather_words", "reset_launch_counts", "resolve_device"]
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, per kernel (plain-version calls not counted)."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`; a CUDA device without a card
+    raises instead of letting the caller run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def _use_word_compare() -> bool:
+    env = os.environ.get("REPRO_WORD_COMPARE", "")
+    if env in ("", "word"):
+        return True
+    if env == "byte":
+        raise NotImplementedError(
+            "REPRO_WORD_COMPARE=byte selects the byte-key currency, which "
+            "the PyTorch port has not reached yet (ROADMAP A7)")
+    raise ValueError(
+        f"unknown REPRO_WORD_COMPARE={env!r}; choose 'word' or 'byte'")
+
+
+def _use_sort_fuse() -> bool:
+    env = os.environ.get("REPRO_SORT", "")
+    if env == "lexsort":
+        return False
+    if env in ("", "fused"):
+        return True
+    raise ValueError(
+        f"unknown REPRO_SORT={env!r}; choose 'fused' or 'lexsort'")
+
+
+def _use_compaction() -> bool:
+    env = os.environ.get("REPRO_COMPACT", "")
+    if env == "off":
+        return False
+    if env in ("", "tail"):
+        return True
+    raise ValueError(
+        f"unknown REPRO_COMPACT={env!r}; choose 'tail' or 'off'")

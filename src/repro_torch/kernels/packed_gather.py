@@ -1,0 +1,141 @@
+"""Wrappers of the word-currency CUDA kernels over the dense text.
+
+* :func:`range_gather_words` — ``csrc/range_gather_words.cu``, the port of
+  ``repro/kernels/packed_gather.py:range_gather_words``: ``ceil(w/spw)``
+  shift-aligned, terminal-substituted dense words per offset.
+* :func:`pattern_probe_words` — ``csrc/pattern_probe_words.cu``, the port
+  of ``repro/kernels/packed_gather.py:pattern_probe_words``: the −1/0/+1
+  verdict of a masked dense pattern against the suffix at each position.
+
+Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
+(or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
+counts its launches in its ``launches`` attribute, where it launches and
+nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.packing import PackedText, _sub_word
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_U32 = ctypes.c_uint
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU; raise on a device mix or on
+    a device that is neither the CPU nor CUDA."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
+                     f"device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_extra(pt: PackedText, w: int) -> None:
+    """The read contract of :func:`repro_torch.core.packing.pack_text`: a
+    ``w``-symbol read at any offset up to ``n_real`` stays in the words."""
+    spw = pt.syms_per_word
+    need = -(-(pt.n_real + w) // spw) + 1
+    if pt.words.shape[0] < need:
+        raise ValueError(
+            f"reads of {w} symbols need {need} words but the text holds "
+            f"{pt.words.shape[0]}: pack it with a larger extra")
+
+
+def _stream(device: torch.device) -> _P:
+    return _P(torch.cuda.current_stream(device).cuda_stream)
+
+
+def range_gather_words(pt: PackedText, offs: torch.Tensor,
+                       w: int) -> torch.Tensor:
+    """(F, ceil(w/spw)) int32 dense words (uint32 bit patterns) at each
+    offset, bit-identical to :func:`repro_torch.core.packing.gather_words_dense`.
+
+    ``offs``: int32[F] offsets in ``[0, n_real]``.
+    """
+    if _on_cpu(pt.words, offs):
+        return _ref.range_gather_words_ref(pt, offs, w)
+    _require(pt.words, "words", torch.int32, 1)
+    _require(offs, "offs", torch.int32, 1)
+    _check_extra(pt, w)
+    nw = -(-w // pt.syms_per_word)
+    f = offs.shape[0]
+    out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
+    if f == 0:
+        return out
+    fn = _build.entry("range_gather_words",
+              [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P])
+    with torch.cuda.device(offs.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
+                nw, pt.bits, pt.n_real, _sub_word(pt.bits, pt.terminal),
+                out.data_ptr(), _stream(offs.device))
+    _build.check(rc, "range_gather_words")
+    range_gather_words.launches += 1
+    return out
+
+
+range_gather_words.launches = 0
+
+
+def pattern_probe_words(pt: PackedText, pos: torch.Tensor,
+                        pat_dense: torch.Tensor, mask_dense: torch.Tensor,
+                        lengths: torch.Tensor,
+                        lim_p: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[B] in {−1, 0, +1}: each masked dense pattern row against the
+    suffix at ``pos``, bit-identical to
+    :func:`repro_torch.kernels.ref.pattern_probe_words_ref`.
+
+    pat_dense / mask_dense: (B, NW) int32 dense rows; lengths: int32[B]
+    compare lengths; lim_p: the pattern side's first-terminal index
+    (defaults to ``lengths``: no terminal in the pattern).
+    """
+    if lim_p is None:
+        lim_p = lengths
+    if _on_cpu(pt.words, pos, pat_dense, mask_dense, lengths, lim_p):
+        return _ref.pattern_probe_words_ref(pt, pos, pat_dense, mask_dense,
+                                            lengths, lim_p)
+    b, nw = pat_dense.shape
+    _require(pt.words, "words", torch.int32, 1)
+    _require(pos, "pos", torch.int32, 1)
+    _require(pat_dense, "pat_dense", torch.int32, 2)
+    _require(mask_dense, "mask_dense", torch.int32, 2)
+    _require(lengths, "lengths", torch.int32, 1)
+    _require(lim_p, "lim_p", torch.int32, 1)
+    if (mask_dense.shape != (b, nw) or pos.shape[0] != b
+            or lengths.shape[0] != b or lim_p.shape[0] != b):
+        raise ValueError("pattern_probe_words: row counts disagree")
+    _check_extra(pt, nw * pt.syms_per_word)
+    out = torch.empty(b, dtype=torch.int32, device=pos.device)
+    if b == 0:
+        return out
+    fn = _build.entry("pattern_probe_words",
+              [_P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _U32,
+               _P, _P])
+    with torch.cuda.device(pos.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos.data_ptr(),
+                pat_dense.data_ptr(), mask_dense.data_ptr(),
+                lengths.data_ptr(), lim_p.data_ptr(), b, nw, pt.bits,
+                pt.n_real, _sub_word(pt.bits, pt.terminal), out.data_ptr(),
+                _stream(pos.device))
+    _build.check(rc, "pattern_probe_words")
+    pattern_probe_words.launches += 1
+    return out
+
+
+pattern_probe_words.launches = 0

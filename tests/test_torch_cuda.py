@@ -1,0 +1,82 @@
+"""The port's hand-written CUDA kernels against their plain versions, on a card.
+
+Each test carries the ``cuda`` marker and skips without an NVIDIA card
+(the kernels have no CPU mode); run them on the card with
+``python -m pytest -m cuda tests/test_torch_cuda.py``.  The file imports
+no JAX, so it also runs where only PyTorch is installed.  Tolerance:
+exact — the kernels are integer kernels.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import packing as tpk
+from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.kernels import kmer_histogram as tkmer
+from repro_torch.kernels import ops
+from repro_torch.kernels import packed_gather as tpg
+from repro_torch.kernels import ref as tref
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["dna", "protein_class"])
+def test_cuda_range_gather_words(cuda_device, alpha):
+    a = ALPHABETS[alpha]
+    s = a.random_string(50_000, seed=1)
+    pt = tpk.pack_text(s, a, extra=264, device=cuda_device)
+    offs = torch.randint(0, pt.n_real + 1, (4096,), dtype=torch.int32,
+                         device=cuda_device)
+    for w in (4, 16, 64, 256):
+        got = tpg.range_gather_words(pt, offs, w)
+        assert torch.equal(got, tref.range_gather_words_ref(pt, offs, w))
+
+
+@pytest.mark.cuda
+def test_cuda_pattern_probe_words(cuda_device):
+    rng = np.random.default_rng(3)
+    dna = ALPHABETS["dna"]
+    n, b, m = 5000, 400, 24
+    s = dna.random_string(n, seed=n)
+    pos = rng.integers(0, n + 1, size=b).astype(np.int32)
+    pos[-20:] = rng.integers(n - m, n + 1, size=20)  # runs into the terminal
+    lengths = rng.integers(1, m + 1, size=b).astype(np.int32)
+    sym = rng.integers(0, 4, size=(b, m)).astype(np.int32)
+    for i in range(0, b, 3):  # the suffix itself: verdict 0 unless it ends
+        seg = s[pos[i]:min(pos[i] + m, n)]
+        sym[i, :seg.size] = seg
+    valid = np.arange(m)[None, :] < lengths[:, None]
+    pt = tpk.pack_text(s, dna, extra=64, device=cuda_device)
+    pat = tpk.pack_pattern_dense(torch.from_numpy(np.where(valid, sym, 0)),
+                                 2, 4).to(cuda_device)
+    mask = tpk.pack_dense(torch.from_numpy(
+        np.where(valid, 3, 0).astype(np.int32)), 2).to(cuda_device)
+    args = (pt, torch.from_numpy(pos).to(cuda_device), pat, mask,
+            torch.from_numpy(lengths).to(cuda_device))
+    assert torch.equal(tpg.pattern_probe_words(*args),
+                       tref.pattern_probe_words_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,base", [(1, 5), (6, 5), (3, 21), (4, 16)])
+def test_cuda_kmer_histogram(cuda_device, k, base):
+    rng = np.random.default_rng(k)
+    s = torch.from_numpy(rng.integers(0, base, size=100_000 + k).astype(np.uint8))
+    s = s.to(cuda_device)
+    got = tkmer.kmer_histogram(s, 100_000, k, base)
+    assert torch.equal(got, tref.kmer_histogram_ref(s, 100_000, k, base))
+
+
+@pytest.mark.cuda
+def test_cuda_launches_are_counted(cuda_device):
+    ops.reset_launch_counts()
+    s = torch.zeros(64, dtype=torch.uint8, device=cuda_device)
+    ops.kmer_histogram(s, 60, 2, 5)
+    assert ops.launch_counts()["kmer_histogram"] == 1

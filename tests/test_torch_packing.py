@@ -1,0 +1,152 @@
+"""PyTorch port vs the JAX package: the dense word currency (core/packing).
+
+Inputs come from a seed with numpy and go to both packages; the port runs
+on the CPU.  Tolerance: exact — every quantity is an integer.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packing as jpk
+from repro.core.alphabet import BYTE as J_BYTE
+from repro.core.alphabet import DNA as J_DNA
+from repro.core.alphabet import PROTEIN_CLASS as J_PC
+from repro_torch.core import packing as tpk
+from repro_torch.core.alphabet import ALPHABETS
+
+ALPHAS = [J_DNA, J_PC, J_BYTE]
+IDS = [a.name for a in ALPHAS]
+
+
+def _pair(j_alpha, n, seed, extra):
+    s = j_alpha.random_string(n, seed=seed)
+    jt = jpk.pack_text(s, j_alpha, extra=extra)
+    tt = tpk.pack_text(s, ALPHABETS[j_alpha.name], extra=extra, device="cpu")
+    return s, jt, tt
+
+
+def _offsets(rng, n, w, spw, count):
+    """Random offsets plus every offset within w of n_real and a run across
+    a word boundary."""
+    near_end = np.arange(max(0, n - w), n + 1)
+    boundary = np.arange(spw * 3 - 2, spw * 3 + 3)
+    return np.concatenate([rng.integers(0, n + 1, size=count), near_end,
+                           boundary[boundary <= n]]).astype(np.int32)
+
+
+@pytest.mark.parametrize("alpha", ALPHAS, ids=IDS)
+@pytest.mark.parametrize("n", [1, 37, 1000])
+def test_pack_text_words_equal(alpha, n):
+    s, jt, tt = _pair(alpha, n, seed=n, extra=24)
+    np.testing.assert_array_equal(tt.words_numpy(), np.asarray(jt.words))
+    assert tt.n_real == int(jt.n_real) and tt.bits == jt.bits
+    assert tt.terminal == jt.terminal
+    np.testing.assert_array_equal(tpk.unpack_text(tt), s)
+
+
+def test_pack_text_rejects_unterminated():
+    with pytest.raises(ValueError, match="terminated"):
+        tpk.pack_text(np.zeros(4, np.uint8), ALPHABETS["dna"], device="cpu")
+
+
+def test_from_numpy_round_trips_jax_words():
+    s, jt, _ = _pair(J_DNA, 500, seed=3, extra=16)
+    pt = tpk.PackedText.from_numpy(np.asarray(jt.words), int(jt.n_real),
+                                   jt.bits, jt.terminal, device="cpu")
+    assert pt.words.dtype == torch.int32
+    np.testing.assert_array_equal(pt.words_numpy(), np.asarray(jt.words))
+
+
+@pytest.mark.parametrize("alpha", ALPHAS, ids=IDS)
+@pytest.mark.parametrize("w", [4, 16, 64, 256])
+def test_gather_words_dense_equal(alpha, w):
+    n = 700
+    rng = np.random.default_rng(w)
+    s, jt, tt = _pair(alpha, n, seed=w + 1, extra=w + 8)
+    offs = _offsets(rng, n, w, tt.syms_per_word, 60)
+    want = np.asarray(jpk.gather_words_dense(jt, jnp.asarray(offs), w))
+    got = tpk.gather_words_dense(tt, torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(tpk.words_to_numpy(got), want)
+
+
+@pytest.mark.parametrize("alpha", ALPHAS, ids=IDS)
+def test_word_sort_keys_equal(alpha):
+    n, w = 400, 32
+    rng = np.random.default_rng(5)
+    s, jt, tt = _pair(alpha, n, seed=9, extra=w + 8)
+    offs = _offsets(rng, n, w, tt.syms_per_word, 40)
+    jk, jtie = jpk.word_sort_keys(jt, jnp.asarray(offs), w)
+    tk, ttie = tpk.word_sort_keys(tt, torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(tpk.words_to_numpy(tk), np.asarray(jk))
+    np.testing.assert_array_equal(ttie.numpy(), np.asarray(jtie))
+    assert ttie.dtype == torch.int32
+
+
+@pytest.mark.parametrize("alpha", ALPHAS, ids=IDS)
+@pytest.mark.parametrize("w", [4, 16, 64])
+def test_lcp_adjacent_words_equal(alpha, w):
+    """Adjacent rows of sorted-looking reads, limits from real offsets."""
+    n = 600
+    rng = np.random.default_rng(w + 3)
+    s, jt, tt = _pair(alpha, n, seed=w, extra=w + 8)
+    offs = _offsets(rng, n, w, tt.syms_per_word, 50)
+    # repeat offsets so some adjacent rows are fully equal
+    offs = np.sort(np.concatenate([offs, offs[:10]])).astype(np.int32)
+    jrows = jpk.gather_words_dense(jt, jnp.asarray(offs), w)
+    jlim = jpk.word_limit(jt.n_real, jnp.asarray(offs), w)
+    want = jpk.lcp_adjacent_words(jrows[:-1], jrows[1:], jlim[:-1], jlim[1:],
+                                  w, jt.bits, jt.terminal)
+    trows = tpk.gather_words_dense(tt, torch.from_numpy(offs), w)
+    tlim = tpk.word_limit(tt.n_real, torch.from_numpy(offs), w)
+    got = tpk.lcp_adjacent_words(trows[:-1], trows[1:], tlim[:-1], tlim[1:],
+                                 w, tt.bits, tt.terminal)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_pack_dense_and_pattern_equal(bits):
+    rng = np.random.default_rng(bits)
+    terminal = {2: 4, 4: 10, 8: 255}[bits]
+    sym = rng.integers(0, terminal + 1, size=(9, 37)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tpk.words_to_numpy(tpk.pack_pattern_dense(torch.from_numpy(sym), bits,
+                                                  terminal)),
+        np.asarray(jpk.pack_pattern_dense(jnp.asarray(sym), bits, terminal)))
+    real = np.minimum(sym, (1 << bits) - 1)
+    np.testing.assert_array_equal(
+        tpk.words_to_numpy(tpk.pack_dense(torch.from_numpy(real), bits)),
+        np.asarray(jpk.pack_dense(jnp.asarray(real), bits)))
+
+
+def test_clz32_equal():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        [0, 1, 2, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0x00010000, 0xFFFF],
+        rng.integers(0, 1 << 32, size=200, dtype=np.uint64),
+        1 << rng.integers(0, 32, size=50, dtype=np.uint64),
+    ]).astype(np.uint32)
+    want = np.asarray(jpk.clz32(jnp.asarray(x)))
+    got = tpk.clz32(torch.from_numpy(x.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int32_bit_pattern_helpers_round_trip():
+    x = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+    as_i32 = torch.from_numpy(x.view(np.int32))
+    u = tpk.to_u64(as_i32)
+    np.testing.assert_array_equal(u.numpy(), x.astype(np.int64))
+    np.testing.assert_array_equal(tpk.words_to_numpy(tpk.to_i32(u)), x)
+
+
+@pytest.mark.parametrize("mode,expect", [("auto", [True, True, False, False]),
+                                         ("dense", [True] * 4),
+                                         ("bytes", [False] * 4)])
+def test_resolve_dense_equal(mode, expect):
+    names = ["dna", "protein_class", "protein", "byte"]
+    got = [tpk.resolve_dense(mode, ALPHABETS[a]) for a in names]
+    from repro.core.alphabet import ALPHABETS as J
+    want = [jpk.resolve_dense(mode, J[a]) for a in names]
+    assert got == want == expect

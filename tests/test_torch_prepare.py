@@ -1,0 +1,172 @@
+"""PyTorch port vs the JAX package: the batched elastic-range engine.
+
+All six ``PrepareState`` fields must be identical after
+``subtree_prepare_batch``, on the grids of ``tests/test_batched_build.py``
+and ``tests/test_engine_promotion.py::TestBitIdentity``, under the default
+leg (fused sort keys + tail compaction) and the ``REPRO_SORT=lexsort`` and
+``REPRO_COMPACT=off`` legs, set through the environment both packages
+read.  The port runs on the CPU.  Tolerance: exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import prepare as jprep
+from repro.core.alphabet import ALPHABETS as J_ALPHABETS
+from repro.core.api import EraConfig as JConfig
+from repro.core.api import EraIndexer as JIndexer
+from repro.data.strings import dataset as j_dataset
+from repro_torch.core import prepare as tprep
+from repro_torch.core.api import EraConfig, EraIndexer
+from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.core.packing import words_to_numpy
+
+FIELDS = ("L", "start", "area", "b_off", "b_c1", "b_c2")
+LEGS = {"default": {}, "lexsort": {"REPRO_SORT": "lexsort"},
+        "compact_off": {"REPRO_COMPACT": "off"}}
+
+
+def _both(s, alpha_name, mem, packing="auto"):
+    kw = dict(memory_bytes=mem, r_bytes=128, build_impl="none",
+              packing=packing)
+    jix = JIndexer(J_ALPHABETS[alpha_name], JConfig(**kw))
+    tix = EraIndexer(ALPHABETS[alpha_name], EraConfig(**kw), device="cpu")
+    return jix, tix
+
+
+def _run(s, alpha_name, mem, packing="auto"):
+    jix, tix = _both(s, alpha_name, mem, packing)
+    jg = jix.partition(s)
+    tg = tix.partition(s)
+    cap = jix._capacity(jg)
+    assert cap == tix._capacity(tg)
+    jst = jprep.subtree_prepare_batch(jix._device_text(s), jg, cap,
+                                      jix.config.elastic_config())
+    tst = tprep.subtree_prepare_batch(tix._device_text(s), tg, cap,
+                                      tix.config.elastic_config())
+    return jst, tst, len(jg)
+
+
+def _assert_fields(jst, tst):
+    for field in FIELDS:
+        got = getattr(tst, field)
+        assert got.dtype == torch.int32, field
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(jst, field)),
+                                      err_msg=field)
+
+
+@pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("alpha,n,mem,packing", [
+    ("dna", 900, 1024, "auto"),
+    ("dna", 1200, 768, "auto"),            # G > 1, uneven group sizes
+    ("protein_class", 700, 2048, "auto"),  # 4-bit words
+    ("byte", 450, 4096, "dense"),          # 8-bit words, codes >= 128
+])
+def test_batched_build_grid(monkeypatch, leg, alpha, n, mem, packing):
+    for var, val in LEGS[leg].items():
+        monkeypatch.setenv(var, val)
+    s = J_ALPHABETS[alpha].random_string(n, seed=n + mem)
+    jst, tst, _ = _run(s, alpha, mem, packing)
+    _assert_fields(jst, tst)
+
+
+@pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("name,n,mem", [("dna", 6_000, 1 << 12),
+                                        ("genome", 5_000, 1 << 12)])
+def test_bit_identity_grid(monkeypatch, leg, name, n, mem):
+    for var, val in LEGS[leg].items():
+        monkeypatch.setenv(var, val)
+    s, _ = j_dataset(name, n, seed=0)
+    jst, tst, g = _run(s, "dna", mem)
+    assert g > 1
+    _assert_fields(jst, tst)
+
+
+def test_fused_and_oracle_engines_agree_in_port():
+    s, _ = j_dataset("genome", 4000, seed=2)
+    _, tix = _both(s, "dna", 1 << 12)
+    groups = tix.partition(s)
+    cap = tix._capacity(groups)
+    pt = tix._device_text(s)
+    ecfg = tix.config.elastic_config()
+    fused = tprep.subtree_prepare_batch(pt, groups, cap, ecfg,
+                                        sort_fuse=True, compact=True)
+    oracle = tprep.subtree_prepare_batch(pt, groups, cap, ecfg,
+                                         sort_fuse=False, compact=False)
+    for field in FIELDS:
+        assert torch.equal(getattr(fused, field), getattr(oracle, field)), field
+
+
+@pytest.mark.parametrize("w,f", [(4, 1000), (64, 300), (256, 70),
+                                 (512, 5000)])
+def test_fused_sort_order_equal(w, f):
+    """Multi-lane keys (w * bits > 32) and the one-lane case give the
+    JAX lexsort's permutation, rows of equal keys included."""
+    rng = np.random.default_rng(w + f)
+    bits = 2
+    nw = -(-w // 16)
+    major = rng.integers(0, 4, size=f).astype(np.int32)
+    keys = rng.integers(0, 4, size=(f, nw), dtype=np.uint64).astype(np.uint32)
+    keys[::3] = keys[0]  # ties on the window
+    keys[5::7, 0] = 0xFFFFFFFF  # high bit set
+    tie = rng.integers(0, 3, size=f).astype(np.int32)
+    want = jprep._fused_sort_order(jnp.asarray(major), jnp.asarray(keys),
+                                   jnp.asarray(tie), w=w, bits=bits, f=f)
+    got = tprep._fused_sort_order(
+        torch.from_numpy(major)[None], torch.from_numpy(keys.view(np.int32))[None],
+        torch.from_numpy(tie)[None], w=w, bits=bits, f=f)
+    if want is None:
+        assert got is None
+    else:
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+def test_init_batch_equal():
+    s, _ = j_dataset("dna", 3000, seed=1)
+    jix, tix = _both(s, "dna", 2048)
+    jg, tg = jix.partition(s), tix.partition(s)
+    cap = jix._capacity(jg)
+    jst = jprep.init_batch(jg, cap)
+    tst = tprep.init_batch(tg, cap, device="cpu")
+    _assert_fields(jst, tst)
+    with pytest.raises(ValueError, match="exceeds capacity"):
+        tprep.init_batch(tg, cap - 1, device="cpu")
+
+
+@pytest.mark.parametrize("maxact,cap", [(1, 1024), (33, 1024), (65, 1024),
+                                        (600, 1024), (512, 1024), (1, 16)])
+def test_compaction_width_equal(maxact, cap):
+    assert tprep.compaction_width(maxact, cap) == jprep.compaction_width(
+        maxact, cap)
+
+
+@pytest.mark.parametrize("n_active", [1, 100, 5000, 1 << 20, 10 ** 8])
+def test_elastic_range_equal(n_active):
+    for cfg in (dict(), dict(elastic=False, static_w=10)):
+        assert (tprep.elastic_range(tprep.ElasticConfig(**cfg), n_active)
+                == jprep.elastic_range(jprep.ElasticConfig(**cfg), n_active))
+
+
+def test_stats_equal():
+    s, _ = j_dataset("genome", 3000, seed=4)
+    jix, tix = _both(s, "dna", 2048)
+    jg, tg = jix.partition(s), tix.partition(s)
+    cap = jix._capacity(jg)
+    js, ts = jprep.PrepareStats(), tprep.PrepareStats()
+    jprep.subtree_prepare_batch(jix._device_text(s), jg, cap,
+                                jix.config.elastic_config(), js)
+    tprep.subtree_prepare_batch(tix._device_text(s), tg, cap,
+                                tix.config.elastic_config(), ts)
+    assert (ts.iterations, ts.ranges, ts.active_history,
+            ts.symbols_fetched) == (js.iterations, js.ranges,
+                                    js.active_history, js.symbols_fetched)
+
+
+def test_device_text_words_equal():
+    s, _ = j_dataset("dna", 2000, seed=7)
+    jix, tix = _both(s, "dna", 2048)
+    np.testing.assert_array_equal(words_to_numpy(tix._device_text(s).words),
+                                  np.asarray(jix._device_text(s).words))
