@@ -2,14 +2,18 @@
 
 This slice ports the main path, :meth:`EraIndexer.build_device`:
 
-    vertical partitioning → grouping → dense k-bit text →
-    batched elastic-range SubTreePrepare on the (G, F) state →
-    flatten to suffix-array order → :class:`repro_torch.core.query.DeviceIndex`
+    vertical partitioning → grouping → device text (dense k-bit words,
+    or the terminal-padded byte string) → batched elastic-range
+    SubTreePrepare on the (G, F) state → flatten to suffix-array order →
+    :class:`repro_torch.core.query.DeviceIndex`
 
-Everything runs on the indexer's ``device`` (``"cuda"`` by default;
-``"cpu"`` runs every kernel's plain version).  The serial engine, the byte
-currency and the node build are later slices of the port and are refused
-with ``NotImplementedError`` naming their ROADMAP item.
+``EraConfig.packing`` picks the text as in the JAX package: ``auto``
+packs alphabets below 8 bits (DNA, protein classes) dense and keeps
+protein, english and byte strings one byte per symbol; ``bytes`` keeps any
+alphabet byte per symbol.  Everything runs on the indexer's ``device``
+(``"cuda"`` by default; ``"cpu"`` runs every kernel's plain version).  The
+serial engine and the node build are later slices of the port and are
+refused with ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -151,11 +155,6 @@ class EraIndexer:
             raise NotImplementedError(
                 "construction='serial' is not ported yet (ROADMAP A14); "
                 "the batched engine gives identical arrays")
-        if not packing.resolve_dense(config.packing, alphabet):
-            raise NotImplementedError(
-                f"packing={config.packing!r} with alphabet {alphabet.name!r} "
-                "selects the byte-key currency, which the PyTorch port has "
-                "not reached yet (ROADMAP A7)")
         self.device = kops.resolve_device(device)
 
     def partition(self, s: np.ndarray, report: BuildReport | None = None):
@@ -183,11 +182,21 @@ class EraIndexer:
         return min(self.config.f_max,
                    max((g.total_freq for g in groups), default=2))
 
-    def _device_text(self, s: np.ndarray) -> packing.PackedText:
-        """The device-resident dense string for construction reads."""
-        return packing.pack_text(s, self.alphabet,
-                                 extra=2 * self.config.w_max + 8,
-                                 device=self.device)
+    def _pad(self, s: np.ndarray) -> torch.Tensor:
+        """The terminal-padded uint8 string on the device: reads up to
+        ``2 * w_max + 8`` symbols past the end stay in bounds."""
+        padded = self.alphabet.pad_string(s, extra=2 * self.config.w_max + 8)
+        return torch.from_numpy(padded).to(self.device)
+
+    def _device_text(self, s: np.ndarray):
+        """The device-resident string for construction reads: the dense
+        :class:`packing.PackedText` or the terminal-padded byte string, per
+        ``EraConfig.packing``; construction output is identical."""
+        if packing.resolve_dense(self.config.packing, self.alphabet):
+            return packing.pack_text(s, self.alphabet,
+                                     extra=2 * self.config.w_max + 8,
+                                     device=self.device)
+        return self._pad(s)
 
     def _prepare_batched(self, s: np.ndarray, report: BuildReport):
         """partition → padded (G, F) batched prepare, timing into ``report``.

@@ -1,6 +1,17 @@
-"""Dense k-bit text storage and the word comparison currency (PyTorch port).
+"""Byte sort keys, dense k-bit text storage and the word comparison
+currency (PyTorch port of ``repro.core.packing``).
 
-Counterpart of ``repro.core.packing``, word currency only.  The string is
+**Byte keys** — one byte per symbol code, packed big-endian four symbols
+per 32-bit word (:func:`pack_words`, :func:`gather_pack`), so the
+UNSIGNED order of the words is the lexicographic order of the symbols.
+They are the comparison currency of every byte-per-symbol text (protein,
+english, byte, or any alphabet under ``packing="bytes"``) and of the
+terminal-bearing probe over dense text (:func:`gather_pack_dense`).  Byte
+codes up to 255 reach bit 31 (hazard C5 of the ROADMAP): keys are packed
+in int64 and wrapped to int32 bit patterns, and every sort or compare on
+them runs unsigned (:func:`to_u64`, :func:`flip_sign`).
+
+**Dense words** — the string is
 held DENSE at ``Alphabet.dense_bits`` bits per symbol, big-endian inside
 32-bit words, so the bit pattern of a word run IS the lexicographic order
 of the symbols it covers.  The terminal is virtual: it only ever occurs at
@@ -47,6 +58,49 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     """Word tensor (int32 bit patterns) → numpy uint32, the JAX dtype."""
     return words.detach().cpu().numpy().view(np.uint32)
+
+
+def flip_sign(words: torch.Tensor) -> torch.Tensor:
+    """XOR the sign bit of int32 words: the signed order of the result is
+    the unsigned order of the input (``repro.core.packing.flip_sign``)."""
+    return words ^ torch.iinfo(torch.int32).min
+
+
+PACK_SHIFTS = (24, 16, 8, 0)  # big-endian byte positions inside a key word
+
+
+def pack_words(sym: torch.Tensor) -> torch.Tensor:
+    """(…, w) symbol codes → (…, w//4) int32 big-endian byte keys.
+
+    Packed in int64 and wrapped to int32 bit patterns, so codes >= 128
+    (the byte alphabet) set bit 31 instead of overflowing."""
+    *lead, w = sym.shape
+    if w % 4:
+        raise ValueError(f"pack width must be a multiple of 4, got {w}")
+    grp = sym.to(torch.int64).reshape(*lead, w // 4, 4)
+    out = grp[..., 0] << PACK_SHIFTS[0]
+    for k in range(1, 4):
+        out = out | (grp[..., k] << PACK_SHIFTS[k])
+    return to_i32(out)
+
+
+def gather_pack(s_padded: torch.Tensor, offs: torch.Tensor,
+                w: int) -> torch.Tensor:
+    """(F, w//4) int32 byte keys of the ``w`` symbols at each offset of a
+    terminal-padded byte string — the plain version of the
+    ``range_gather_pack`` kernel.  Every symbol index is clamped to
+    ``len(s_padded) - 1``, exactly as the JAX ``gather_pack`` clamps."""
+    if w % 4:
+        raise ValueError(f"pack width must be a multiple of 4, got {w}")
+    last = s_padded.shape[0] - 1
+    base = (offs.to(torch.int64)[:, None]
+            + 4 * torch.arange(w // 4, device=offs.device)[None, :])
+    out = None
+    for k in range(4):  # one byte lane at a time keeps temporaries (F, w/4)
+        byte = s_padded[torch.clamp(base + k, max=last)].to(torch.int64)
+        byte = byte << PACK_SHIFTS[k]
+        out = byte if out is None else out | byte
+    return to_i32(out)
 
 
 def clz32(x: torch.Tensor) -> torch.Tensor:
@@ -160,6 +214,66 @@ def unpack_text(pt: PackedText, n: int | None = None) -> np.ndarray:
     sym = sym.reshape(-1)[:n].astype(np.uint8)
     sym[n_real:] = pt.terminal
     return sym
+
+
+def gather_symbols_dense(pt: PackedText, offs: torch.Tensor,
+                         w: int) -> torch.Tensor:
+    """(F, w) int32 symbol codes at each offset from dense storage, with
+    the terminal itself for positions ``>= n_real`` — what a ``take``
+    from the terminal-padded byte string returns."""
+    bits, spw = pt.bits, pt.syms_per_word
+    aligned = _aligned_words(pt, offs, w)                       # (F, nw)
+    shifts = 32 - bits * (torch.arange(spw, device=offs.device) + 1)
+    sym = (aligned[:, :, None] >> shifts) & ((1 << bits) - 1)
+    sym = sym.reshape(offs.shape[0], -1)[:, :w]
+    past_end = (offs.to(torch.int64)[:, None]
+                + torch.arange(w, device=offs.device)[None, :] >= pt.n_real)
+    return torch.where(past_end, pt.terminal, sym).to(torch.int32)
+
+
+def _spread_to_bytes(chunk: torch.Tensor, bits: int) -> torch.Tensor:
+    """Spread 4 right-aligned ``bits``-bit fields of a 32-bit lane (int64
+    unsigned values) into the lane's 4 big-endian bytes."""
+    if bits == 8:
+        return chunk
+    if bits == 4:
+        t = (chunk | (chunk << 8)) & 0x00FF00FF
+        return (t | (t << 4)) & 0x0F0F0F0F
+    if bits == 2:
+        t = (chunk | (chunk << 12)) & 0x000F000F
+        return (t | (t << 6)) & 0x03030303
+    raise ValueError(f"unsupported dense bits {bits}")
+
+
+_KEEP_BYTES = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
+
+
+def gather_pack_dense(pt: PackedText, offs: torch.Tensor,
+                      w: int) -> torch.Tensor:
+    """(F, w//4) int32 byte keys read from dense storage, bit-identical to
+    :func:`gather_pack` on the terminal-padded byte string: each output
+    word is one ``4*bits``-bit chunk of the aligned dense words spread to
+    bytes, with terminal bytes patched in past ``n_real``."""
+    bits, spw = pt.bits, pt.syms_per_word
+    if w % 4:
+        raise ValueError(f"pack width must be a multiple of 4, got {w}")
+    f = offs.shape[0]
+    n_out = w // 4
+    aligned = _aligned_words(pt, offs, w)  # (F, ceil(w/spw)) int64
+    cpw = spw // 4  # output words per dense word
+    if cpw > 1:
+        csh = 32 - (4 * bits) * (torch.arange(cpw, device=offs.device) + 1)
+        chunks = (aligned[:, :, None] >> csh) & ((1 << (4 * bits)) - 1)
+        chunks = chunks.reshape(f, aligned.shape[1] * cpw)[:, :n_out]
+    else:
+        chunks = aligned[:, :n_out]
+    out = _spread_to_bytes(chunks, bits)
+    t_word = (pt.terminal & 0xFF) * 0x01010101
+    keep_tab = torch.tensor(_KEEP_BYTES, dtype=torch.int64, device=offs.device)
+    v = torch.clamp(pt.n_real - (offs.to(torch.int64)[:, None] + 4 * torch.arange(
+        n_out, device=offs.device)[None, :]), 0, 4)
+    keep = keep_tab[v]
+    return to_i32((out & keep) | (t_word & ~keep & MASK32))
 
 
 def syms_per_word(bits: int) -> int:

@@ -1,12 +1,20 @@
 """SubTreePrepare (paper §4.2.2), the elastic-range batched engine — PyTorch port.
 
-Counterpart of ``repro.core.prepare``, word-key branch.  Every virtual
-tree's leaf positions are stacked into one padded (G, F) state; each
-iteration reads ``w`` symbols after every active leaf (the
-``range_gather_words`` kernel through :func:`packing.word_sort_keys`),
-sorts each group's rows stably with the area id as the major key,
-detects divergence between adjacent rows by XOR + clz on the dense words,
-and re-derives the areas with a cumulative-max segment sweep.  Where the
+Counterpart of ``repro.core.prepare``.  Every virtual tree's leaf
+positions are stacked into one padded (G, F) state; each iteration reads
+``w`` symbols after every active leaf, sorts each group's rows stably with
+the area id as the major key, detects divergence between adjacent rows,
+and re-derives the areas with a cumulative-max segment sweep.  The text
+decides the key currency, as in the JAX package:
+
+* a dense :class:`packing.PackedText` — word keys: the
+  ``range_gather_words`` kernel through :func:`packing.word_sort_keys`,
+  divergence by XOR + clz on the dense words;
+* the terminal-padded uint8 byte string — byte keys: the
+  ``range_gather_pack`` kernel, an unsigned sort on the key words, and the
+  ``lcp_pairs`` kernel on adjacent rows.
+
+Where the
 JAX package ``vmap``s one group's step over G, this module writes the
 batch dimension out: every tensor of the step is (G, F) and each sort runs
 along dim 1, so groups never mix.
@@ -20,7 +28,10 @@ torch has no ``lexsort``):
   of stable sorts (least significant key first) gives the lexsort's
   permutation;
 * the unfused oracle sorts ``tie``, then the words in reverse, then the
-  major key, each with a stable sort.
+  major key, each with a stable sort;
+* the byte branch always takes the lexsort on (major, key words as
+  unsigned) — the JAX package reads ``sort_fuse`` only in the word branch
+  (hazard C7) — with adjacent 32-bit lanes paired into one int64 key.
 
 The host loop reads back the per-group active counts once per iteration,
 as the reference does; nothing else syncs.
@@ -127,6 +138,15 @@ def _signed_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return (hi - (1 << 31)) * (1 << 32) + lo
 
 
+def _pair_lanes(lanes: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Unsigned 32-bit lanes (int64, most significant first) → int64 keys
+    of two lanes each, whose lexicographic order is the lanes'."""
+    if len(lanes) % 2:
+        lanes = lanes + [torch.zeros_like(lanes[0])]
+    return [_signed_pair(lanes[i], lanes[i + 1])
+            for i in range(0, len(lanes), 2)]
+
+
 def _stable_order(keys: list[torch.Tensor]) -> torch.Tensor:
     """Row-wise (dim 1) stable lexicographic order of (G, F) int64 keys,
     most significant first: a chain of stable sorts, least significant
@@ -174,28 +194,14 @@ def _fused_sort_order(major, keys, tie, *, w: int, bits: int,
         m_j = min(32, kw - 32 * j)  # meaningful top bits of word j
         place(to_u64(keys[..., j]) >> (32 - m_j), mb + 32 * j, m_j)
     place(tie.to(torch.int64), mb + kw, tb)
-    if n_lanes % 2:
-        lanes.append(torch.zeros_like(lanes[0]))
-    pairs = [_signed_pair(lanes[i], lanes[i + 1])
-             for i in range(0, len(lanes), 2)]
-    return _stable_order(pairs)
+    return _stable_order(_pair_lanes(lanes))
 
 
-def prepare_step(pt: PackedText, state: PrepareState, *, w: int,
-                 sort_fuse: bool = False) -> tuple[PrepareState, torch.Tensor]:
-    """One elastic-range iteration of a (G, F) batch for static range ``w``
-    (the word-key branch of ``repro.core.prepare.prepare_step``, batched).
-
-    Returns (new_state, n_active) with ``n_active`` int64[G] on the device.
-    """
+def _word_step(pt: PackedText, state: PrepareState, offs, major, active, *,
+               w: int, sort_fuse: bool):
+    """Steps 1-3 on dense word keys: (L, start, lcp, c1, c2) in sorted
+    order."""
     g, f = state.L.shape
-    dev = state.L.device
-    iota = torch.arange(f, dtype=torch.int32, device=dev).expand(g, f)
-    active = state.area >= 0
-
-    offs = torch.where(active, state.L + state.start, 0)
-    major = torch.where(active, state.area, iota)
-
     # 1. read the dense word keys (range_gather_words kernel on the card)
     keys, tie = packing.word_sort_keys(pt, offs.reshape(-1), w,
                                        gather_words=kops.range_gather_words)
@@ -221,6 +227,57 @@ def prepare_step(pt: PackedText, state: PrepareState, *, w: int,
     prev_lim = torch.cat([lim[:, :1], lim[:, :-1]], dim=1)
     lcp, c1, c2 = packing.lcp_adjacent_words(
         prev_rows, keys, prev_lim, lim, w, pt.bits, pt.terminal)
+    return L, start, lcp, c1, c2
+
+
+def _byte_step(s_padded: torch.Tensor, state: PrepareState, offs, major,
+               active, *, w: int):
+    """Steps 1-3 on byte keys: (L, start, lcp, c1, c2) in sorted order."""
+    g, f = state.L.shape
+    # 1. read w symbols after every active leaf (range_gather_pack kernel)
+    keys = kops.range_gather_pack(s_padded, offs.reshape(-1), w)
+    nw = keys.shape[1]
+    keys = torch.where(active[..., None], keys.view(g, f, nw), 0)
+
+    # 2. segmented stable sort on (major, key words compared unsigned):
+    #    byte codes >= 128 set bit 31 of a key word (hazard C5)
+    order = _stable_order(_pair_lanes(
+        [major.to(torch.int64)] + [to_u64(keys[..., j]) for j in range(nw)]))
+    L = torch.gather(state.L, 1, order)
+    start = torch.gather(state.start, 1, order)
+    keys = torch.gather(keys, 1, order[..., None].expand(g, f, nw))
+
+    # 3. adjacent divergence (lcp_pairs kernel on the card)
+    prev_rows = torch.cat([keys[:, :1], keys[:, :-1]], dim=1)
+    lcp, c1, c2 = kops.lcp_pairs(prev_rows.reshape(g * f, nw),
+                                 keys.reshape(g * f, nw), w)
+    return L, start, lcp.view(g, f), c1.view(g, f), c2.view(g, f)
+
+
+def prepare_step(text, state: PrepareState, *, w: int,
+                 sort_fuse: bool = False) -> tuple[PrepareState, torch.Tensor]:
+    """One elastic-range iteration of a (G, F) batch for static range ``w``
+    (``repro.core.prepare.prepare_step``, batched).
+
+    ``text``: a dense :class:`PackedText` (word keys; ``sort_fuse`` packs
+    the sort lanes) or the terminal-padded uint8 byte string (byte keys;
+    ``sort_fuse`` does not apply).  Returns (new_state, n_active) with
+    ``n_active`` int64[G] on the device.
+    """
+    g, f = state.L.shape
+    dev = state.L.device
+    iota = torch.arange(f, dtype=torch.int32, device=dev).expand(g, f)
+    active = state.area >= 0
+
+    offs = torch.where(active, state.L + state.start, 0)
+    major = torch.where(active, state.area, iota)
+
+    if isinstance(text, PackedText):
+        L, start, lcp, c1, c2 = _word_step(text, state, offs, major, active,
+                                           w=w, sort_fuse=sort_fuse)
+    else:
+        L, start, lcp, c1, c2 = _byte_step(text, state, offs, major, active,
+                                           w=w)
 
     area_prev = torch.roll(state.area, 1, dims=1)  # wraps within a group
     same_area = (state.area == area_prev) & active & (iota > 0)
@@ -254,7 +311,7 @@ def prepare_step(pt: PackedText, state: PrepareState, *, w: int,
     return new_state, (area >= 0).sum(dim=1)
 
 
-def compact_step_batch(pt: PackedText, states: PrepareState, *, f_prime: int,
+def compact_step_batch(text, states: PrepareState, *, f_prime: int,
                        w: int, sort_fuse: bool):
     """One elastic iteration on only the ACTIVE rows of each group.
 
@@ -289,7 +346,7 @@ def compact_step_batch(pt: PackedText, states: PrepareState, *, f_prime: int,
     cst = PrepareState(L=take(states.L, -1), start=take(states.start, 0),
                        area=carea, b_off=take(states.b_off, -1),
                        b_c1=take(states.b_c1, 0), b_c2=take(states.b_c2, 0))
-    new, _ = prepare_step(pt, cst, w=w, sort_fuse=sort_fuse)
+    new, _ = prepare_step(text, cst, w=w, sort_fuse=sort_fuse)
     # compacted run starts -> full-layout positions
     narea = torch.where(
         new.area >= 0,
@@ -335,7 +392,7 @@ class PrepareStats:
 
 
 def subtree_prepare_batch(
-    pt: PackedText,
+    text,
     groups: list[VirtualTree],
     capacity: int,
     cfg: ElasticConfig = ElasticConfig(),
@@ -345,15 +402,17 @@ def subtree_prepare_batch(
     compact: bool | None = None,
 ) -> PrepareState:
     """Run SubTreePrepare to completion for ALL virtual trees at once on
-    the device that holds ``pt``.
+    the device that holds ``text`` (a dense :class:`PackedText` or the
+    terminal-padded uint8 byte string, see :func:`prepare_step`).
 
     ``sort_fuse``/``compact`` default to the promoted engine (fused sort
     keys + tail compaction); ``REPRO_SORT=lexsort`` / ``REPRO_COMPACT=off``
     — or the explicit arguments — pin the oracle paths.  The elastic range
     is shared across the batch, keyed to the busiest group.
     """
-    kops._use_word_compare()  # the byte-key currency is refused up front
-    states = init_batch(groups, capacity, pt.device)
+    if isinstance(text, PackedText):
+        kops._use_word_compare()  # the byte oracle on dense text is refused
+    states = init_batch(groups, capacity, text.device)
     if sort_fuse is None:
         sort_fuse = kops._use_sort_fuse()
     if compact is None:
@@ -375,9 +434,9 @@ def subtree_prepare_batch(
                    if compact else None)
         if f_prime is not None:
             states, n_active_dev = compact_step_batch(
-                pt, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse)
+                text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse)
         else:
-            states, n_active_dev = prepare_step(pt, states, w=w,
+            states, n_active_dev = prepare_step(text, states, w=w,
                                                 sort_fuse=sort_fuse)
         if stats is not None:
             total_active = int(n_active.sum())

@@ -5,15 +5,20 @@ concatenated leaf arrays in prefix order, i.e. the suffix array), the
 per-sub-tree tables, and a dense top-trie routing table at depth
 ``k_route``.  :meth:`DeviceIndex.find_batch_ranges` resolves a whole
 ``(B, m)`` batch with one routing gather and a fixed-trip lower/upper
-bound binary search whose only text read is the ``pattern_probe_words``
-kernel — ``n_iter`` launches per batch, one per search step (the JAX
-``fori_loop`` written out as a Python loop).
+bound binary search whose only text read is one probe kernel launch per
+search step — ``n_iter`` launches per batch (the JAX ``fori_loop`` written
+out as a Python loop).  The probe follows the served string, as in the
+JAX package:
 
-Only the word currency is ported: the served string is a dense
-:class:`repro_torch.core.packing.PackedText`, and a batch carrying the
-terminal code (which the JAX package answers through its byte-key probe)
-raises until the byte-key slice lands.  Archives keep the JAX package's
-npz layout, so indexes load in both directions.
+* a dense :class:`repro_torch.core.packing.PackedText` —
+  ``pattern_probe_words`` on dense pattern words, or, for a batch that
+  carries the terminal code, ``pattern_probe_packed`` on byte keys;
+* the terminal-padded uint8 byte string (protein, english, byte, or
+  ``packing="bytes"``) — ``pattern_probe`` on byte keys.
+
+Archives keep the JAX package's npz layouts (dense ``s_words`` with a
+7-entry meta, byte ``s_padded`` with the 4-entry meta plus the epoch), so
+indexes load in both directions.
 """
 
 from __future__ import annotations
@@ -42,13 +47,18 @@ def route_depth(base: int, max_plen: int, route_cap: int) -> int:
     return k_route
 
 
-def _pack_query_batch(s_text: packing_mod.PackedText, patterns: torch.Tensor,
-                      lengths: torch.Tensor):
-    """Pattern packing (once per batch, word branch): zero symbols past
-    each length in both the dense pattern and its all-ones-field mask."""
+def _pack_query_batch(s_text, patterns: torch.Tensor, lengths: torch.Tensor,
+                      word: bool = True):
+    """Pattern packing (once per batch): zero symbols past each length in
+    both the pattern and its mask, so masked suffix words compare against
+    exactly the first ``m`` symbols.  Word path: ``bits``-wide fields over
+    dense words; byte path: 0xFF-byte masks over 4-symbol key words."""
     m_pad = patterns.shape[1]
     in_pat = (torch.arange(m_pad, device=patterns.device)[None, :]
               < lengths[:, None])
+    if not word:
+        return (packing_mod.pack_words(torch.where(in_pat, patterns, 0)),
+                packing_mod.pack_words(torch.where(in_pat, 0xFF, 0)))
     bits = s_text.bits
     pat_words = packing_mod.pack_pattern_dense(
         torch.where(in_pat, patterns, 0), bits, s_text.terminal)
@@ -73,12 +83,19 @@ def _route_window(win_lo, win_hi, pows, spans, lengths, route_syms,
 
 
 def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
-                   *, n_iter: int):
+                   *, n_iter: int, word: bool = True):
     """Fixed-trip binary search; the lower and upper bound run fused as
     one 2B-row probe launch per step.  Returns (llo, ulo) into ``ell``."""
     b = pat_words.shape[0]
     total = ell.shape[0]
-    len2 = torch.cat([lengths, lengths])
+    if word:
+        len2 = torch.cat([lengths, lengths])
+        probe = lambda st, pos, pat, mask: kops.pattern_probe_words(
+            st, pos, pat, mask, len2)
+    elif isinstance(s_text, packing_mod.PackedText):
+        probe = kops.pattern_probe_packed
+    else:
+        probe = kops.pattern_probe
     pat2 = torch.cat([pat_words, pat_words], dim=0)
     mask2 = torch.cat([mask_words, mask_words], dim=0)
     llo, lhi, ulo, uhi = lo0, hi0, lo0, hi0
@@ -87,7 +104,7 @@ def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
         umid = (ulo + uhi) // 2
         mids = torch.cat([lmid, umid])
         pos = ell[torch.clamp(mids, 0, total - 1)]
-        cmp = kops.pattern_probe_words(s_text, pos, pat2, mask2, len2)
+        cmp = probe(s_text, pos, pat2, mask2)
         lcmp, ucmp = cmp[:b], cmp[b:]
         lact = llo < lhi
         uact = ulo < uhi
@@ -102,13 +119,13 @@ def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
 
 @dataclasses.dataclass(frozen=True)
 class DeviceIndex:
-    """Flattened, device-resident index (dense word currency)."""
+    """Flattened, device-resident index."""
 
     base: int                 # |Σ| + 1 including the terminal
     k_route: int              # routing-trie depth (base**k_route cells)
     n_iter: int               # binary-search trip count (covers ``total``)
     max_pattern_len: int      # padding guarantee baked into ``s_text``
-    s_text: packing_mod.PackedText  # the served string, dense k-bit words
+    s_text: packing_mod.PackedText | torch.Tensor  # dense words | uint8 bytes
     ell: torch.Tensor         # int32[total] concatenated leaf arrays (= SA)
     ell_host: np.ndarray      # host copy of ell (result materialization)
     sub_off: torch.Tensor     # int32[T] slice start of sub-tree t in ell
@@ -133,9 +150,47 @@ class DeviceIndex:
     def device(self) -> torch.device:
         return self.ell.device
 
+    @property
+    def packed(self) -> bool:
+        """True when the string is stored dense (k-bit PackedText)."""
+        return isinstance(self.s_text, packing_mod.PackedText)
+
+    @property
+    def s_bits(self) -> int:
+        """Stored bits per symbol (8 on the byte path)."""
+        return self.s_text.bits if self.packed else 8
+
+    @property
+    def s_padded(self) -> torch.Tensor:
+        """The terminal-padded uint8 string (byte-path indexes only)."""
+        if self.packed:
+            raise AttributeError(
+                "this DeviceIndex stores the string dense-packed; use "
+                "s_text / read_symbols / string_codes")
+        return self.s_text
+
+    @property
+    def string_nbytes(self) -> int:
+        """Bytes the served string representation occupies."""
+        return (self.s_text.nbytes if self.packed
+                else int(self.s_text.shape[0]))
+
+    def read_symbols(self, pos, k: int) -> torch.Tensor:
+        """(B, k) int32 symbol codes starting at each position, on the
+        device, whatever the storage (the terminal past the end)."""
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        if self.packed:
+            return packing_mod.gather_symbols_dense(self.s_text, pos, k)
+        idx = (pos.to(torch.int64)[:, None]
+               + torch.arange(k, device=self.device)[None, :])
+        idx = torch.clamp(idx, max=self.s_text.shape[0] - 1)
+        return self.s_text[idx].to(torch.int32)
+
     def string_codes(self) -> np.ndarray:
         """The indexed string back as uint8 codes (terminal included)."""
-        return packing_mod.unpack_text(self.s_text, n=self.n_leaves)
+        if self.packed:
+            return packing_mod.unpack_text(self.s_text, n=self.n_leaves)
+        return self.s_text[: self.n_leaves].cpu().numpy()
 
     # ---- construction -----------------------------------------------------
 
@@ -151,11 +206,6 @@ class DeviceIndex:
         the batched engine stays on the device; the routing tables are
         computed on the host from the prefix metadata)."""
         dev = kops.resolve_device(device)
-        if not packing_mod.resolve_dense(packing, alphabet):
-            raise NotImplementedError(
-                "a byte-per-symbol served string belongs to the byte-key "
-                "currency, which the PyTorch port has not reached yet "
-                "(ROADMAP A7)")
         base = alphabet.base
         if not prefixes:
             raise ValueError("cannot flatten an empty index")
@@ -194,8 +244,13 @@ class DeviceIndex:
         n_iter = int(np.ceil(np.log2(total + 1))) + 1
         pows = (base ** np.arange(k_route - 1, -1, -1)).astype(np.int32)
         spans = (base ** (k_route - np.arange(k_route + 1)) - 1).astype(np.int32)
-        s_text = packing_mod.pack_text(np.asarray(s), alphabet,
-                                       extra=max_pattern_len + 8, device=dev)
+        if packing_mod.resolve_dense(packing, alphabet):
+            s_text = packing_mod.pack_text(np.asarray(s), alphabet,
+                                           extra=max_pattern_len + 8,
+                                           device=dev)
+        else:  # the served padding contract: max_pattern_len + 8 (C6)
+            s_text = torch.from_numpy(alphabet.pad_string(
+                np.asarray(s), extra=max_pattern_len + 8)).to(dev)
         ell_dev = torch.as_tensor(ell).to(device=dev, dtype=torch.int32)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         return cls(
@@ -213,12 +268,19 @@ class DeviceIndex:
                     "sub_plen", "win_lo", "win_hi", "pows", "spans")
 
     def to_blobs(self) -> dict[str, np.ndarray]:
-        """Dense-layout blobs: ``s_words`` (uint32) and the 7-entry meta
-        ``[base, k_route, n_iter, max_pattern_len, s_bits, n_real, epoch]``."""
-        meta = [self.base, self.k_route, self.n_iter, self.max_pattern_len,
-                self.s_text.bits, self.s_text.n_real, self.epoch]
-        blobs = {"s_words": self.s_text.words_numpy(),
-                 "meta": np.array(meta, np.int64)}
+        """The JAX package's blobs (hazard C8): a dense index writes
+        ``s_words`` (uint32) and the meta ``[base, k_route, n_iter,
+        max_pattern_len, s_bits, n_real, epoch]``; a byte index writes
+        ``s_padded`` (uint8) and ``[base, k_route, n_iter,
+        max_pattern_len, epoch]``."""
+        meta = [self.base, self.k_route, self.n_iter, self.max_pattern_len]
+        if self.packed:
+            meta += [self.s_text.bits, self.s_text.n_real]
+            blobs = {"s_words": self.s_text.words_numpy()}
+        else:
+            blobs = {"s_padded": self.s_text.cpu().numpy()}
+        meta.append(self.epoch)
+        blobs["meta"] = np.array(meta, np.int64)
         for name in self._BLOB_FIELDS:
             blobs[name] = getattr(self, name).cpu().numpy()
         return blobs
@@ -226,18 +288,19 @@ class DeviceIndex:
     @classmethod
     def from_blobs(cls, data, device="cuda") -> "DeviceIndex":
         """Restore from :meth:`to_blobs` output or from the JAX package's
-        ``DeviceIndex.to_blobs()`` (dense layout)."""
+        ``DeviceIndex.to_blobs()``, either layout; archives written before
+        epochs existed load as epoch 0."""
         dev = kops.resolve_device(device)
-        if "s_words" not in data:
-            raise NotImplementedError(
-                "byte-format archives (s_padded) belong to the byte-key "
-                "currency, which the PyTorch port has not reached yet "
-                "(ROADMAP A7)")
         meta = np.asarray(data["meta"])
-        s_text = packing_mod.PackedText.from_numpy(
-            np.asarray(data["s_words"]), int(meta[5]), int(meta[4]),
-            int(meta[0]) - 1, dev)
-        epoch = int(meta[6]) if meta.size > 6 else 0
+        if "s_words" in data:
+            s_text = packing_mod.PackedText.from_numpy(
+                np.asarray(data["s_words"]), int(meta[5]), int(meta[4]),
+                int(meta[0]) - 1, dev)
+            epoch = int(meta[6]) if meta.size > 6 else 0
+        else:  # byte-format archive
+            s_text = torch.from_numpy(
+                np.array(data["s_padded"], np.uint8)).to(dev)
+            epoch = int(meta[4]) if meta.size > 4 else 0
         fields = {name: torch.from_numpy(np.array(data[name], np.int32)).to(dev)
                   for name in cls._BLOB_FIELDS}
         return cls(base=int(meta[0]), k_route=int(meta[1]), n_iter=int(meta[2]),
@@ -295,38 +358,38 @@ class DeviceIndex:
                 [lengths, np.ones(b_pad - b, np.int32)])
         return padded, lengths, route
 
-    def _word_gate(self, patterns, pat_max: int | None) -> None:
-        """The word probe serves batches of real symbols only.  The JAX
-        package answers a batch carrying the terminal code through its
-        byte-key probe; the port refuses it rather than answer differently."""
-        kops._use_word_compare()
+    def _word_gate(self, patterns, pat_max: int | None) -> bool:
+        """Word probe or byte-key probe for this batch (as the JAX
+        ``_word_gate``): a byte text always takes the byte-key probe; a
+        dense text takes the word probe unless the batch carries the
+        terminal code, whose verdicts only the byte-key probe defines.
+        ``pat_max``, when the caller knows it, spares the device reduce."""
+        if not self.packed:
+            return False
+        kops._use_word_compare()  # refuses the byte oracle knob (B6)
         if pat_max is None:
             if isinstance(patterns, torch.Tensor):
                 pat_max = int(patterns.max()) if patterns.numel() else 0
             else:
                 pat_max = int(np.asarray(patterns).max(initial=0))
-        if pat_max >= self.s_text.terminal:
-            raise ValueError(
-                "a pattern batch carrying the terminal code needs the "
-                "byte-key probe, which the PyTorch port has not reached yet "
-                "(ROADMAP A7)")
+        return pat_max < self.s_text.terminal
 
     def find_batch_ranges(self, patterns, lengths, route_syms,
                           *, pat_max: int | None = None):
         """(B, m_pad)/(B,)/(B, k_route) → (start, count) int32 slices of
         ``ell`` on the device (matches are ``ell[start:start+count]``)."""
-        self._word_gate(patterns, pat_max)
+        word = self._word_gate(patterns, pat_max)
         dev = self.device
         patterns = torch.as_tensor(patterns, dtype=torch.int32, device=dev)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
         route_syms = torch.as_tensor(route_syms, dtype=torch.int32, device=dev)
         pat_words, mask_words = _pack_query_batch(self.s_text, patterns,
-                                                  lengths)
+                                                  lengths, word)
         lo0, hi0 = _route_window(self.win_lo, self.win_hi, self.pows,
                                  self.spans, lengths, route_syms, self.k_route)
         llo, ulo = _search_bounds(self.s_text, self.ell, pat_words,
                                   mask_words, lengths, lo0, hi0,
-                                  n_iter=self.n_iter)
+                                  n_iter=self.n_iter, word=word)
         return llo, torch.clamp(ulo - llo, min=0)
 
     def find_batch(self, patterns) -> list[np.ndarray]:

@@ -11,8 +11,13 @@ The construction and search knobs keep the JAX package's names and
 meanings, so one CI leg covers both packages:
 
 * ``REPRO_WORD_COMPARE=word`` (default) — dense words are the compare
-  currency; ``byte`` selects the byte-key currency, which the port has not
-  reached yet and therefore refuses;
+  currency of a dense text; ``byte`` pins the byte-key oracle ON DENSE
+  TEXT, whose construction read (``range_gather_packed``, ROADMAP B6) is
+  not ported yet, so the port refuses it.  A byte-per-symbol text (protein,
+  english, byte, ``packing="bytes"``) always runs the byte-key currency
+  (``range_gather_pack``, ``lcp_pairs``, ``pattern_probe``), and a dense
+  index answers a batch carrying the terminal code through
+  ``pattern_probe_packed``, as the JAX package does;
 * ``REPRO_SORT=fused|lexsort`` — fused single-lane sort keys or the
   multi-key oracle sort;
 * ``REPRO_COMPACT=tail|off`` — tail compaction of the elastic step.
@@ -25,19 +30,29 @@ import os
 import torch
 
 from repro_torch.kernels.kmer_histogram import kmer_histogram
+from repro_torch.kernels.lcp import lcp_pairs
 from repro_torch.kernels.packed_gather import (
+    pattern_probe_packed,
     pattern_probe_words,
     range_gather_words,
 )
+from repro_torch.kernels.pattern_probe import pattern_probe
+from repro_torch.kernels.range_gather import range_gather_pack
 
 KERNELS = {
     "range_gather_words": range_gather_words,
     "pattern_probe_words": pattern_probe_words,
     "kmer_histogram": kmer_histogram,
+    "range_gather_pack": range_gather_pack,
+    "lcp_pairs": lcp_pairs,
+    "pattern_probe": pattern_probe,
+    "pattern_probe_packed": pattern_probe_packed,
 }
 
-__all__ = ["KERNELS", "kmer_histogram", "launch_counts", "pattern_probe_words",
-           "range_gather_words", "reset_launch_counts", "resolve_device"]
+__all__ = ["KERNELS", "kmer_histogram", "launch_counts", "lcp_pairs",
+           "pattern_probe", "pattern_probe_packed", "pattern_probe_words",
+           "range_gather_pack", "range_gather_words", "reset_launch_counts",
+           "resolve_device"]
 
 
 def launch_counts() -> dict[str, int]:
@@ -69,8 +84,9 @@ def _use_word_compare() -> bool:
         return True
     if env == "byte":
         raise NotImplementedError(
-            "REPRO_WORD_COMPARE=byte selects the byte-key currency, which "
-            "the PyTorch port has not reached yet (ROADMAP A7)")
+            "REPRO_WORD_COMPARE=byte pins the byte-key oracle on dense text, "
+            "whose construction read range_gather_packed the PyTorch port "
+            "has not reached yet (ROADMAP B6)")
     raise ValueError(
         f"unknown REPRO_WORD_COMPARE={env!r}; choose 'word' or 'byte'")
 

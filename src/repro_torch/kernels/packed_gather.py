@@ -6,6 +6,10 @@
 * :func:`pattern_probe_words` — ``csrc/pattern_probe_words.cu``, the port
   of ``repro/kernels/packed_gather.py:pattern_probe_words``: the −1/0/+1
   verdict of a masked dense pattern against the suffix at each position.
+* :func:`pattern_probe_packed` — ``csrc/pattern_probe_packed.cu``, the
+  port of ``repro/kernels/packed_gather.py:pattern_probe_packed``: the
+  byte-key probe over the dense text (the search step of a batch that
+  carries the terminal code).
 
 Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
@@ -45,6 +49,17 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
                          f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_probe_rows(pos: torch.Tensor, pat_words: torch.Tensor,
+                      mask_words: torch.Tensor) -> None:
+    """Shapes and dtypes of a byte-key probe batch on the card."""
+    _require(pos, "pos", torch.int32, 1)
+    _require(pat_words, "pat_words", torch.int32, 2)
+    _require(mask_words, "mask_words", torch.int32, 2)
+    if (mask_words.shape != pat_words.shape
+            or pos.shape[0] != pat_words.shape[0]):
+        raise ValueError("byte-key probe: row counts disagree")
 
 
 def _check_extra(pt: PackedText, w: int) -> None:
@@ -139,3 +154,40 @@ def pattern_probe_words(pt: PackedText, pos: torch.Tensor,
 
 
 pattern_probe_words.launches = 0
+
+
+def pattern_probe_packed(pt: PackedText, pos: torch.Tensor,
+                         pat_words: torch.Tensor,
+                         mask_words: torch.Tensor) -> torch.Tensor:
+    """int32[B] in {−1, 0, +1}: the byte-key probe of
+    :func:`repro_torch.kernels.pattern_probe.pattern_probe` reading the
+    dense text, bit-identical to
+    :func:`repro_torch.kernels.ref.pattern_probe_packed_ref` (and so to the
+    byte probe on the terminal-padded string).
+
+    pat_words / mask_words: (B, W) int32 byte-packed pattern rows and
+    0xFF-byte masks, zero past each pattern length.
+    """
+    if _on_cpu(pt.words, pos, pat_words, mask_words):
+        return _ref.pattern_probe_packed_ref(pt, pos, pat_words, mask_words)
+    _require(pt.words, "words", torch.int32, 1)
+    _check_probe_rows(pos, pat_words, mask_words)
+    b, nw = pat_words.shape
+    _check_extra(pt, nw * 4)
+    out = torch.empty(b, dtype=torch.int32, device=pos.device)
+    if b == 0:
+        return out
+    fn = _build.entry("pattern_probe_packed",
+                      [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I64, _U32,
+                       _P, _P])
+    with torch.cuda.device(pos.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos.data_ptr(),
+                pat_words.data_ptr(), mask_words.data_ptr(), b, nw, pt.bits,
+                pt.n_real, (pt.terminal & 0xFF) * 0x01010101, out.data_ptr(),
+                _stream(pos.device))
+    _build.check(rc, "pattern_probe_packed")
+    pattern_probe_packed.launches += 1
+    return out
+
+
+pattern_probe_packed.launches = 0

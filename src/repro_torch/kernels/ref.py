@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's hand-written CUDA kernels.
 
-Each function here computes exactly what its kernel computes (all three
-are integer kernels, so every comparison against them is exact).  The
+Each function here computes exactly what its kernel computes (all are
+integer kernels, so every comparison against them is exact).  The
 kernel wrappers run them for tensors that lie on the CPU, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card.
@@ -12,11 +12,71 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import (  # noqa: F401  (shared implementations)
+    PACK_SHIFTS,
     PackedText,
     extract_sym,
+    flip_sign,
+    gather_pack as range_gather_pack_ref,
+    gather_pack_dense as range_gather_packed_ref,
     gather_words_dense as range_gather_words_ref,
     lcp_words,
 )
+
+
+def probe_compare_ref(sw: torch.Tensor, pat_words: torch.Tensor) -> torch.Tensor:
+    """Sign of masked suffix key rows against pattern rows, compared
+    unsigned at the first differing word (shared tail of the byte-key
+    probes, ``repro.kernels.ref.probe_compare_ref``)."""
+    nw = sw.shape[1]
+    neq = sw != pat_words
+    iota = torch.arange(nw, device=sw.device)
+    first = torch.clamp(torch.where(neq, iota, nw).amin(dim=1), max=nw - 1)
+    a = torch.take_along_dim(sw, first[:, None], dim=1)[:, 0]
+    b = torch.take_along_dim(pat_words, first[:, None], dim=1)[:, 0]
+    lt = flip_sign(a) < flip_sign(b)  # unsigned compare (byte codes >= 128)
+    return torch.where(neq.any(dim=1), torch.where(lt, -1, 1),
+                       0).to(torch.int32)
+
+
+def pattern_probe_ref(s_padded: torch.Tensor, pos: torch.Tensor,
+                      pat_words: torch.Tensor,
+                      mask_words: torch.Tensor) -> torch.Tensor:
+    """−1/0/+1 per row: the masked byte keys of the suffix at ``pos``
+    against the packed pattern row (0: the suffix starts with the
+    pattern) — ``repro.kernels.ref.pattern_probe_ref``."""
+    w = pat_words.shape[1] * 4
+    sw = range_gather_pack_ref(s_padded, pos, w) & mask_words
+    return probe_compare_ref(sw, pat_words)
+
+
+def pattern_probe_packed_ref(pt: PackedText, pos: torch.Tensor,
+                             pat_words: torch.Tensor,
+                             mask_words: torch.Tensor) -> torch.Tensor:
+    """:func:`pattern_probe_ref` reading the dense text: the byte keys are
+    repacked from the dense words, so the verdicts equal the byte probe's
+    (``repro.kernels.ref.pattern_probe_packed_ref``)."""
+    w = pat_words.shape[1] * 4
+    sw = range_gather_packed_ref(pt, pos, w) & mask_words
+    return probe_compare_ref(sw, pat_words)
+
+
+def lcp_pairs_ref(a: torch.Tensor, b: torch.Tensor, w: int):
+    """(lcp, c1, c2) int32[F] of (F, W) byte-key rows: the first differing
+    byte (symbol) index capped at ``w``, and that byte of each row; fully
+    equal rows give lcp == w and c1 == c2 == 0
+    (``repro.kernels.ref.lcp_pairs_ref``)."""
+    f, nw = a.shape
+    shifts = torch.tensor(PACK_SHIFTS, device=a.device)
+    ab = ((a.to(torch.int64)[:, :, None] >> shifts) & 0xFF).reshape(f, nw * 4)
+    bb = ((b.to(torch.int64)[:, :, None] >> shifts) & 0xFF).reshape(f, nw * 4)
+    neq = ab != bb
+    iota = torch.arange(nw * 4, device=a.device)
+    first = torch.where(neq, iota, nw * 4).amin(dim=1)
+    sel = iota == first[:, None]
+    c1 = torch.where(sel, ab, 0).sum(dim=1)
+    c2 = torch.where(sel, bb, 0).sum(dim=1)
+    lcp = torch.clamp(first, max=w)
+    return lcp.to(torch.int32), c1.to(torch.int32), c2.to(torch.int32)
 
 
 def probe_words_ref(sw: torch.Tensor, pat_words: torch.Tensor,

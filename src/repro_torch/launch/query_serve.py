@@ -5,9 +5,11 @@ Builds an ERA index over a dataset with
 :meth:`repro_torch.core.api.EraIndexer.build_device`, then drives a
 sustained loop of padded pattern batches through
 ``DeviceIndex.find_batch_ranges`` and reports queries/sec plus per-batch
-latency.  Runs on the card by default:
+latency.  Every dataset runs: ``dna``/``genome`` index dense 2-bit words,
+``protein``/``english``/``byte`` the byte-per-symbol text (byte-key
+kernels).  Runs on the card by default:
 
-  PYTHONPATH=src python -m repro_torch.launch.query_serve --dataset dna \
+  PYTHONPATH=src python -m repro_torch.launch.query_serve --dataset protein \
       --n 100000 --batch 256 --iters 20            # --device cpu: plain path
 """
 
@@ -126,7 +128,8 @@ def serve_queries(dataset_name: str = "dna", *, n: int = 100_000,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dataset", default="dna")
+    ap.add_argument("--dataset", default="dna",
+                    choices=["dna", "genome", "protein", "english", "byte"])
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=20)

@@ -13,9 +13,13 @@ import torch
 
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.core.query import _pack_query_batch
 from repro_torch.kernels import kmer_histogram as tkmer
+from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gather as tpg
+from repro_torch.kernels import pattern_probe as tprobe
+from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
 
 
@@ -72,6 +76,81 @@ def test_cuda_kmer_histogram(cuda_device, k, base):
     s = s.to(cuda_device)
     got = tkmer.kmer_histogram(s, 100_000, k, base)
     assert torch.equal(got, tref.kmer_histogram_ref(s, 100_000, k, base))
+
+
+def _byte_text(name, n, device, extra=264):
+    a = ALPHABETS[name]
+    s = a.random_string(n, seed=n)
+    return s, torch.from_numpy(a.pad_string(s, extra)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["protein", "byte"])
+def test_cuda_range_gather_pack(cuda_device, alpha):
+    s, sp = _byte_text(alpha, 50_000, cuda_device)
+    offs = torch.randint(0, len(s), (4096,), dtype=torch.int32,
+                         device=cuda_device)
+    offs[-300:] = torch.arange(sp.shape[0] - 300, sp.shape[0],
+                               dtype=torch.int32, device=cuda_device)
+    for w in (4, 16, 64, 256):
+        got = trg.range_gather_pack(sp, offs, w)
+        assert torch.equal(got, tref.range_gather_pack_ref(sp, offs, w))
+
+
+@pytest.mark.cuda
+def test_cuda_lcp_pairs(cuda_device):
+    s, sp = _byte_text("byte", 20_000, cuda_device)
+    offs = torch.randint(0, len(s), (3000,), dtype=torch.int32,
+                         device=cuda_device)
+    offs = torch.cat([offs, offs[:500]])  # identical rows
+    for w in (4, 32, 256):
+        keys = trg.range_gather_pack(sp, offs, w)
+        order = torch.argsort(keys[:, 0].to(torch.int64) & 0xFFFFFFFF,
+                              stable=True)
+        keys = keys[order].contiguous()
+        a, b = keys[:-1].contiguous(), keys[1:].contiguous()
+        for g, x in zip(tlcp.lcp_pairs(a, b, w), tref.lcp_pairs_ref(a, b, w)):
+            assert torch.equal(g, x)
+
+
+def _probe_rows(s, name, b, m_pad, device, rng):
+    a = ALPHABETS[name]
+    n = len(s)
+    pos = rng.integers(0, n, size=b).astype(np.int32)
+    pos[-32:] = rng.integers(max(0, n - m_pad), n, size=32)
+    lengths = rng.integers(1, m_pad + 1, size=b).astype(np.int32)
+    sym = rng.integers(0, a.base, size=(b, m_pad)).astype(np.int32)
+    sp = a.pad_string(s, m_pad)
+    for i in range(0, b, 2):  # the suffix itself, terminal included
+        sym[i] = sp[pos[i]:pos[i] + m_pad]
+    pat, mask = _pack_query_batch(None, torch.from_numpy(sym).to(device),
+                                  torch.from_numpy(lengths).to(device),
+                                  word=False)
+    return torch.from_numpy(pos).to(device), pat, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["protein", "byte"])
+def test_cuda_pattern_probe(cuda_device, alpha):
+    rng = np.random.default_rng(5)
+    s, sp = _byte_text(alpha, 30_000, cuda_device, extra=72)
+    pos, pat, mask = _probe_rows(s, alpha, 512, 64, cuda_device, rng)
+    got = tprobe.pattern_probe(sp, pos, pat, mask)
+    assert torch.equal(got, tref.pattern_probe_ref(sp, pos, pat, mask))
+    assert (got == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["dna", "protein_class"])
+def test_cuda_pattern_probe_packed(cuda_device, alpha):
+    rng = np.random.default_rng(6)
+    a = ALPHABETS[alpha]
+    s = a.random_string(30_000, seed=2)
+    pt = tpk.pack_text(s, a, extra=72, device=cuda_device)
+    pos, pat, mask = _probe_rows(s, alpha, 512, 64, cuda_device, rng)
+    got = tpg.pattern_probe_packed(pt, pos, pat, mask)
+    assert torch.equal(got, tref.pattern_probe_packed_ref(pt, pos, pat, mask))
+    assert (got == 0).any()
 
 
 @pytest.mark.cuda

@@ -1,12 +1,14 @@
-"""PyTorch port vs the JAX package: the three kernels on the main path.
+"""PyTorch port vs the JAX package: the kernels on the ported paths.
 
 Each plain PyTorch version (the path a CPU tensor takes through the
 kernel wrappers) is held against the JAX Pallas kernel in interpret mode
 and against its JAX reference, on the shape sweeps of
-``tests/test_packed.py::TestWordCompareKernels`` and of
-``tests/test_kernels.py::TestKmerHistogram``.  Tolerance: exact — every
-quantity is an integer.  ``tests/test_torch_cuda.py`` holds the hand
-kernels themselves against these plain versions on a card.
+``tests/test_packed.py::TestWordCompareKernels`` /
+``::TestPackedKernels`` and of ``tests/test_kernels.py::TestKmerHistogram``
+/ ``::TestRangeGatherPack`` / ``::TestLcpPairs`` / ``::TestPatternProbe``.
+Tolerance: exact — every quantity is an integer.
+``tests/test_torch_cuda.py`` holds the hand kernels themselves against
+these plain versions on a card.
 """
 
 import jax.numpy as jnp
@@ -18,13 +20,22 @@ from repro.core import packing as jpk
 from repro.core.alphabet import BYTE, DNA, PROTEIN_CLASS
 from repro.kernels import ref as jref
 from repro.kernels.kmer_histogram import kmer_histogram as j_kmer
+from repro.kernels.lcp import lcp_pairs as j_lcp
+from repro.kernels.packed_gather import pattern_probe_packed as j_probe_packed
 from repro.kernels.packed_gather import pattern_probe_words as j_probe
 from repro.kernels.packed_gather import range_gather_words as j_gather
+from repro.kernels.pattern_probe import pattern_probe as j_probe_bytes
+from repro.kernels.range_gather import range_gather_pack as j_gather_pack
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.kernels import _build
 from repro_torch.kernels import kmer_histogram as tkmer
+from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gather as tpg
+from repro_torch.kernels import pattern_probe as tprobe
+from repro_torch.kernels import range_gather as trg
+from repro_torch.kernels import ref as tref
 
 
 def _texts(alpha, n, extra, seed):
@@ -156,15 +167,242 @@ def test_kmer_histogram_contract():
         ops.kmer_histogram(s, 10, 3, 5)  # needs n + k - 1 symbols
 
 
+def _byte_words(sym, valid):
+    """(pattern, 0xFF mask) byte-key rows, as the JAX tests pack them."""
+    return (np.array(jref.pack_words_ref(jnp.asarray(np.where(valid, sym, 0)))),
+            np.array(jref.pack_words_ref(jnp.asarray(np.where(valid, 0xFF, 0)))))
+
+
+@pytest.mark.parametrize("n,f,w,tile", [
+    (100, 7, 4, 32), (1000, 33, 16, 64), (5000, 128, 64, 256),
+    (300, 5, 32, 32), (257, 64, 8, 128), (4096, 256, 128, 512),
+])
+def test_range_gather_pack_equal(n, f, w, tile):
+    rng = np.random.default_rng(n + f)
+    s = rng.integers(0, 5, size=n).astype(np.uint8)
+    s[-1] = 4
+    offs = rng.integers(0, n, size=f).astype(np.int32)
+    pallas = j_gather_pack(jnp.asarray(s), jnp.asarray(offs), w, tile=tile,
+                           interpret=True)
+    want = jref.range_gather_pack_ref(jnp.asarray(s), jnp.asarray(offs), w)
+    got = trg.range_gather_pack(torch.from_numpy(s), torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(np.asarray(pallas), np.asarray(want))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_range_gather_pack_dtypes(dtype):
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, 21, size=500).astype(dtype)
+    s[-1] = 20
+    offs = rng.integers(0, 480, size=17).astype(np.int32)
+    pallas = j_gather_pack(jnp.asarray(s), jnp.asarray(offs), 16, tile=64,
+                           interpret=True)
+    got = ops.range_gather_pack(torch.from_numpy(s), torch.from_numpy(offs), 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+def test_range_gather_pack_tile_straddle_and_byte_codes():
+    """Reads across the Pallas tile boundary, and byte codes >= 128 (the
+    top byte reaches bit 31: hazard C5), clamped past the end."""
+    tile = 32
+    s = (np.arange(128) * 37 % 256).astype(np.uint8)
+    offs = np.array([tile - 1, tile - 3, 2 * tile - 2, 120, 127], np.int32)
+    pallas = j_gather_pack(jnp.asarray(s), jnp.asarray(offs), 8, tile=tile,
+                           interpret=True)
+    want = jref.range_gather_pack_ref(jnp.asarray(s), jnp.asarray(offs), 8)
+    got = ops.range_gather_pack(torch.from_numpy(s), torch.from_numpy(offs), 8)
+    np.testing.assert_array_equal(np.asarray(pallas), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() < 0).any()
+
+
+@pytest.mark.parametrize("f,w,blk", [(7, 4, 32), (50, 16, 32), (333, 32, 64),
+                                     (128, 64, 128)])
+def test_lcp_pairs_equal(f, w, blk):
+    rng = np.random.default_rng(f * w)
+    a = rng.integers(0, 2**25, size=(f, w // 4)).astype(np.int32)
+    b = np.where(rng.random((f, w // 4)) < 0.5,
+                 rng.integers(0, 2**25, size=(f, w // 4)).astype(np.int32), a)
+    pallas = j_lcp(jnp.asarray(a), jnp.asarray(b), w, blk=blk, interpret=True)
+    want = jref.lcp_pairs_ref(jnp.asarray(a), jnp.asarray(b), w)
+    got = tlcp.lcp_pairs(torch.from_numpy(a), torch.from_numpy(b), w)
+    for p, x, g in zip(pallas, want, got):
+        np.testing.assert_array_equal(np.asarray(p), np.asarray(x))
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+
+
+def test_lcp_pairs_identical_rows_and_high_bytes():
+    a = np.full((9, 4), 12345, np.int32)
+    lcp, c1, c2 = ops.lcp_pairs(torch.from_numpy(a), torch.from_numpy(a), 16)
+    assert (lcp.numpy() == 16).all()
+    assert (c1.numpy() == 0).all() and (c2.numpy() == 0).all()
+    # rows differing in a byte >= 128, and a window wider than w
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 2**32, size=(40, 3), dtype=np.uint64).astype(np.uint32)
+    y = x.copy()
+    y[::2, 1] ^= np.uint32(0x80000000)
+    y[1::4, 2] ^= np.uint32(0x00F00000)
+    x, y = x.view(np.int32), y.view(np.int32)
+    want = jref.lcp_pairs_ref(jnp.asarray(x), jnp.asarray(y), 10)
+    got = ops.lcp_pairs(torch.from_numpy(x), torch.from_numpy(y), 10)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert (got[1].numpy() >= 128).any()
+
+
+@pytest.mark.parametrize("n,b,m,tile,codes", [
+    (300, 7, 4, 32, 5), (1000, 33, 8, 64, 21), (2000, 64, 16, 256, 27),
+    (500, 16, 12, 128, 256),  # byte alphabet: top bit of packed words set
+])
+def test_pattern_probe_equal(n, b, m, tile, codes):
+    rng = np.random.default_rng(n + b)
+    s = rng.integers(0, codes, size=n).astype(np.uint8)
+    s[-1] = codes - 1
+    pos = rng.integers(0, n - 1, size=b).astype(np.int32)
+    m_pad = -(-m // 4) * 4
+    lengths = rng.integers(1, m + 1, size=b)
+    sym = rng.integers(0, codes, size=(b, m_pad)).astype(np.int32)
+    for i in range(0, b, 3):  # plant suffixes: verdict 0 (or ±1 at the end)
+        seg = s[pos[i]:pos[i] + m_pad]
+        sym[i, :seg.size] = seg
+    valid = np.arange(m_pad)[None, :] < lengths[:, None]
+    pat, mask = _byte_words(sym, valid)
+    pallas = j_probe_bytes(jnp.asarray(s), jnp.asarray(pos), jnp.asarray(pat),
+                           jnp.asarray(mask), tile=tile, interpret=True)
+    want = jref.pattern_probe_ref(jnp.asarray(s), jnp.asarray(pos),
+                                  jnp.asarray(pat), jnp.asarray(mask))
+    got = tprobe.pattern_probe(torch.from_numpy(s), torch.from_numpy(pos),
+                               torch.from_numpy(pat), torch.from_numpy(mask))
+    np.testing.assert_array_equal(np.asarray(pallas), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert set(got.numpy().tolist()) <= {-1, 0, 1} and (got.numpy() == 0).any()
+
+
+def test_pattern_probe_prefix_match_is_zero():
+    s = np.array([0, 1, 2, 3, 0, 1, 2, 4], np.uint8)
+    pat_sym = np.zeros((3, 4), np.int32)
+    pat_sym[:, :2] = [1, 2]
+    valid = np.broadcast_to(np.arange(4)[None, :] < 2, (3, 4))
+    pat, mask = _byte_words(pat_sym, valid)
+    pos = np.array([1, 5, 0], np.int32)
+    pallas = j_probe_bytes(jnp.asarray(s), jnp.asarray(pos), jnp.asarray(pat),
+                           jnp.asarray(mask), tile=32, interpret=True)
+    got = ops.pattern_probe(torch.from_numpy(s), torch.from_numpy(pos),
+                            torch.from_numpy(pat), torch.from_numpy(mask))
+    np.testing.assert_array_equal(np.asarray(pallas), [0, 0, -1])
+    np.testing.assert_array_equal(got.numpy(), [0, 0, -1])
+
+
+@pytest.mark.parametrize("alpha,n,b,m", [
+    (DNA, 400, 19, 4), (PROTEIN_CLASS, 700, 33, 8), (BYTE, 500, 16, 12),
+], ids=lambda v: getattr(v, "name", v))
+def test_pattern_probe_packed_equal(alpha, n, b, m):
+    """Plain port version == JAX Pallas (interpret) == the JAX byte probe
+    on the terminal-padded string, terminal codes in the patterns."""
+    rng = np.random.default_rng(n + b)
+    s = alpha.random_string(n, seed=n)
+    jt = jpk.pack_text(s, alpha, extra=32)
+    tt = tpk.pack_text(s, ALPHABETS[alpha.name], extra=32, device="cpu")
+    sp = alpha.pad_string(s, extra=32)
+    pos = rng.integers(0, n, size=b).astype(np.int32)
+    pos[-3:] = [n - 2, n - 1, n]  # suffixes running into the terminal
+    m_pad = -(-m // 4) * 4
+    lengths = rng.integers(1, m + 1, size=b)
+    sym = rng.integers(0, alpha.base, size=(b, m_pad)).astype(np.int32)
+    for i in range(0, b, 4):
+        sym[i] = sp[pos[i]:pos[i] + m_pad]
+    valid = np.arange(m_pad)[None, :] < lengths[:, None]
+    pat, mask = _byte_words(sym, valid)
+    pallas = j_probe_packed(jt, jnp.asarray(pos), jnp.asarray(pat),
+                            jnp.asarray(mask), tile=32, interpret=True)
+    want = jref.pattern_probe_ref(jnp.asarray(sp), jnp.asarray(pos),
+                                  jnp.asarray(pat), jnp.asarray(mask))
+    jref_packed = jref.pattern_probe_packed_ref(jt, jnp.asarray(pos),
+                                                jnp.asarray(pat),
+                                                jnp.asarray(mask))
+    got = tpg.pattern_probe_packed(tt, torch.from_numpy(pos),
+                                   torch.from_numpy(pat),
+                                   torch.from_numpy(mask))
+    np.testing.assert_array_equal(np.asarray(pallas), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(jref_packed), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _no_fallback_calls():
+    """Each byte-currency wrapper with CPU stand-ins for card tensors."""
+    rng = np.random.default_rng(2)
+    s = torch.from_numpy(DNA.pad_string(DNA.random_string(200, seed=1), 40))
+    pt = tpk.pack_text(DNA.random_string(200, seed=1), ALPHABETS["dna"],
+                       extra=40, device="cpu")
+    pos = torch.from_numpy(rng.integers(0, 200, 8).astype(np.int32))
+    words = torch.zeros((8, 2), dtype=torch.int32)
+    return {
+        "range_gather_pack": (trg, lambda: trg.range_gather_pack(s, pos, 8)),
+        "lcp_pairs": (tlcp, lambda: tlcp.lcp_pairs(words, words, 8)),
+        "pattern_probe": (tprobe, lambda: tprobe.pattern_probe(
+            s, pos, words, words)),
+        "pattern_probe_packed": (tpg, lambda: tpg.pattern_probe_packed(
+            pt, pos, words, words)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["range_gather_pack", "lcp_pairs",
+                                    "pattern_probe", "pattern_probe_packed"])
+def test_card_tensors_never_fall_back(monkeypatch, kernel):
+    """A tensor that is not on the CPU goes to the hand kernel: when the
+    build fails the wrapper raises, and neither the plain version nor the
+    launch count is touched."""
+    module, call = _no_fallback_calls()[kernel]
+    monkeypatch.setattr(module, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+
+    def failed_build():
+        raise RuntimeError("CUDA kernel build failed: stand-in")
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran for a card tensor")
+
+    monkeypatch.setattr(_build, "build_all", failed_build)
+    for name in ("range_gather_pack_ref", "lcp_pairs_ref", "pattern_probe_ref",
+                 "pattern_probe_packed_ref"):
+        monkeypatch.setattr(tref, name, plain)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="build failed"):
+        call()
+    assert ops.launch_counts()[kernel] == 0
+
+
+def test_byte_wrappers_check_card_inputs(monkeypatch):
+    """The checks a card call makes before any launch."""
+    monkeypatch.setattr(trg, "_on_cpu", lambda *tensors: False)
+    with pytest.raises(ValueError, match="uint8"):
+        trg.range_gather_pack(torch.zeros(16, dtype=torch.int32),
+                              torch.zeros(2, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        trg.range_gather_pack(torch.zeros(16, dtype=torch.uint8),
+                              torch.zeros(2, dtype=torch.int32), 6)
+    with pytest.raises(ValueError, match="rows"):
+        ops.lcp_pairs(torch.zeros((3, 2), dtype=torch.int32),
+                      torch.zeros((3, 1), dtype=torch.int32), 8)
+
+
 def test_cpu_tensors_take_plain_versions_uncounted():
     ops.reset_launch_counts()
     s, jt, tt = _texts(DNA, 300, 24, seed=2)
     offs = torch.arange(0, 300, 7, dtype=torch.int32)
     ops.range_gather_words(tt, offs, 16)
     ops.kmer_histogram(torch.zeros(20, dtype=torch.uint8), 10, 2, 5)
-    assert ops.launch_counts() == {"range_gather_words": 0,
-                                   "pattern_probe_words": 0,
-                                   "kmer_histogram": 0}
+    sp = torch.from_numpy(DNA.pad_string(s, 24))
+    keys = ops.range_gather_pack(sp, offs, 16)
+    ops.lcp_pairs(keys, keys, 16)
+    ops.pattern_probe(sp, offs, keys, keys)
+    ops.pattern_probe_packed(tt, offs, keys, keys)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+    assert len(ops.KERNELS) == 7
 
 
 def test_other_devices_raise():
@@ -187,7 +425,7 @@ def test_knobs(monkeypatch):
     assert ops._use_word_compare() and ops._use_sort_fuse()
     assert ops._use_compaction()
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="B6"):
         ops._use_word_compare()
     monkeypatch.setenv("REPRO_WORD_COMPARE", "bogus")
     with pytest.raises(ValueError, match="REPRO_WORD_COMPARE"):

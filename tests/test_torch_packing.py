@@ -150,3 +150,81 @@ def test_resolve_dense_equal(mode, expect):
     from repro.core.alphabet import ALPHABETS as J
     want = [jpk.resolve_dense(mode, J[a]) for a in names]
     assert got == want == expect
+
+
+# ---- byte keys (the byte-key currency) -------------------------------------
+
+BYTE_ALPHAS = [J_DNA, J_PC, J_BYTE]
+
+
+def test_pack_words_equal_with_high_codes():
+    """Codes >= 128 set bit 31 of the key: packed in int64, wrapped to the
+    int32 bit pattern JAX's wrapping int32 multiply gives (hazard C5)."""
+    rng = np.random.default_rng(1)
+    sym = rng.integers(0, 256, size=(17, 24)).astype(np.int32)
+    sym[0, :4] = [255, 255, 255, 255]
+    sym[1, :4] = [128, 0, 0, 0]
+    want = np.asarray(jpk.pack_words(jnp.asarray(sym)))
+    got = tpk.pack_words(torch.from_numpy(sym))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0, 0] == -1 and got[1, 0] == -(1 << 31)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tpk.pack_words(torch.zeros((2, 6), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("alpha", BYTE_ALPHAS, ids=[a.name for a in BYTE_ALPHAS])
+@pytest.mark.parametrize("w", [4, 16, 64, 256])
+def test_gather_pack_equal(alpha, w):
+    """Byte keys from the terminal-padded string, offsets up to and past
+    the padding (the clamp to the last index)."""
+    n = 600
+    rng = np.random.default_rng(w + 7)
+    s = alpha.random_string(n, seed=w)
+    sp = alpha.pad_string(s, extra=w // 2)
+    offs = np.concatenate([rng.integers(0, n + 1, size=50),
+                           np.arange(n - 4, len(sp))]).astype(np.int32)
+    want = np.asarray(jpk.gather_pack(jnp.asarray(sp), jnp.asarray(offs), w))
+    got = tpk.gather_pack(torch.from_numpy(sp), torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("alpha", BYTE_ALPHAS, ids=[a.name for a in BYTE_ALPHAS])
+@pytest.mark.parametrize("w", [4, 16, 64])
+def test_gather_pack_dense_equal(alpha, w):
+    """Byte keys repacked from dense words == JAX == the byte gather
+    (tests/test_packed.py::TestGatherPackDense)."""
+    rng = np.random.default_rng(w)
+    n = 900
+    s, jt, tt = _pair(alpha, n, seed=9, extra=w + 8)
+    sp = alpha.pad_string(s, extra=w + 8)
+    offs = np.concatenate([rng.integers(0, len(s), size=65),
+                           [len(s) - 2, len(s) - 1, len(s), len(s) + 3]]
+                          ).astype(np.int32)
+    want = np.asarray(jpk.gather_pack_dense(jt, jnp.asarray(offs), w))
+    got = tpk.gather_pack_dense(tt, torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(got.numpy(), want)
+    byte = tpk.gather_pack(torch.from_numpy(sp), torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(got.numpy(), byte.numpy())
+
+
+@pytest.mark.parametrize("alpha", ALPHAS, ids=IDS)
+def test_gather_symbols_dense_equal(alpha):
+    n, w = 500, 21
+    rng = np.random.default_rng(4)
+    s, jt, tt = _pair(alpha, n, seed=4, extra=w + 8)
+    offs = _offsets(rng, n, w, tt.syms_per_word, 30)
+    want = np.asarray(jpk.gather_symbols_dense(jt, jnp.asarray(offs), w))
+    got = tpk.gather_symbols_dense(tt, torch.from_numpy(offs), w)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_flip_sign_orders_unsigned():
+    x = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0xDEADBEEF],
+                 np.uint32)
+    flipped = tpk.flip_sign(torch.from_numpy(x.view(np.int32)))
+    want = np.asarray(jpk.flip_sign(jnp.asarray(x.view(np.int32))))
+    np.testing.assert_array_equal(flipped.numpy(), want)
+    assert np.array_equal(np.argsort(flipped.numpy(), kind="stable"),
+                          np.argsort(x, kind="stable"))

@@ -74,6 +74,47 @@ def test_batched_build_grid(monkeypatch, leg, alpha, n, mem, packing):
 
 
 @pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("alpha,n,mem,packing", [
+    ("protein", 1500, 2048, "auto"),    # 20 symbols: byte text under auto
+    ("english", 1200, 4096, "auto"),
+    ("byte", 900, 2048, "auto"),        # codes >= 128: unsigned sort (C5)
+    ("dna", 1200, 1024, "bytes"),       # byte text for a dense alphabet
+])
+def test_byte_branch_grid(monkeypatch, leg, alpha, n, mem, packing):
+    """The byte-key branch (range_gather_pack + unsigned lexsort +
+    lcp_pairs): all six state fields equal JAX's; ``sort_fuse`` does not
+    apply there in either package (C7), so the default and lexsort legs
+    take the same sort."""
+    for var, val in LEGS[leg].items():
+        monkeypatch.setenv(var, val)
+    s = J_ALPHABETS[alpha].random_string(n, seed=n + mem)
+    jst, tst, _ = _run(s, alpha, mem, packing)
+    _assert_fields(jst, tst)
+
+
+@pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("name,n,mem", [("protein", 4_000, 1 << 13),
+                                        ("byte", 3_000, 1 << 13)])
+def test_byte_datasets_grid(monkeypatch, leg, name, n, mem):
+    """Planted repeats (deep areas, wide elastic ranges) on byte text."""
+    for var, val in LEGS[leg].items():
+        monkeypatch.setenv(var, val)
+    s, _ = j_dataset(name, n, seed=0)
+    jst, tst, g = _run(s, name, mem)
+    assert g > 1
+    _assert_fields(jst, tst)
+
+
+def test_byte_device_text_is_the_padded_string():
+    s, _ = j_dataset("protein", 900, seed=3)
+    jix, tix = _both(s, "protein", 2048)
+    text = tix._device_text(s)
+    assert text.dtype == torch.uint8
+    np.testing.assert_array_equal(text.numpy(), np.asarray(jix._device_text(s)))
+    assert text.shape[0] == len(s) + 2 * tix.config.w_max + 8
+
+
+@pytest.mark.parametrize("leg", sorted(LEGS))
 @pytest.mark.parametrize("name,n,mem", [("dna", 6_000, 1 << 12),
                                         ("genome", 5_000, 1 << 12)])
 def test_bit_identity_grid(monkeypatch, leg, name, n, mem):
@@ -170,3 +211,20 @@ def test_device_text_words_equal():
     jix, tix = _both(s, "dna", 2048)
     np.testing.assert_array_equal(words_to_numpy(tix._device_text(s).words),
                                   np.asarray(jix._device_text(s).words))
+
+
+def test_byte_knob_only_refused_on_dense_text(monkeypatch):
+    """``REPRO_WORD_COMPARE=byte`` changes nothing on byte text (JAX reads
+    it only for a dense text), so a protein build runs and equals JAX;
+    on dense text it needs ``range_gather_packed`` and raises (B6)."""
+    monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
+    s = J_ALPHABETS["protein"].random_string(800, seed=4)
+    jst, tst, _ = _run(s, "protein", 2048)
+    _assert_fields(jst, tst)
+    s = J_ALPHABETS["dna"].random_string(300, seed=4)
+    _, tix = _both(s, "dna", 2048)
+    groups = tix.partition(s)
+    with pytest.raises(NotImplementedError, match="B6"):
+        tprep.subtree_prepare_batch(tix._device_text(s), groups,
+                                    tix._capacity(groups),
+                                    tix.config.elastic_config())

@@ -2,9 +2,13 @@
 
 A JAX ``DeviceIndex`` carried into the port (``from_blobs``, or an npz
 file) answers ``find_batch`` identically, and a port archive loads in the
-JAX package and answers identically too.  The port runs on the CPU.
-Tolerance: exact.
+JAX package and answers identically too — dense (``s_words``) and byte
+(``s_padded``) archives alike.  A dense index answers a batch carrying the
+terminal code through the byte-key probe, as JAX does.  The port runs on
+the CPU.  Tolerance: exact.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -38,10 +42,13 @@ def _patterns(s, n_sym, rng, count=30):
     return pats
 
 
-@pytest.mark.parametrize("alpha,n,mem", [("dna", 800, 512), ("dna", 1500, 8192),
-                                         ("protein_class", 700, 4096)])
-def test_jax_blobs_answer_identically(alpha, n, mem):
-    s, jdev = _jax_index(alpha, n, mem, seed=n + mem)
+@pytest.mark.parametrize("alpha,n,mem,packing", [
+    ("dna", 800, 512, "auto"), ("dna", 1500, 8192, "auto"),
+    ("protein_class", 700, 4096, "auto"), ("protein", 900, 4096, "auto"),
+    ("byte", 700, 4096, "auto"), ("dna", 900, 2048, "bytes"),
+])
+def test_jax_blobs_answer_identically(alpha, n, mem, packing):
+    s, jdev = _jax_index(alpha, n, mem, seed=n + mem, packing=packing)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
     rng = np.random.default_rng(n)
     pats = _patterns(s, len(J_ALPHABETS[alpha].symbols), rng)
@@ -89,29 +96,107 @@ def test_string_codes_round_trip():
     assert tdev.s_text.nbytes == jdev.string_nbytes and tdev.s_text.bits == 2
 
 
+def _terminal_patterns(s, terminal):
+    """Patterns that end in the terminal code: the last k symbols of the
+    string with its terminal, and every [c, terminal]."""
+    n = len(s)
+    pats = [np.asarray(s[n - k:]) for k in (1, 2, 3, 5, 9, 17)]
+    pats += [np.array([c, terminal], np.uint8) for c in range(terminal)]
+    return pats
+
+
 def test_terminal_bearing_batch_raises():
+    """Once refused, now answered: a dense DNA index serves a batch that
+    carries the terminal code through ``pattern_probe_packed``, equal to
+    JAX and to the brute-force scan, and counts no word-probe launch."""
     s, jdev = _jax_index("dna", 400, 2048, seed=77)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
-    pats = [np.asarray(s[10:16]), np.array([0, 4], np.uint8)]
-    with pytest.raises(ValueError, match="terminal code"):
-        tdev.find_batch(pats)
+    pats = [np.asarray(s[10:16])] + _terminal_patterns(s, 4)
+    assert not tdev._word_gate(tdev.pad_batch(pats)[0], None)
+    assert tdev._word_gate(tdev.pad_batch(pats[:1])[0], None)
+    got = tdev.find_batch(pats)
+    for p, g, w in zip(pats, got, jdev.find_batch(pats)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, ref.occurrences(s, p))
+    assert got[1].tolist() == [len(s) - 1]  # the terminal itself
+
+
+@pytest.mark.parametrize("alpha", ["protein_class", "byte"])
+def test_terminal_bearing_batch_other_alphabets(alpha):
+    s, jdev = _jax_index(alpha, 500, 4096, seed=79,
+                         packing="dense" if alpha == "byte" else "auto")
+    tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
+    assert tdev.packed
+    a = J_ALPHABETS[alpha]
+    pats = _terminal_patterns(s, a.terminal_code)[:20] + [np.asarray(s[5:9])]
+    for p, g, w in zip(pats, tdev.find_batch(pats), jdev.find_batch(pats)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, ref.occurrences(s, p))
 
 
 def test_byte_compare_knob_raises(monkeypatch):
     s, jdev = _jax_index("dna", 400, 2048, seed=78)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="B6"):
         tdev.find_batch([np.asarray(s[3:9])])
 
 
 def test_byte_archive_raises():
+    """Once refused, now loaded: a JAX byte archive (``s_padded`` and the
+    4-entry meta, no epoch) answers as JAX does."""
     a = J_ALPHABETS["dna"]
     s = a.random_string(300, seed=1)
     jdev = JIndexer(a, JConfig(memory_bytes=2048, build_impl="none")
                     ).build_device(s, packing="bytes")
-    with pytest.raises(NotImplementedError, match="A7"):
-        DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
+    blobs = jdev.to_blobs()
+    blobs["meta"] = blobs["meta"][:4]  # an archive from before epochs
+    tdev = DeviceIndex.from_blobs(blobs, device="cpu")
+    assert not tdev.packed and tdev.epoch == 0 and tdev.s_bits == 8
+    np.testing.assert_array_equal(tdev.string_codes(), s)
+    pats = _patterns(s, 4, np.random.default_rng(3))
+    for g, w in zip(tdev.find_batch(pats), jdev.find_batch(pats)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("alpha,packing", [("protein", "auto"),
+                                           ("byte", "auto"),
+                                           ("dna", "bytes")])
+def test_byte_archives_load_both_ways(tmp_path, alpha, packing):
+    """Byte archives (C8: ``s_padded``, meta of 4 + the epoch at meta[4])
+    round-trip JAX → port → JAX, array for array."""
+    s, jdev = _jax_index(alpha, 700, 4096, seed=12, packing=packing)
+    jdev = dataclasses.replace(jdev, epoch=3)
+    jdev.save(str(tmp_path / "jax_index"))
+    tdev = DeviceIndex.load(str(tmp_path / "jax_index"), device="cpu")
+    assert tdev.epoch == 3 and not tdev.packed
+    tdev.save(str(tmp_path / "port_index.npz"))
+    back = JDeviceIndex.load(str(tmp_path / "port_index.npz"))
+    jb, tb, bb = jdev.to_blobs(), tdev.to_blobs(), back.to_blobs()
+    assert set(jb) == set(tb) == set(bb) and "s_padded" in tb
+    assert tb["meta"].tolist()[4] == 3 and tb["meta"].size == 5
+    for key in jb:
+        assert tb[key].dtype == jb[key].dtype, key
+        np.testing.assert_array_equal(tb[key], jb[key], err_msg=key)
+        np.testing.assert_array_equal(bb[key], jb[key], err_msg=key)
+    pats = _patterns(s, len(J_ALPHABETS[alpha].symbols),
+                     np.random.default_rng(4))
+    for a, b in zip(back.find_batch(pats), tdev.find_batch(pats)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_read_symbols_equal_both_layouts():
+    for alpha, packing in (("dna", "auto"), ("protein", "auto")):
+        s, jdev = _jax_index(alpha, 500, 4096, seed=5, packing=packing)
+        tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
+        pos = np.array([0, 7, 250, 490, 499, 500], np.int32)
+        np.testing.assert_array_equal(tdev.read_symbols(pos, 13).numpy(),
+                                      np.asarray(jdev.read_symbols(pos, 13)))
+        assert tdev.string_nbytes == jdev.string_nbytes
+        if not tdev.packed:
+            with pytest.raises(AttributeError):
+                DeviceIndex.from_blobs(_jax_index("dna", 300, 2048, seed=1)[1]
+                                       .to_blobs(), device="cpu").s_padded
 
 
 def test_pad_batch_validation():
