@@ -9,7 +9,14 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   plus a batch carrying the terminal code (``pattern_probe_packed``);
 * the protein path — the ``protein`` dataset, byte-per-symbol text, the
   byte-key currency (``range_gather_pack``, ``lcp_pairs``,
-  ``pattern_probe``, and ``kmer_histogram`` for the partition).
+  ``pattern_probe``, and ``kmer_histogram`` for the partition);
+* the tree + analytics path on both datasets —
+  ``EraIndexer(alphabet, EraConfig(node_lcp="words")).build(s)`` →
+  ``SuffixTreeIndex`` → ``index.analytics()`` → the ``analytics_serve``
+  loop (``suffix_lcp_words`` on DNA, ``suffix_lcp_pairs`` on protein, the
+  node build's divergence rows and the global LCP's boundaries);
+* the ``REPRO_WORD_COMPARE=byte`` oracle leg on ``genome`` at n = 2**25
+  (``range_gather_packed``), held equal to the word leg.
 
 Phases, each printing one JSON line:
 
@@ -22,12 +29,18 @@ Phases, each printing one JSON line:
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
 5. serving  — the ``query_serve`` loop (batch 256, lengths 4–24);
-6. kernels  — each kernel at the main path's shapes: time, plain-version
+6. tree / analytics / analytics_serving — the tree path per dataset:
+              build, engine, the serving loop (batch 512, window 64, 20
+              batches), then its checks against brute force on the card;
+7. byte_leg — build_device, find_batch and the analytics LCP array under
+              ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
+8. kernels  — each kernel at the main path's shapes: time, plain-version
               time, bound, and its launches on the paths above.
 
 Launch counts are set to 0 just before each path (build + check +
-serving, and the terminal-bearing check) and read just after; the build,
-check and serving lines carry the counts so far.  Every kernel of a path
+serving, the terminal-bearing check, each tree path from build to the
+end of its serving loop, each leg of the byte-leg phase) and read just
+after; the phase lines carry the counts so far.  Every kernel of a path
 must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or without the rest of the repository, the script exits
@@ -41,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +70,16 @@ DNA_KERNELS = ("range_gather_words", "pattern_probe_words", "kmer_histogram")
 TERMINAL_KERNELS = ("pattern_probe_packed",)
 PROTEIN_KERNELS = ("kmer_histogram", "range_gather_pack", "lcp_pairs",
                    "pattern_probe")
+TREE_KERNELS = {
+    "genome": ("kmer_histogram", "range_gather_words", "suffix_lcp_words",
+               "pattern_probe_words"),
+    "protein": ("kmer_histogram", "range_gather_pack", "lcp_pairs",
+                "suffix_lcp_pairs", "pattern_probe"),
+}
+BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed")
+WORD_ONLY_KERNELS = ("range_gather_words", "pattern_probe_words",
+                     "suffix_lcp_words")
+BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
 
 
 def emit(obj) -> None:
@@ -129,6 +153,73 @@ def probe_bytes_work(b: int, nw: int, text_bytes: int) -> tuple[float, float]:
             + b * 4, b * nw * 16)
 
 
+def gather_packed_work(f: int, nw: int, bits: int,
+                       n_words: int) -> tuple[float, float]:
+    """Bytes (offsets, dense text words touched, key words out) and ops of
+    a byte-key read from dense text: each dense word spreads to key words."""
+    dense = -(-4 * nw * bits // 32) + 1
+    return f * 4 + min(n_words, f * dense) * 4 + f * nw * 4, f * nw * 24
+
+
+def suffix_lcp_work(lcp: torch.Tensor, w: int, syms_per_read: int,
+                    text_bytes: int, read_bytes: int) -> tuple[float, float]:
+    """Bytes and ops a suffix-pair LCP needs on this run's data: both
+    positions in, one LCP out, and per suffix the reads up to its first
+    difference (``syms_per_read`` symbols of ``read_bytes`` each)."""
+    b = lcp.numel()
+    reads = torch.clamp(lcp.to(torch.int64) // syms_per_read + 1,
+                        max=-(-w // syms_per_read))
+    total = int(reads.sum())
+    return b * 12 + min(text_bytes, 2 * total * read_bytes), total * 2 * 16
+
+
+def sorted_pairs(keys: torch.Tensor, offs: torch.Tensor):
+    """Offsets ordered by their key rows (unsigned, lexicographic), as
+    (left, right) neighbour pairs: long shared prefixes, as adjacent
+    suffix-array rows have."""
+    from repro_torch.core.packing import to_u64
+    from repro_torch.core.prepare import _pair_lanes, _stable_order
+    order = _stable_order(_pair_lanes(
+        [to_u64(keys[None, :, j]) for j in range(keys.shape[1])]))[0]
+    o = offs[order]
+    return o[:-1].contiguous(), o[1:].contiguous()
+
+
+def occurrences(s_dev: torch.Tensor, p) -> torch.Tensor:
+    """Every start of ``p`` in the device string, by narrowing the
+    candidates one symbol at a time."""
+    p = [int(c) for c in p]
+    m = len(p)
+    n1 = s_dev.shape[0]
+    cand = torch.nonzero(s_dev[:max(0, n1 - m + 1)] == p[0]).flatten()
+    for j in range(1, m):
+        if cand.numel() == 0:
+            break
+        cand = cand[s_dev[cand + j] == p[j]]
+    return cand
+
+
+def brute_lcp(s_dev: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              chunk: int = 256) -> torch.Tensor:
+    """LCP of distinct suffix pairs by symbol compare on the device string
+    (the terminal is unique, so every pair differs by its end)."""
+    n1 = s_dev.shape[0]
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    out = torch.zeros_like(a)
+    pending = torch.arange(a.numel(), device=a.device)
+    ar = torch.arange(chunk, device=a.device)
+    while pending.numel():
+        base = out[pending, None] + ar
+        ia = torch.clamp(a[pending, None] + base, max=n1 - 1)
+        ib = torch.clamp(b[pending, None] + base, max=n1 - 1)
+        neq = s_dev[ia] != s_dev[ib]
+        first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1), chunk)
+        out[pending] += first
+        pending = pending[first == chunk]
+    return out
+
+
 def assert_equal(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
     if got.shape != want.shape or not torch.equal(got, want):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
@@ -181,14 +272,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import build as tbuild
     from repro_torch.core import packing
+    from repro_torch.core.alphabet import ALPHABETS
     from repro_torch.core.api import BuildReport, EraConfig, EraIndexer
     from repro_torch.core.prepare import PrepareStats, _pair_lanes, _stable_order
     from repro_torch.core.query import _pack_query_batch
     from repro_torch.core.vertical import VerticalStats
-    from repro_torch.data.strings import dataset
+    from repro_torch.data.strings import dataset, synthetic_string
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch.analytics_serve import make_query, serve_engine
     from repro_torch.launch.query_serve import make_workload, serve_index
 
     cuda = torch.device("cuda")
@@ -312,6 +406,51 @@ def main() -> int:
     del offs, got, want, pat_d, mask_d, pat_b, mask_b
     torch.cuda.empty_cache()
 
+    # range_gather_packed and suffix_lcp_words on the DNA (2-bit) build
+    # text and a PROTEIN_CLASS (4-bit) text; the LCP pairs are neighbours
+    # in the order of their 64-symbol keys (long shared prefixes), and
+    # the offsets include the last n_real positions
+    pc_alpha = ALPHABETS["protein_class"]
+    dense_texts = {"genome": pt, "protein_class": packing.pack_text(
+        synthetic_string(pc_alpha, n, seed=0, repeat_fraction=0.15),
+        pc_alpha, extra=2 * cfg.w_max + 8, device=cuda)}
+    for name, ptx in dense_texts.items():
+        nr = ptx.n_real
+        tail = np.arange(max(0, nr - 255), nr + 1)
+        offs = torch.from_numpy(np.concatenate(
+            [rng.integers(0, nr + 1, size=f - tail.size), tail]
+        ).astype(np.int32)).to(cuda)
+        for w in (4, 16, 64, 256):
+            got = ops.range_gather_packed(ptx, offs, w)
+            want = kref.range_gather_packed_ref(ptx, offs, w)
+            assert_equal(got, want, f"range_gather_packed {name} w={w}")
+            b_ms, b_by = bound(*gather_packed_work(f, w // 4, ptx.bits,
+                                                   ptx.words.shape[0]))
+            emit({"phase": "parity", "kernel": "range_gather_packed",
+                  "text": name, "bits": ptx.bits, "rows": f, "w": w,
+                  "max_abs_err": 0,
+                  "ms": cuda_ms(lambda: ops.range_gather_packed(ptx, offs, w)),
+                  "plain_ms": cuda_ms(
+                      lambda: kref.range_gather_packed_ref(ptx, offs, w)),
+                  "bound_ms": b_ms, "bound_by": b_by})
+        pa, pb = sorted_pairs(ops.range_gather_words(ptx, offs, 64), offs)
+        for w in (4, 64, 256):
+            got = ops.suffix_lcp_words(ptx, pa, pb, w)
+            want = kref.suffix_lcp_words_ref(ptx, pa, pb, w)
+            assert_equal(got, want, f"suffix_lcp_words {name} w={w}")
+            b_ms, b_by = bound(*suffix_lcp_work(
+                got, w, ptx.syms_per_word, ptx.nbytes, 8))
+            emit({"phase": "parity", "kernel": "suffix_lcp_words",
+                  "text": name, "bits": ptx.bits, "rows": pa.shape[0],
+                  "w": w, "max_abs_err": 0,
+                  "saturated_rows": int((got == w).sum()),
+                  "ms": cuda_ms(lambda: ops.suffix_lcp_words(ptx, pa, pb, w)),
+                  "plain_ms": cuda_ms(
+                      lambda: kref.suffix_lcp_words_ref(ptx, pa, pb, w)),
+                  "bound_ms": b_ms, "bound_by": b_by})
+    del dense_texts, ptx, offs, got, want, pa, pb
+    torch.cuda.empty_cache()
+
     # byte-key kernels over the protein text (the build's padding) and a
     # BYTE-alphabet text (codes up to 255: hazard C5)
     t0 = time.perf_counter()
@@ -396,6 +535,29 @@ def main() -> int:
               "plain_ms": cuda_ms(lambda: kref.pattern_probe_ref(
                   sp, pos, pat_b, mask_b), inner=20),
               "bound_ms": b_ms, "bound_by": b_by})
+    # suffix_lcp_pairs on the protein text and the byte text (codes >=
+    # 128), neighbour pairs in key order and the last positions
+    slcp = ops.KERNELS["suffix_lcp_pairs"]
+    for name, (sx, ax, sp) in texts.items():
+        nr = len(sx) - 1
+        tail = np.arange(nr - 255, nr + 1)
+        offs = torch.from_numpy(np.concatenate(
+            [rng.integers(0, nr + 1, size=f - tail.size), tail]
+        ).astype(np.int32)).to(cuda)
+        pa, pb = sorted_pairs(ops.range_gather_pack(sp, offs, 64), offs)
+        for w in (4, 64, 256):
+            got = slcp(sp, pa, pb, w)
+            want = kref.suffix_lcp_pairs_ref(sp, pa, pb, w)
+            assert_equal(got, want, f"suffix_lcp_pairs {name} w={w}")
+            b_ms, b_by = bound(*suffix_lcp_work(got, w, 4, sp.shape[0], 8))
+            emit({"phase": "parity", "kernel": "suffix_lcp_pairs",
+                  "text": name, "rows": pa.shape[0], "w": w,
+                  "max_abs_err": 0, "saturated_rows": int((got == w).sum()),
+                  "ms": cuda_ms(lambda: slcp(sp, pa, pb, w)),
+                  "plain_ms": cuda_ms(
+                      lambda: kref.suffix_lcp_pairs_ref(sp, pa, pb, w)),
+                  "bound_ms": b_ms, "bound_by": b_by})
+    del pa, pb
     del texts, offs, got, want, pat_b, mask_b, s_byte, sp
     torch.cuda.empty_cache()
 
@@ -536,6 +698,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3-5. the protein path (build, check, serving; counted) ------------
+    s_dna = s
     s = s_prot
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -642,8 +805,315 @@ def main() -> int:
                      dev.s_text, pos2, pat2, mask2), inner=20),
                  "bound_ms": b_ms, "bound_by": b_by})
 
-    counts = {name: dna_counts[name] + term_counts[name] + prot_counts[name]
-              for name in ops.KERNELS}
+    del dev, ell, got, want, pos2, pat2, mask2
+    torch.cuda.empty_cache()
+
+    # ---- 6. the tree + analytics path per dataset (counted) ----------------
+    def tree_path(name: str, sx: np.ndarray, ax) -> dict:
+        """EraIndexer.build (node_lcp="words") -> SuffixTreeIndex ->
+        analytics() -> the analytics_serve loop, counted from the build to
+        the end of the loop; then the checks and the new kernel's row."""
+        cfg_w = EraConfig(node_lcp="words")
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        report = BuildReport(VerticalStats(), PrepareStats())
+        t0 = time.perf_counter()
+        index = EraIndexer(ax, cfg_w).build(sx, report)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        emit({"phase": "tree", "dataset": name, "n": len(sx) - 1,
+              "node_lcp": "words", "t_total_s": t_total,
+              "t_vertical_s": report.t_vertical,
+              "t_prepare_s": report.t_prepare, "t_build_s": report.t_build,
+              "iterations": report.prepare.iterations,
+              "groups": report.n_groups, "prefixes": report.n_prefixes,
+              "n_leaves": index.n_leaves, "n_internal": index.n_internal,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": ops.launch_counts()})
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = index.analytics()
+        torch.cuda.synchronize()
+        t_eng = time.perf_counter() - t0
+        emit({"phase": "analytics", "dataset": name, "t_analytics_s": t_eng,
+              "n_subtrees": eng.dev.n_subtrees, "levels": eng.vals.shape[0],
+              "table_bytes": eng.vals.numel() * 4 + eng.vals_rev.numel() * 4,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": ops.launch_counts()})
+        stats = serve_engine(eng, sx, ax, np.random.default_rng(1),
+                             batch=512, iters=20, window=64,
+                             planted_frac=0.7)
+        counts = ops.launch_counts()
+        emit({"phase": "analytics_serving", "dataset": name, **stats,
+              "launches": counts})
+        require_launches(counts, TREE_KERNELS[name], f"the {name} tree path")
+
+        # -- tree checks: text-derived divergence rows == the prepare
+        #    state's b_off on every sub-tree; find == brute force
+        s_dev = torch.from_numpy(sx).to(cuda)
+        prefixes = sorted(index.subtrees)
+        freqs = np.array([index.subtrees[p].freq for p in prefixes])
+        ell_all = np.concatenate([index.subtrees[p].ell for p in prefixes])
+        boff_all = np.concatenate([index.subtrees[p].b_off
+                                   for p in prefixes])
+        inner = np.ones(ell_all.size, bool)
+        inner[np.cumsum(freqs) - freqs] = False  # each sub-tree's first row
+        text = EraIndexer(ax, cfg_w)._device_text(sx)
+        t0 = time.perf_counter()
+        rows = tbuild.boff_rows_from_text(
+            text, torch.from_numpy(ell_all)[None].to(cuda), len(sx))[0]
+        t_rows = time.perf_counter() - t0
+        if not np.array_equal(rows.cpu().numpy()[inner], boff_all[inner]):
+            raise AssertionError(f"{name}: boff_rows_from_text disagrees "
+                                 f"with the prepare state's b_off")
+        del rows
+        pats = make_workload(sx, qrng, batch=64, min_len=4, max_len=24,
+                             planted_frac=0.7, n_symbols=len(ax.symbols))
+        for p in pats:
+            want_pos = occurrences(s_dev, p).sort().values.cpu().numpy()
+            if not np.array_equal(index.find(p), want_pos):
+                raise AssertionError(f"{name}: find disagrees with the scan "
+                                     f"for pattern {p.tolist()}")
+        emit({"phase": "check", "dataset": name, "path": "tree",
+              "boff_rows_equal": int(inner.sum()), "t_boff_rows_s": t_rows,
+              "find_patterns": len(pats)})
+
+        # -- analytics checks against brute force on the card
+        total = eng.total
+        ell_dev = eng.dev.ell
+        bnd = eng.dev.sub_off[1:].to(torch.int64)
+        rnd = torch.randint(1, total, (4096,), device=cuda)
+        rows_q = torch.cat([bnd, rnd])
+        want = brute_lcp(s_dev, ell_dev[rows_q - 1], ell_dev[rows_q])
+        if not torch.equal(eng.lcp[rows_q].to(torch.int64), want):
+            raise AssertionError(f"{name}: LCP array disagrees with brute "
+                                 f"force")
+        k = 6 if name == "genome" else 3
+        starts, kcounts = eng.kmer_spectrum(k)
+        hist = ops.kmer_histogram(s_dev, total - k + 1, k, ax.base)
+        wins = s_dev[torch.from_numpy(starts).to(cuda)[:, None]
+                     + torch.arange(k, device=cuda)].to(torch.int64)
+        codes = torch.zeros(wins.shape[0], dtype=torch.int64, device=cuda)
+        for j in range(k):
+            codes = codes * ax.base + wins[:, j]
+        if not (torch.equal(hist[codes].cpu().to(torch.int64),
+                            torch.from_numpy(kcounts))
+                and int((hist > 0).sum()) == len(kcounts)
+                and int(hist.sum()) == int(kcounts.sum())):
+            raise AssertionError(f"{name}: kmer_spectrum({k}) disagrees with "
+                                 f"the kmer_histogram counts")
+        rep = eng.longest_repeat()
+        rep_p = sx[rep["witness"]:rep["witness"] + rep["length"]]
+        rep_occ = int(occurrences(s_dev, rep_p).numel())
+        if rep_occ != rep["count"]:
+            raise AssertionError(f"{name}: longest repeat occurs {rep_occ} "
+                                 f"times, the engine says {rep['count']}")
+        q = make_query(sx, qrng, batch=512, planted_frac=0.7,
+                       n_symbols=len(ax.symbols))
+        ms, wit = eng.matching_stats(q, window=64)
+        q_dev = torch.from_numpy(np.concatenate(
+            [q, np.zeros(64, np.uint8)])).to(cuda)
+        ar = torch.arange(64, device=cuda)
+        has = torch.from_numpy(np.nonzero(ms > 0)[0]).to(cuda)
+        ms_dev = torch.from_numpy(ms.astype(np.int64)).to(cuda)
+        wit_dev = torch.from_numpy(wit.astype(np.int64)).to(cuda)
+        in_match = ar[None, :] < ms_dev[has, None]
+        s_win = s_dev[torch.clamp(wit_dev[has, None] + ar, max=len(sx) - 1)]
+        q_win = q_dev[has[:, None] + ar]
+        if bool(((s_win != q_win) & in_match).any()):
+            raise AssertionError(f"{name}: a matching-statistics witness "
+                                 f"does not match the query")
+        open_pos = np.nonzero((ms < 64) & (np.arange(len(q)) + ms < len(q)))[0]
+        sample = qrng.choice(open_pos, size=min(256, open_pos.size),
+                             replace=False)
+        for i in sample:
+            if occurrences(s_dev, q[i:i + ms[i] + 1]).numel():
+                raise AssertionError(f"{name}: matching statistic at {i} is "
+                                     f"not maximal")
+        emit({"phase": "check", "dataset": name, "path": "analytics",
+              "lcp_rows_checked": int(rows_q.numel()),
+              "boundaries": int(bnd.numel()), "kmer_k": k,
+              "distinct_kmers": len(kcounts),
+              "longest_repeat": rep, "matched_positions": int(has.numel()),
+              "maximal_checked": int(sample.size),
+              "distinct_substrings": eng.distinct_substrings()})
+        del eng, s_dev, hist, wins, codes, q_dev, ms_dev, wit_dev, s_win
+        del q_win, in_match, has, rows_q, want, ell_dev
+        index._analytics = index._device = None
+        torch.cuda.empty_cache()
+
+        # -- the layers of the node build, each timed alone: the loop of
+        #    EraIndexer._attach_nodes_batched split at its device syncs
+        #    (padded rows + text-derived divergence rows, the chunked
+        #    Cartesian-tree build, the compact extraction and host copy)
+        t_rows = t_cart = t_host = 0.0
+        cells, chunks = 0, 0
+        ell_dev = torch.from_numpy(ell_all).to(cuda)
+        first = np.cumsum(freqs) - freqs
+        for f_pad, bucket in tbuild.bucket_pad_widths(freqs):
+            t0 = time.perf_counter()
+            idx = np.zeros((len(bucket), f_pad), np.int64)
+            for r, e in enumerate(bucket):
+                idx[r, :freqs[e]] = first[e] + np.arange(freqs[e])
+            mask = torch.from_numpy(
+                np.arange(f_pad)[None, :] < freqs[bucket][:, None]).to(cuda)
+            ell_rows = torch.where(mask, ell_dev[torch.from_numpy(idx).to(
+                cuda)], len(sx))
+            boff_rows = tbuild.boff_rows_from_text(text, ell_rows, len(sx))
+            torch.cuda.synchronize()
+            t_rows += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            nodes = tbuild.build_parallel_batch(ell_rows, boff_rows, len(sx))
+            torch.cuda.synchronize()
+            t_cart += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tbuild.unpad_nodes_rows(nodes, freqs[bucket])
+            t_host += time.perf_counter() - t0
+            cells += len(bucket) * f_pad
+            chunks += -(-len(bucket) // tbuild.rows_per_chunk(f_pad))
+            del idx, mask, ell_rows, boff_rows, nodes
+        del ell_dev
+        torch.cuda.empty_cache()
+        emit({"phase": "tree_layers", "dataset": name,
+              "t_rows_and_text_lcp_s": t_rows, "t_cartesian_build_s": t_cart,
+              "t_extract_to_host_s": t_host, "padded_cells": cells,
+              "chunks": chunks})
+
+        # -- the layers of the engine, each timed alone
+        t0 = time.perf_counter()
+        dev_i = index.to_device()
+        torch.cuda.synchronize()
+        t_flatten = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcp_host = AnalyticsEngine.from_index(index, dev=dev_i).lcp_host
+        torch.cuda.synchronize()
+        t_from_index = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        AnalyticsEngine.from_device(dev_i, lcp_host)
+        torch.cuda.synchronize()
+        t_sparse = time.perf_counter() - t0
+        emit({"phase": "analytics_layers", "dataset": name,
+              "t_flatten_s": t_flatten, "t_sparse_tables_s": t_sparse,
+              "t_lcp_fill_s": t_from_index - t_sparse})
+        del dev_i
+        torch.cuda.empty_cache()
+
+        # -- the new kernel at the node build's main shape: the first
+        #    lcp_from_text round reads every adjacent leaf pair at w = 64
+        ell_t = torch.from_numpy(ell_all).to(cuda)
+        pa = ell_t[:-1][torch.from_numpy(inner[1:]).to(cuda)].contiguous()
+        pb = ell_t[1:][torch.from_numpy(inner[1:]).to(cuda)].contiguous()
+        del ell_t
+        w = 64
+        chunk = 1 << 24
+        if isinstance(text, packing.PackedText):
+            kname, kfn, pfn = ("suffix_lcp_words", ops.suffix_lcp_words,
+                               kref.suffix_lcp_words_ref)
+            work = lambda lcp: suffix_lcp_work(lcp, w, text.syms_per_word,
+                                               text.nbytes, 8)
+            replaces = "src/repro/kernels/packed_gather.py:415"
+        else:
+            kname, kfn, pfn = ("suffix_lcp_pairs", ops.KERNELS["suffix_lcp_pairs"],
+                               kref.suffix_lcp_pairs_ref)
+            work = lambda lcp: suffix_lcp_work(lcp, w, 4, text.shape[0], 8)
+            replaces = "src/repro/kernels/suffix_lcp.py:46"
+        got = kfn(text, pa, pb, w)
+        for c0 in range(0, pa.shape[0], chunk):  # the plain version in chunks
+            assert_equal(got[c0:c0 + chunk],
+                         pfn(text, pa[c0:c0 + chunk], pb[c0:c0 + chunk], w),
+                         f"{kname} (main-path shape)")
+        b_ms, b_by = bound(*work(got))
+        row = {"name": kname, "replaces": replaces,
+               "shape": f"rows={pa.shape[0]} w={w}",
+               "ms": cuda_ms(lambda: kfn(text, pa, pb, w)),
+               "plain_ms": cuda_ms(lambda: [
+                   pfn(text, pa[c0:c0 + chunk], pb[c0:c0 + chunk], w)
+                   for c0 in range(0, pa.shape[0], chunk)], reps=1),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_note": f"plain version run in chunks of {chunk} rows"}
+        del got, pa, pb, text, index
+        torch.cuda.empty_cache()
+        return {"counts": counts, "row": row}
+
+    from repro_torch.core.analytics import AnalyticsEngine
+    qrng = np.random.default_rng(13)
+    tree = {"genome": tree_path("genome", s_dna, alpha),
+            "protein": tree_path("protein", s_prot, protein)}
+    rows += [tree["genome"]["row"], tree["protein"]["row"]]
+    del s_prot
+
+    # ---- 7. the REPRO_WORD_COMPARE=byte oracle leg on genome (counted) ------
+    n_leg = 1 << min(BYTE_LEG_LOG2, args.n_log2)
+    s_leg, _ = dataset("genome", n_leg, seed=0)
+    leg_pats = make_workload(s_leg, qrng, batch=64, min_len=4, max_len=24,
+                             planted_frac=0.7, n_symbols=len(alpha.symbols))
+    leg_q = make_query(s_leg, qrng, batch=512, planted_frac=0.7,
+                       n_symbols=len(alpha.symbols))
+    legs = {}
+    saved = os.environ.get("REPRO_WORD_COMPARE")
+    try:
+        for leg in ("word", "byte"):
+            os.environ["REPRO_WORD_COMPARE"] = leg
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            dev = EraIndexer(alpha, cfg).build_device(s_leg)
+            torch.cuda.synchronize()
+            t_leg = time.perf_counter() - t0
+            found = dev.find_batch(leg_pats)
+            _, eng = EraIndexer(alpha, EraConfig(build_impl="none")
+                                ).build_analytics(s_leg)
+            ms_leg = eng.matching_stats(leg_q, window=64)
+            legs[leg] = {"ell": dev.ell.cpu().numpy(), "found": found,
+                         "lcp": eng.lcp_host, "ms": ms_leg,
+                         "counts": ops.launch_counts(), "t_build_s": t_leg}
+            if leg == "byte":
+                leg_ell = dev.ell
+            del dev, eng
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_WORD_COMPARE", None)
+        else:
+            os.environ["REPRO_WORD_COMPARE"] = saved
+    wl, bl = legs["word"], legs["byte"]
+    same = (np.array_equal(wl["ell"], bl["ell"])
+            and all(np.array_equal(a, b)
+                    for a, b in zip(wl["found"], bl["found"]))
+            and np.array_equal(wl["lcp"], bl["lcp"])
+            and all(np.array_equal(a, b) for a, b in zip(wl["ms"], bl["ms"])))
+    emit({"phase": "byte_leg", "dataset": "genome", "n": n_leg,
+          "equal_to_word_leg": same,
+          "t_build_word_s": wl["t_build_s"], "t_build_byte_s": bl["t_build_s"],
+          "launches_word": wl["counts"], "launches": bl["counts"]})
+    if not same:
+        raise AssertionError("the byte leg disagrees with the word leg")
+    require_launches(bl["counts"], BYTE_LEG_KERNELS, "the byte leg")
+    for name in WORD_ONLY_KERNELS:
+        if bl["counts"][name]:
+            raise AssertionError(f"{name} ran under REPRO_WORD_COMPARE=byte")
+
+    # range_gather_packed at the byte leg's main shape: the first elastic
+    # step reads w = 4 symbols after every suffix of the dense build text
+    pt_leg = EraIndexer(alpha, cfg)._device_text(s_leg)
+    got = ops.range_gather_packed(pt_leg, leg_ell, 4)
+    want = kref.range_gather_packed_ref(pt_leg, leg_ell, 4)
+    assert_equal(got, want, "range_gather_packed (main-path shape)")
+    b_ms, b_by = bound(*gather_packed_work(leg_ell.shape[0], 1, pt_leg.bits,
+                                           pt_leg.words.shape[0]))
+    rows.append({"name": "range_gather_packed",
+                 "replaces": "src/repro/kernels/packed_gather.py:93",
+                 "shape": f"rows={leg_ell.shape[0]} w=4",
+                 "ms": cuda_ms(lambda: ops.range_gather_packed(
+                     pt_leg, leg_ell, 4)),
+                 "plain_ms": cuda_ms(lambda: kref.range_gather_packed_ref(
+                     pt_leg, leg_ell, 4), reps=3),
+                 "bound_ms": b_ms, "bound_by": b_by})
+    del got, want, pt_leg, leg_ell
+
+    paths = [dna_counts, term_counts, prot_counts, tree["genome"]["counts"],
+             tree["protein"]["counts"], bl["counts"]]
+    counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     kernels = []
     for row in rows:
         kernels.append({"name": row["name"], "route": "cuda",
@@ -656,7 +1126,7 @@ def main() -> int:
                         "bound_by": row["bound_by"], "library_ms": None,
                         "shape": row["shape"],
                         **{k: v for k, v in row.items()
-                           if k == "aligned_offsets_ms"}})
+                           if k in ("aligned_offsets_ms", "plain_note")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

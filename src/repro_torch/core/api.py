@@ -1,19 +1,25 @@
 """EraIndexer — the end-to-end ERA pipeline, PyTorch port of ``repro.core.api``.
 
-This slice ports the main path, :meth:`EraIndexer.build_device`:
+Two builds share the batched front end — vertical partitioning →
+grouping → device text (dense k-bit words, or the terminal-padded byte
+string) → batched elastic-range SubTreePrepare on the (G, F) state:
 
-    vertical partitioning → grouping → device text (dense k-bit words,
-    or the terminal-padded byte string) → batched elastic-range
-    SubTreePrepare on the (G, F) state → flatten to suffix-array order →
-    :class:`repro_torch.core.query.DeviceIndex`
+* :meth:`EraIndexer.build_device` flattens the state straight to
+  suffix-array order → :class:`repro_torch.core.query.DeviceIndex`;
+* :meth:`EraIndexer.build` slices it into per-prefix sub-trees and builds
+  their nodes with the batched Cartesian-tree builder (divergence rows
+  from the stored ``b_off`` or, with ``EraConfig(node_lcp="words")``,
+  recomputed from the text) → :class:`SuffixTreeIndex`, whose
+  ``analytics()`` is the :class:`repro_torch.core.analytics.AnalyticsEngine`
+  (:meth:`EraIndexer.build_analytics` does both).
 
 ``EraConfig.packing`` picks the text as in the JAX package: ``auto``
 packs alphabets below 8 bits (DNA, protein classes) dense and keeps
 protein, english and byte strings one byte per symbol; ``bytes`` keeps any
 alphabet byte per symbol.  Everything runs on the indexer's ``device``
 (``"cuda"`` by default; ``"cpu"`` runs every kernel's plain version).  The
-serial engine and the node build are later slices of the port and are
-refused with ``NotImplementedError`` naming their ROADMAP item.
+serial engine is a later slice of the port and is refused with
+``NotImplementedError`` naming its ROADMAP item (A14).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import build as build_mod
 from repro_torch.core import packing
 from repro_torch.core.alphabet import Alphabet
 from repro_torch.core.prepare import (
@@ -32,6 +39,7 @@ from repro_torch.core.prepare import (
     segments_of,
     subtree_prepare_batch,
 )
+from repro_torch.core.suffix_tree import SubTree, SuffixTreeIndex
 from repro_torch.core.vertical import VerticalStats, vertical_partition_grouped
 from repro_torch.kernels import ops as kops
 
@@ -52,7 +60,7 @@ class EraConfig:
     static_w: int = 16             # used when elastic=False (Fig. 9b ablation)
     group: bool = True             # virtual trees on/off (Fig. 9a ablation)
     vertical_strategy: str = "histogram"  # or "positions" (beyond-paper)
-    build_impl: str = "numpy"      # node builder; build_device never builds nodes
+    build_impl: str = "numpy"      # "none" skips nodes; batched builds use the parallel builder
     construction: str = "batched"  # batched (one (G,F) loop) | serial
     packing: str = "auto"          # auto | dense | bytes (device string form)
     sort_fuse: bool | None = None  # None = REPRO_SORT (fused unless lexsort)
@@ -108,6 +116,12 @@ def _sorted_segments(groups):
             entries.append((p.symbols, g_i, off, freq))
     entries.sort(key=lambda e: e[0])
     return entries
+
+
+def _entry_flat_idx(entry, f_cap: int) -> np.ndarray:
+    """Indices of one sub-tree's leaf segment in the flattened (G, F) state."""
+    _, g_i, off, freq = entry
+    return g_i * f_cap + off + np.arange(freq, dtype=np.int64)
 
 
 def _flatten_state(groups, states):
@@ -218,6 +232,122 @@ class EraIndexer:
         report.t_prepare = time.perf_counter() - t0
         return groups, states, s_padded
 
+    # ---- sub-tree builds ---------------------------------------------------
+
+    def process_groups(self, s_text, groups, capacity: int,
+                       pstats: PrepareStats | None = None
+                       ) -> list[list[SubTree]]:
+        """SubTreePrepare + slicing for MANY virtual trees through the
+        batched (G, F) engine; one ``list[SubTree]`` per input group."""
+        states = subtree_prepare_batch(s_text, groups, capacity,
+                                       self.config.elastic_config(), pstats,
+                                       sort_fuse=self.config.sort_fuse,
+                                       compact=self.config.compaction)
+        host = _HostState(states)
+        return [self._slice_subtrees(host.group(g_i), g)
+                for g_i, g in enumerate(groups)]
+
+    @staticmethod
+    def _slice_subtrees(state, group) -> list[SubTree]:
+        """One group's host state cut into per-prefix sub-trees (b_off[0]
+        of each segment zeroed, as in the JAX package)."""
+        out = []
+        for (off, f), p in zip(segments_of(group), group.prefixes):
+            seg_b = state.b_off[off : off + f].copy()
+            seg_b[0] = 0
+            out.append(SubTree(
+                prefix=p.symbols,
+                ell=state.L[off : off + f].copy(),
+                b_off=seg_b,
+                b_c1=state.b_c1[off : off + f].copy(),
+                b_c2=state.b_c2[off : off + f].copy(),
+            ))
+        return out
+
+    def build(self, s: np.ndarray,
+              report: BuildReport | None = None) -> SuffixTreeIndex:
+        """String → :class:`SuffixTreeIndex` (sub-trees with their nodes,
+        unless ``build_impl="none"``) on the indexer's device."""
+        report = report if report is not None else BuildReport(
+            VerticalStats(), PrepareStats())
+        return self._build_batched(s, report)
+
+    def _build_batched(self, s: np.ndarray,
+                       report: BuildReport) -> SuffixTreeIndex:
+        groups, states, s_text = self._prepare_batched(s, report)
+        subtrees: dict[tuple, SubTree] = {}
+        if states is not None:
+            t0 = time.perf_counter()
+            host = _HostState(states)
+            for g_i, g in enumerate(groups):
+                for st in self._slice_subtrees(host.group(g_i), g):
+                    subtrees[st.prefix] = st
+            report.t_prepare += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            if self.config.build_impl != "none":
+                self._attach_nodes_batched(states, groups, subtrees, len(s),
+                                           s_text=s_text)
+            report.t_build = time.perf_counter() - t0
+        return SuffixTreeIndex(s=np.asarray(s), alphabet=self.alphabet,
+                               subtrees=subtrees, device=self.device)
+
+    def _attach_nodes_batched(self, states, groups, subtrees, n_total: int,
+                              s_text=None) -> None:
+        """All sub-trees' node sets through size-bucketed batched builds.
+
+        Per-prefix (ell, b_off) segments are gathered on the device into
+        depth-0 padded rows (see :mod:`repro_torch.core.build`), grouped
+        into pad-width buckets (:func:`build.bucket_pad_widths`), built
+        by the batched Cartesian-tree builder in row chunks under its byte
+        budget, and cut to each sub-tree's compact node set on the device
+        before one host copy (:func:`build.unpad_nodes_rows`).  With
+        ``EraConfig(node_lcp="words")`` the divergence rows come from the
+        text (:func:`build.boff_rows_from_text`) instead of the stored
+        ``b_off``; the node sets are identical.
+        """
+        use_words = self.config.node_lcp == "words" and s_text is not None
+        entries = _sorted_segments(groups)
+        f_cap = states.L.shape[1]
+        dev = states.L.device
+        flat_L = states.L.reshape(-1)
+        flat_b = states.b_off.reshape(-1)
+        for f_pad, rows in build_mod.bucket_pad_widths(
+                [e[3] for e in entries]):
+            idx = np.zeros((len(rows), f_pad), np.int64)
+            mask = np.zeros((len(rows), f_pad), bool)
+            for r, e_i in enumerate(rows):
+                freq = entries[e_i][3]
+                idx[r, :freq] = _entry_flat_idx(entries[e_i], f_cap)
+                mask[r, :freq] = True
+            idx = torch.from_numpy(idx).to(dev)
+            mask = torch.from_numpy(mask).to(dev)
+            ell_rows = torch.where(mask, flat_L[idx], n_total)
+            if use_words:
+                boff_rows = build_mod.boff_rows_from_text(s_text, ell_rows,
+                                                          n_total)
+            else:
+                boff_rows = torch.where(mask, flat_b[idx], 0)
+            del idx, mask
+            nodes = build_mod.build_parallel_batch(ell_rows, boff_rows,
+                                                   n_total)
+            compact = build_mod.unpad_nodes_rows(
+                nodes, [entries[e_i][3] for e_i in rows])
+            for e_i, node_set in zip(rows, compact):
+                subtrees[entries[e_i][0]].nodes = node_set
+
+    def build_analytics(self, s: np.ndarray,
+                        report: BuildReport | None = None, **device_kwargs):
+        """Build + flatten + LCP in one step: ``(index, engine)``, the
+        engine being :class:`repro_torch.core.analytics.AnalyticsEngine`.
+        Flattening kwargs default ``packing`` to this indexer's config."""
+        index = self.build(s, report)
+        if device_kwargs or self.config.packing != "auto":
+            # a non-default packing builds an uncached engine ("auto" keeps
+            # the index's shared cache, whose default is the same "auto")
+            device_kwargs.setdefault("packing", self.config.packing)
+        return index, index.analytics(**device_kwargs)
+
     def build_device(self, s: np.ndarray, report: BuildReport | None = None,
                      **device_kwargs):
         """String → :class:`repro_torch.core.query.DeviceIndex`.
@@ -246,3 +376,21 @@ class EraIndexer:
             device=self.device,
             **device_kwargs,
         )
+
+
+class _HostState:
+    """One bulk device→host transfer of a (G, F) state, sliceable per group."""
+
+    def __init__(self, states):
+        self.L = states.L.cpu().numpy()
+        self.b_off = states.b_off.cpu().numpy()
+        self.b_c1 = states.b_c1.cpu().numpy()
+        self.b_c2 = states.b_c2.cpu().numpy()
+
+    def group(self, g_i: int) -> "_HostState":
+        view = object.__new__(_HostState)
+        view.L = self.L[g_i]
+        view.b_off = self.b_off[g_i]
+        view.b_c1 = self.b_c1[g_i]
+        view.b_c2 = self.b_c2[g_i]
+        return view

@@ -12,7 +12,10 @@ decides the key currency, as in the JAX package:
   divergence by XOR + clz on the dense words;
 * the terminal-padded uint8 byte string — byte keys: the
   ``range_gather_pack`` kernel, an unsigned sort on the key words, and the
-  ``lcp_pairs`` kernel on adjacent rows.
+  ``lcp_pairs`` kernel on adjacent rows;
+* a dense text under ``REPRO_WORD_COMPARE=byte`` (the byte-key oracle) —
+  the byte branch on keys read from the dense words by the
+  ``range_gather_packed`` kernel, equal to the byte string's keys.
 
 Where the
 JAX package ``vmap``s one group's step over G, this module writes the
@@ -230,12 +233,12 @@ def _word_step(pt: PackedText, state: PrepareState, offs, major, active, *,
     return L, start, lcp, c1, c2
 
 
-def _byte_step(s_padded: torch.Tensor, state: PrepareState, offs, major,
-               active, *, w: int):
+def _byte_step(text, state: PrepareState, offs, major, active, *, w: int):
     """Steps 1-3 on byte keys: (L, start, lcp, c1, c2) in sorted order."""
     g, f = state.L.shape
-    # 1. read w symbols after every active leaf (range_gather_pack kernel)
-    keys = kops.range_gather_pack(s_padded, offs.reshape(-1), w)
+    # 1. read w symbols after every active leaf (range_gather_pack kernel on
+    #    the byte string, range_gather_packed on a dense text)
+    keys = kops.range_gather(text, offs.reshape(-1), w)
     nw = keys.shape[1]
     keys = torch.where(active[..., None], keys.view(g, f, nw), 0)
 
@@ -255,13 +258,17 @@ def _byte_step(s_padded: torch.Tensor, state: PrepareState, offs, major,
 
 
 def prepare_step(text, state: PrepareState, *, w: int,
-                 sort_fuse: bool = False) -> tuple[PrepareState, torch.Tensor]:
+                 sort_fuse: bool = False,
+                 word_keys: bool | None = None
+                 ) -> tuple[PrepareState, torch.Tensor]:
     """One elastic-range iteration of a (G, F) batch for static range ``w``
     (``repro.core.prepare.prepare_step``, batched).
 
     ``text``: a dense :class:`PackedText` (word keys; ``sort_fuse`` packs
     the sort lanes) or the terminal-padded uint8 byte string (byte keys;
-    ``sort_fuse`` does not apply).  Returns (new_state, n_active) with
+    ``sort_fuse`` does not apply).  ``word_keys`` (default: the
+    ``REPRO_WORD_COMPARE`` knob) False runs a dense text through the byte
+    branch, the byte-key oracle.  Returns (new_state, n_active) with
     ``n_active`` int64[G] on the device.
     """
     g, f = state.L.shape
@@ -272,7 +279,9 @@ def prepare_step(text, state: PrepareState, *, w: int,
     offs = torch.where(active, state.L + state.start, 0)
     major = torch.where(active, state.area, iota)
 
-    if isinstance(text, PackedText):
+    if word_keys is None:
+        word_keys = kops._use_word_compare()
+    if isinstance(text, PackedText) and word_keys:
         L, start, lcp, c1, c2 = _word_step(text, state, offs, major, active,
                                            w=w, sort_fuse=sort_fuse)
     else:
@@ -312,7 +321,8 @@ def prepare_step(text, state: PrepareState, *, w: int,
 
 
 def compact_step_batch(text, states: PrepareState, *, f_prime: int,
-                       w: int, sort_fuse: bool):
+                       w: int, sort_fuse: bool,
+                       word_keys: bool | None = None):
     """One elastic iteration on only the ACTIVE rows of each group.
 
     Each group's active rows are gathered (ascending) into a (G, f_prime)
@@ -346,7 +356,8 @@ def compact_step_batch(text, states: PrepareState, *, f_prime: int,
     cst = PrepareState(L=take(states.L, -1), start=take(states.start, 0),
                        area=carea, b_off=take(states.b_off, -1),
                        b_c1=take(states.b_c1, 0), b_c2=take(states.b_c2, 0))
-    new, _ = prepare_step(text, cst, w=w, sort_fuse=sort_fuse)
+    new, _ = prepare_step(text, cst, w=w, sort_fuse=sort_fuse,
+                          word_keys=word_keys)
     # compacted run starts -> full-layout positions
     narea = torch.where(
         new.area >= 0,
@@ -409,9 +420,10 @@ def subtree_prepare_batch(
     keys + tail compaction); ``REPRO_SORT=lexsort`` / ``REPRO_COMPACT=off``
     — or the explicit arguments — pin the oracle paths.  The elastic range
     is shared across the batch, keyed to the busiest group.
+    ``REPRO_WORD_COMPARE=byte`` runs a dense text on byte keys (the
+    oracle); the arrays are identical.
     """
-    if isinstance(text, PackedText):
-        kops._use_word_compare()  # the byte oracle on dense text is refused
+    word_keys = kops._use_word_compare()
     states = init_batch(groups, capacity, text.device)
     if sort_fuse is None:
         sort_fuse = kops._use_sort_fuse()
@@ -434,10 +446,12 @@ def subtree_prepare_batch(
                    if compact else None)
         if f_prime is not None:
             states, n_active_dev = compact_step_batch(
-                text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse)
+                text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse,
+                word_keys=word_keys)
         else:
             states, n_active_dev = prepare_step(text, states, w=w,
-                                                sort_fuse=sort_fuse)
+                                                sort_fuse=sort_fuse,
+                                                word_keys=word_keys)
         if stats is not None:
             total_active = int(n_active.sum())
             stats.iterations += 1

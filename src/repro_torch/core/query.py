@@ -195,6 +195,28 @@ class DeviceIndex:
     # ---- construction -----------------------------------------------------
 
     @classmethod
+    def from_index(cls, index, *, route_cap: int = 1 << 18,
+                   max_pattern_len: int = 512, packing: str = "auto",
+                   device=None) -> "DeviceIndex":
+        """Flatten a :class:`repro_torch.core.suffix_tree.SuffixTreeIndex`
+        (``repro.core.query.DeviceIndex.from_index``) onto ``device``
+        (default: the index's own device)."""
+        prefixes = sorted(index.subtrees)
+        if not prefixes:
+            raise ValueError("cannot flatten an empty index")
+        subs = [index.subtrees[p] for p in prefixes]
+        freqs = np.array([st.freq for st in subs], np.int32)
+        ell = np.concatenate([np.asarray(st.ell, np.int32) for st in subs])
+        return cls.from_prepare(alphabet=index.alphabet, s=np.asarray(index.s),
+                                prefixes=prefixes, freqs=freqs,
+                                ell=torch.from_numpy(ell),
+                                route_cap=route_cap,
+                                max_pattern_len=max_pattern_len,
+                                packing=packing,
+                                device=index.device if device is None
+                                else device)
+
+    @classmethod
     def from_prepare(cls, *, alphabet, s: np.ndarray, prefixes, freqs,
                      ell, route_cap: int = 1 << 18,
                      max_pattern_len: int = 512,
@@ -362,11 +384,11 @@ class DeviceIndex:
         """Word probe or byte-key probe for this batch (as the JAX
         ``_word_gate``): a byte text always takes the byte-key probe; a
         dense text takes the word probe unless the batch carries the
-        terminal code, whose verdicts only the byte-key probe defines.
+        terminal code, whose verdicts only the byte-key probe defines, or
+        ``REPRO_WORD_COMPARE=byte`` pins the byte-key oracle.
         ``pat_max``, when the caller knows it, spares the device reduce."""
-        if not self.packed:
+        if not (self.packed and kops._use_word_compare()):
             return False
-        kops._use_word_compare()  # refuses the byte oracle knob (B6)
         if pat_max is None:
             if isinstance(patterns, torch.Tensor):
                 pat_max = int(patterns.max()) if patterns.numel() else 0

@@ -1,6 +1,7 @@
-// Shared device helper of the word-currency kernels: one shift-aligned,
+// Shared device helpers of the dense-text kernels: one shift-aligned,
 // terminal-substituted dense word of the text (the in-kernel form of
-// repro_torch.core.packing.gather_words_dense).
+// repro_torch.core.packing.gather_words_dense), and the byte key words
+// spread from it (the in-kernel form of packing.gather_pack_dense).
 #pragma once
 #include <cstdint>
 
@@ -24,4 +25,42 @@ __device__ __forceinline__ uint32_t dense_read_word(
   v = v < 0 ? 0 : (v > spw ? spw : v);
   uint32_t keep = v > 0 ? (0xFFFFFFFFu << ((spw - (int)v) * bits)) : 0u;
   return (aligned & keep) | (sub_word & ~keep);
+}
+
+// 4 right-aligned bits-wide fields of c -> the 4 big-endian bytes of a word
+// (the bit interleave of repro_torch.core.packing._spread_to_bytes).
+__device__ __forceinline__ uint32_t spread_to_bytes(uint32_t c, int bits) {
+  if (bits == 4) {
+    uint32_t t = (c | (c << 8)) & 0x00FF00FFu;
+    return (t | (t << 4)) & 0x0F0F0F0Fu;
+  }
+  if (bits == 2) {
+    uint32_t t = (c | (c << 12)) & 0x000F000Fu;
+    return (t | (t << 6)) & 0x03030303u;
+  }
+  return c;  // bits == 8: the dense word is already one key word
+}
+
+// Byte key word j of the read at symbol offset p0, from `aligned`, the
+// shift-aligned dense word j / (8 / bits) of that read (dense_read_word
+// with sub_word 0): its 4*bits-bit chunk j % (8 / bits) spread to bytes,
+// with the terminal byte (t_word holds it in every byte) patched in at
+// every position >= n_real.  Equal to the key word gather_pack reads from
+// the terminal-padded byte string.
+__device__ __forceinline__ uint32_t dense_key_word(uint32_t aligned, int j,
+                                                   int bits, long long p0,
+                                                   long long n_real,
+                                                   uint32_t t_word) {
+  const int cpw = 8 / bits;  // key words per dense word
+  const int cbits = 4 * bits;
+  const int c = j % cpw;
+  uint32_t chunk = cpw > 1
+      ? (aligned >> (32 - cbits * (c + 1))) & ((1u << cbits) - 1u)
+      : aligned;
+  uint32_t key = spread_to_bytes(chunk, bits);
+  long long real = n_real - (p0 + 4LL * j);  // real symbols in the word
+  uint32_t keep = real >= 4 ? 0xFFFFFFFFu
+                  : real <= 0 ? 0u
+                              : 0xFFFFFFFFu << (8 * (4 - (int)real));
+  return (key & keep) | (t_word & ~keep);
 }

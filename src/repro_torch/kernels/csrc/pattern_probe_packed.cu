@@ -19,19 +19,6 @@
 
 #include "dense_read.cuh"
 
-// 4 right-aligned bits-wide fields of c -> the 4 big-endian bytes of a word
-__device__ __forceinline__ uint32_t spread_to_bytes(uint32_t c, int bits) {
-  if (bits == 4) {
-    uint32_t t = (c | (c << 8)) & 0x00FF00FFu;
-    return (t | (t << 4)) & 0x0F0F0F0Fu;
-  }
-  if (bits == 2) {
-    uint32_t t = (c | (c << 12)) & 0x000F000Fu;
-    return (t | (t << 6)) & 0x03030303u;
-  }
-  return c;  // bits == 8: the dense word is already one key word
-}
-
 __global__ void pattern_probe_packed_kernel(
     const uint32_t* __restrict__ words, long long n_words,
     const int32_t* __restrict__ pos, const uint32_t* __restrict__ pat,
@@ -39,26 +26,16 @@ __global__ void pattern_probe_packed_kernel(
     long long n_real, uint32_t t_word, int32_t* __restrict__ out) {
   const int spw = 32 / bits;
   const int cpw = spw / 4;  // key words per dense word
-  const int cbits = 4 * bits;
-  const uint32_t cmask = cpw > 1 ? (1u << cbits) - 1u : 0xFFFFFFFFu;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
     long long p0 = pos[i];
     int v = 0;
     uint32_t aligned = 0u;
     for (int j = 0; j < nw; ++j) {
-      int c = j % cpw;
-      if (c == 0)  // positions past n_real are patched below, so sub = 0
+      if (j % cpw == 0)  // positions past n_real are patched, so sub = 0
         aligned = dense_read_word(words, n_words, p0, j / cpw, bits, spw,
                                   n_real, 0u);
-      uint32_t chunk =
-          cpw > 1 ? (aligned >> (32 - cbits * (c + 1))) & cmask : aligned;
-      uint32_t key = spread_to_bytes(chunk, bits);
-      long long real = n_real - (p0 + 4LL * j);  // real symbols in the word
-      uint32_t keep = real >= 4 ? 0xFFFFFFFFu
-                      : real <= 0 ? 0u
-                                  : 0xFFFFFFFFu << (8 * (4 - (int)real));
-      key = (key & keep) | (t_word & ~keep);
+      uint32_t key = dense_key_word(aligned, j, bits, p0, n_real, t_word);
       uint32_t sw = key & mask[i * nw + j];
       uint32_t pw = pat[i * nw + j];
       if (sw != pw) {

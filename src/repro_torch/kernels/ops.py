@@ -12,12 +12,15 @@ meanings, so one CI leg covers both packages:
 
 * ``REPRO_WORD_COMPARE=word`` (default) — dense words are the compare
   currency of a dense text; ``byte`` pins the byte-key oracle ON DENSE
-  TEXT, whose construction read (``range_gather_packed``, ROADMAP B6) is
-  not ported yet, so the port refuses it.  A byte-per-symbol text (protein,
-  english, byte, ``packing="bytes"``) always runs the byte-key currency
-  (``range_gather_pack``, ``lcp_pairs``, ``pattern_probe``), and a dense
-  index answers a batch carrying the terminal code through
-  ``pattern_probe_packed``, as the JAX package does;
+  TEXT: construction reads byte keys from the dense words
+  (``range_gather_packed``) and sorts and compares them as on byte text,
+  searches probe through ``pattern_probe_packed``, and suffix-pair LCPs
+  run ``range_gather_packed`` + ``lcp_pairs``.  A byte-per-symbol text
+  (protein, english, byte, ``packing="bytes"``) always runs the byte-key
+  currency (``range_gather_pack``, ``lcp_pairs``, ``pattern_probe``,
+  ``suffix_lcp_pairs``), and a dense index answers a batch carrying the
+  terminal code through ``pattern_probe_packed``, as the JAX package
+  does;
 * ``REPRO_SORT=fused|lexsort`` — fused single-lane sort keys or the
   multi-key oracle sort;
 * ``REPRO_COMPACT=tail|off`` — tail compaction of the elastic step.
@@ -29,15 +32,19 @@ import os
 
 import torch
 
+from repro_torch.core.packing import PackedText
 from repro_torch.kernels.kmer_histogram import kmer_histogram
 from repro_torch.kernels.lcp import lcp_pairs
 from repro_torch.kernels.packed_gather import (
     pattern_probe_packed,
     pattern_probe_words,
+    range_gather_packed,
     range_gather_words,
+    suffix_lcp_words,
 )
 from repro_torch.kernels.pattern_probe import pattern_probe
 from repro_torch.kernels.range_gather import range_gather_pack
+from repro_torch.kernels.suffix_lcp import suffix_lcp_pairs as _suffix_lcp_bytes
 
 KERNELS = {
     "range_gather_words": range_gather_words,
@@ -47,12 +54,16 @@ KERNELS = {
     "lcp_pairs": lcp_pairs,
     "pattern_probe": pattern_probe,
     "pattern_probe_packed": pattern_probe_packed,
+    "range_gather_packed": range_gather_packed,
+    "suffix_lcp_words": suffix_lcp_words,
+    "suffix_lcp_pairs": _suffix_lcp_bytes,
 }
 
 __all__ = ["KERNELS", "kmer_histogram", "launch_counts", "lcp_pairs",
            "pattern_probe", "pattern_probe_packed", "pattern_probe_words",
-           "range_gather_pack", "range_gather_words", "reset_launch_counts",
-           "resolve_device"]
+           "range_gather", "range_gather_pack", "range_gather_packed",
+           "range_gather_words", "reset_launch_counts", "resolve_device",
+           "suffix_lcp_pairs", "suffix_lcp_words"]
 
 
 def launch_counts() -> dict[str, int]:
@@ -78,15 +89,38 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def range_gather(s_text, offs: torch.Tensor, w: int) -> torch.Tensor:
+    """(F, w//4) byte sort keys at each offset, dispatched on the text
+    (``repro.kernels.ops.range_gather_impl``): ``range_gather_packed`` for
+    a dense :class:`PackedText`, ``range_gather_pack`` for the
+    terminal-padded byte string — identical keys either way."""
+    if isinstance(s_text, PackedText):
+        return range_gather_packed(s_text, offs, w)
+    return range_gather_pack(s_text, offs, w)
+
+
+def suffix_lcp_pairs(s_text, pos_a: torch.Tensor, pos_b: torch.Tensor,
+                     w: int) -> torch.Tensor:
+    """int32[B] LCP of suffix pairs capped at ``w``, branch for branch as
+    ``repro.kernels.ops.suffix_lcp_pairs``: on a dense text the word
+    kernel (``suffix_lcp_words``) or, under ``REPRO_WORD_COMPARE=byte``,
+    two byte-key gathers and ``lcp_pairs``; on a byte string the
+    ``suffix_lcp_pairs`` kernel."""
+    if isinstance(s_text, PackedText):
+        if _use_word_compare():
+            return suffix_lcp_words(s_text, pos_a, pos_b, w)
+        a = range_gather_packed(s_text, pos_a, w)
+        b = range_gather_packed(s_text, pos_b, w)
+        return lcp_pairs(a, b, w)[0]
+    return _suffix_lcp_bytes(s_text, pos_a, pos_b, w)
+
+
 def _use_word_compare() -> bool:
     env = os.environ.get("REPRO_WORD_COMPARE", "")
     if env in ("", "word"):
         return True
     if env == "byte":
-        raise NotImplementedError(
-            "REPRO_WORD_COMPARE=byte pins the byte-key oracle on dense text, "
-            "whose construction read range_gather_packed the PyTorch port "
-            "has not reached yet (ROADMAP B6)")
+        return False
     raise ValueError(
         f"unknown REPRO_WORD_COMPARE={env!r}; choose 'word' or 'byte'")
 

@@ -10,6 +10,14 @@
   port of ``repro/kernels/packed_gather.py:pattern_probe_packed``: the
   byte-key probe over the dense text (the search step of a batch that
   carries the terminal code).
+* :func:`range_gather_packed` — ``csrc/range_gather_packed.cu``, the port
+  of ``repro/kernels/packed_gather.py:range_gather_packed``: byte keys read
+  from the dense text, equal to ``range_gather_pack`` on the byte string
+  (the ``REPRO_WORD_COMPARE=byte`` oracle's construction read).
+* :func:`suffix_lcp_words` — ``csrc/suffix_lcp_words.cu``, the port of
+  ``repro/kernels/packed_gather.py:suffix_lcp_words``: the LCP of suffix
+  pairs by XOR + clz on dense words, capped at ``w`` and both terminal
+  limits (global-LCP boundaries, ``node_lcp="words"``).
 
 Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
@@ -191,3 +199,76 @@ def pattern_probe_packed(pt: PackedText, pos: torch.Tensor,
 
 
 pattern_probe_packed.launches = 0
+
+
+def range_gather_packed(pt: PackedText, offs: torch.Tensor,
+                        w: int) -> torch.Tensor:
+    """(F, w//4) int32 big-endian byte keys of the ``w`` symbols at each
+    offset, read from the dense text — bit-identical to
+    :func:`repro_torch.core.packing.gather_pack_dense` (and so to
+    ``range_gather_pack`` on the terminal-padded byte string).
+
+    ``offs``: int32[F] offsets ``>= 0``; past ``n_real`` every symbol is
+    the terminal.
+    """
+    if w % 4:
+        raise ValueError(f"pack width must be a multiple of 4, got {w}")
+    if _on_cpu(pt.words, offs):
+        return _ref.range_gather_packed_ref(pt, offs, w)
+    _require(pt.words, "words", torch.int32, 1)
+    _require(offs, "offs", torch.int32, 1)
+    _check_extra(pt, w)
+    nw = w // 4
+    f = offs.shape[0]
+    out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
+    if f == 0:
+        return out
+    fn = _build.entry("range_gather_packed",
+                      [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P])
+    with torch.cuda.device(offs.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
+                nw, pt.bits, pt.n_real, (pt.terminal & 0xFF) * 0x01010101,
+                out.data_ptr(), _stream(offs.device))
+    _build.check(rc, "range_gather_packed")
+    range_gather_packed.launches += 1
+    return out
+
+
+range_gather_packed.launches = 0
+
+
+def suffix_lcp_words(pt: PackedText, pos_a: torch.Tensor, pos_b: torch.Tensor,
+                     w: int) -> torch.Tensor:
+    """int32[B] LCP in symbols of the suffixes at ``pos_a`` and ``pos_b``
+    of the dense text, capped at ``w`` and at both terminal limits —
+    bit-identical to :func:`repro_torch.kernels.ref.suffix_lcp_words_ref`.
+    """
+    if pos_a.shape != pos_b.shape or pos_a.dim() != 1:
+        raise ValueError(f"suffix_lcp_words needs two equal 1-D position "
+                         f"arrays, got {tuple(pos_a.shape)} and "
+                         f"{tuple(pos_b.shape)}")
+    if _on_cpu(pt.words, pos_a, pos_b):
+        return _ref.suffix_lcp_words_ref(pt, pos_a, pos_b, w)
+    _require(pt.words, "words", torch.int32, 1)
+    _require(pos_a, "pos_a", torch.int32, 1)
+    _require(pos_b, "pos_b", torch.int32, 1)
+    _check_extra(pt, w)
+    nw = -(-w // pt.syms_per_word)
+    b = pos_a.shape[0]
+    out = torch.empty(b, dtype=torch.int32, device=pos_a.device)
+    if b == 0:
+        return out
+    fn = _build.entry("suffix_lcp_words",
+                      [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I64, _U32,
+                       _P, _P])
+    with torch.cuda.device(pos_a.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos_a.data_ptr(),
+                pos_b.data_ptr(), b, nw, w, pt.bits, pt.n_real,
+                _sub_word(pt.bits, pt.terminal), out.data_ptr(),
+                _stream(pos_a.device))
+    _build.check(rc, "suffix_lcp_words")
+    suffix_lcp_words.launches += 1
+    return out
+
+
+suffix_lcp_words.launches = 0

@@ -20,6 +20,8 @@ from repro_torch.core.packing import (  # noqa: F401  (shared implementations)
     gather_pack_dense as range_gather_packed_ref,
     gather_words_dense as range_gather_words_ref,
     lcp_words,
+    lcp_words_limited,
+    word_limit,
 )
 
 
@@ -120,6 +122,29 @@ def pattern_probe_words_ref(pt: PackedText, pos: torch.Tensor,
     if lim_p is None:
         lim_p = lengths
     return probe_words_ref(sw, pat_dense, lim_s, lim_p, lengths, pt.bits)
+
+
+def suffix_lcp_words_ref(pt: PackedText, pos_a: torch.Tensor,
+                         pos_b: torch.Tensor, w: int) -> torch.Tensor:
+    """int32[B] LCP of dense suffix pairs: first differing word by XOR,
+    the symbol by count-leading-zeros, capped at ``w`` and at both
+    terminal limits (``repro.kernels.ref.suffix_lcp_words_ref``)."""
+    a = range_gather_words_ref(pt, pos_a, w)
+    b = range_gather_words_ref(pt, pos_b, w)
+    la = word_limit(pt.n_real, pos_a, w)
+    lb = word_limit(pt.n_real, pos_b, w)
+    return lcp_words_limited(a, b, la, lb, w, pt.bits)
+
+
+def suffix_lcp_pairs_ref(s_padded: torch.Tensor, pos_a: torch.Tensor,
+                         pos_b: torch.Tensor, w: int) -> torch.Tensor:
+    """int32[B] first unequal symbol of two suffixes of a byte string
+    within ``w`` (else ``w``): both reads packed to byte keys, every symbol
+    index clamped to ``len(s_padded) - 1``, then the row LCP
+    (``repro.kernels.ref.suffix_lcp_pairs_ref``)."""
+    a = range_gather_pack_ref(s_padded, pos_a, w)
+    b = range_gather_pack_ref(s_padded, pos_b, w)
+    return lcp_pairs_ref(a, b, w)[0]
 
 
 def kmer_histogram_ref(s: torch.Tensor, n: int, k: int,

@@ -226,6 +226,8 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import repro_torch.core.api, repro_torch.core.query\n"
             "import repro_torch.launch.query_serve, repro_torch.kernels.ops\n"
+            "import repro_torch.core.analytics, repro_torch.core.suffix_tree\n"
+            "import repro_torch.launch.analytics_serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

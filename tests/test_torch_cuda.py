@@ -21,6 +21,7 @@ from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import pattern_probe as tprobe
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import suffix_lcp as tslcp
 
 
 @pytest.fixture
@@ -151,6 +152,68 @@ def test_cuda_pattern_probe_packed(cuda_device, alpha):
     got = tpg.pattern_probe_packed(pt, pos, pat, mask)
     assert torch.equal(got, tref.pattern_probe_packed_ref(pt, pos, pat, mask))
     assert (got == 0).any()
+
+
+def _lcp_pairs(n, device, w_max=256):
+    """Random pairs, pairs inside a planted copy (long shared prefixes),
+    and pairs within w of the end."""
+    rng = np.random.default_rng(n)
+    pa = rng.integers(0, n + 1, size=4096)
+    pb = rng.integers(0, n + 1, size=4096)
+    pa[:1024] = 100 + rng.integers(0, 200, size=1024)
+    pb[:1024] = pa[:1024] + n // 2 - 100
+    pa[1024:1280] = rng.integers(n - w_max, n + 1, size=256)
+    pb[1024:1280] = rng.integers(n - w_max, n + 1, size=256)
+    t = lambda x: torch.from_numpy(x.astype(np.int32)).to(device)
+    return t(pa), t(pb)
+
+
+def _planted(a, n):
+    s = a.random_string(n, seed=n)
+    s[n // 2:n // 2 + 600] = s[100:700]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_cuda_range_gather_packed(cuda_device, alpha):
+    a = ALPHABETS[alpha]
+    s = a.random_string(50_000, seed=3)
+    pt = tpk.pack_text(s, a, extra=264, device=cuda_device)
+    offs = torch.randint(0, pt.n_real + 1, (4096,), dtype=torch.int32,
+                         device=cuda_device)
+    offs[-300:] = torch.arange(pt.n_real - 299, pt.n_real + 1,
+                               dtype=torch.int32, device=cuda_device)
+    for w in (4, 16, 64, 256):
+        got = tpg.range_gather_packed(pt, offs, w)
+        assert torch.equal(got, tref.range_gather_packed_ref(pt, offs, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_cuda_suffix_lcp_words(cuda_device, alpha):
+    a = ALPHABETS[alpha]
+    s = _planted(a, 40_000)
+    pt = tpk.pack_text(s, a, extra=264, device=cuda_device)
+    pa, pb = _lcp_pairs(len(s) - 1, cuda_device)
+    for w in (4, 64, 256):
+        got = tpg.suffix_lcp_words(pt, pa, pb, w)
+        assert torch.equal(got, tref.suffix_lcp_words_ref(pt, pa, pb, w))
+        assert (got == w).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha,extra", [("protein", 264), ("byte", 8)])
+def test_cuda_suffix_lcp_pairs(cuda_device, alpha, extra):
+    """Reads past a short padding clamp to the last symbol alike."""
+    a = ALPHABETS[alpha]
+    s = _planted(a, 40_000)
+    sp = torch.from_numpy(a.pad_string(s, extra)).to(cuda_device)
+    pa, pb = _lcp_pairs(len(s) - 1, cuda_device)
+    for w in (4, 64, 256):
+        got = tslcp.suffix_lcp_pairs(sp, pa, pb, w)
+        assert torch.equal(got, tref.suffix_lcp_pairs_ref(sp, pa, pb, w))
+        assert (got == w).any()
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ kernel wrappers) is held against the JAX Pallas kernel in interpret mode
 and against its JAX reference, on the shape sweeps of
 ``tests/test_packed.py::TestWordCompareKernels`` /
 ``::TestPackedKernels`` and of ``tests/test_kernels.py::TestKmerHistogram``
-/ ``::TestRangeGatherPack`` / ``::TestLcpPairs`` / ``::TestPatternProbe``.
+/ ``::TestRangeGatherPack`` / ``::TestLcpPairs`` / ``::TestPatternProbe``
+/ ``::TestSuffixLcp`` (pairs within ``w`` of the end included).
 Tolerance: exact — every quantity is an integer.
 ``tests/test_torch_cuda.py`` holds the hand kernels themselves against
 these plain versions on a card.
@@ -26,6 +27,10 @@ from repro.kernels.packed_gather import pattern_probe_words as j_probe
 from repro.kernels.packed_gather import range_gather_words as j_gather
 from repro.kernels.pattern_probe import pattern_probe as j_probe_bytes
 from repro.kernels.range_gather import range_gather_pack as j_gather_pack
+from repro.kernels import ops as jops
+from repro.kernels.packed_gather import range_gather_packed as j_gather_packed
+from repro.kernels.packed_gather import suffix_lcp_words as j_lcp_words
+from repro.kernels.suffix_lcp import suffix_lcp_pairs as j_suffix_lcp
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.kernels import _build
@@ -36,6 +41,7 @@ from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import pattern_probe as tprobe
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import suffix_lcp as tslcp
 
 
 def _texts(alpha, n, extra, seed):
@@ -346,11 +352,19 @@ def _no_fallback_calls():
             s, pos, words, words)),
         "pattern_probe_packed": (tpg, lambda: tpg.pattern_probe_packed(
             pt, pos, words, words)),
+        "range_gather_packed": (tpg, lambda: tpg.range_gather_packed(
+            pt, pos, 8)),
+        "suffix_lcp_words": (tpg, lambda: tpg.suffix_lcp_words(
+            pt, pos, pos, 8)),
+        "suffix_lcp_pairs": (tslcp, lambda: tslcp.suffix_lcp_pairs(
+            s, pos, pos, 8)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["range_gather_pack", "lcp_pairs",
-                                    "pattern_probe", "pattern_probe_packed"])
+                                    "pattern_probe", "pattern_probe_packed",
+                                    "range_gather_packed", "suffix_lcp_words",
+                                    "suffix_lcp_pairs"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
@@ -368,7 +382,8 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
 
     monkeypatch.setattr(_build, "build_all", failed_build)
     for name in ("range_gather_pack_ref", "lcp_pairs_ref", "pattern_probe_ref",
-                 "pattern_probe_packed_ref"):
+                 "pattern_probe_packed_ref", "range_gather_packed_ref",
+                 "suffix_lcp_words_ref", "suffix_lcp_pairs_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
@@ -401,8 +416,11 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     ops.lcp_pairs(keys, keys, 16)
     ops.pattern_probe(sp, offs, keys, keys)
     ops.pattern_probe_packed(tt, offs, keys, keys)
+    ops.range_gather_packed(tt, offs, 16)
+    ops.suffix_lcp_words(tt, offs, offs.flip(0), 16)
+    ops.KERNELS["suffix_lcp_pairs"](sp, offs, offs.flip(0), 16)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 7
+    assert len(ops.KERNELS) == 10
 
 
 def test_other_devices_raise():
@@ -425,8 +443,7 @@ def test_knobs(monkeypatch):
     assert ops._use_word_compare() and ops._use_sort_fuse()
     assert ops._use_compaction()
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
-    with pytest.raises(NotImplementedError, match="B6"):
-        ops._use_word_compare()
+    assert not ops._use_word_compare()  # the byte-key oracle now runs
     monkeypatch.setenv("REPRO_WORD_COMPARE", "bogus")
     with pytest.raises(ValueError, match="REPRO_WORD_COMPARE"):
         ops._use_word_compare()
@@ -444,3 +461,127 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def _lcp_pairs_inputs(alpha, n, b, w, rng):
+    """A string with a planted copy (long shared prefixes), and pairs:
+    random, inside the copy, equal, and within ``w`` of the end."""
+    s = alpha.random_string(n, seed=n + w)
+    s[n // 2:n // 2 + 3 * w // 2] = s[7:7 + 3 * w // 2]
+    pa = rng.integers(0, n + 1, size=b)
+    pb = rng.integers(0, n + 1, size=b)
+    k = b // 4
+    pa[:k] = 7 + rng.integers(0, w // 2, size=k)
+    pb[:k] = pa[:k] + (n // 2 - 7)
+    pa[k:k + 8] = rng.integers(max(0, n - w), n + 1, size=8)
+    pb[k:k + 8] = rng.integers(max(0, n - w), n + 1, size=8)
+    pb[k + 8:k + 11] = pa[k + 8:k + 11]
+    return s, pa.astype(np.int32), pb.astype(np.int32)
+
+
+@pytest.mark.parametrize("alpha,n,f,w,tile", [
+    (DNA, 900, 33, 16, 32), (DNA, 1200, 24, 256, 64),
+    (PROTEIN_CLASS, 800, 21, 32, 64), (BYTE, 500, 16, 8, 32),
+], ids=lambda v: getattr(v, "name", v))
+def test_range_gather_packed_equal(alpha, n, f, w, tile):
+    """Plain port version == JAX Pallas (interpret) == JAX ref == the byte
+    keys of the terminal-padded string, offsets up to n included."""
+    rng = np.random.default_rng(n + f + w)
+    s, jt, tt = _texts(alpha, n, w + 8, seed=n)
+    offs = np.concatenate([rng.integers(0, n, size=f),
+                           np.arange(n - 5, n + 1)]).astype(np.int32)
+    pallas = j_gather_packed(jt, jnp.asarray(offs), w, tile=tile,
+                             interpret=True)
+    want = jref.range_gather_packed_ref(jt, jnp.asarray(offs), w)
+    oracle = jref.range_gather_pack_ref(
+        jnp.asarray(alpha.pad_string(s, extra=w + 8)), jnp.asarray(offs), w)
+    got = tpg.range_gather_packed(tt, torch.from_numpy(offs), w)
+    np.testing.assert_array_equal(np.asarray(pallas), np.asarray(oracle))
+    np.testing.assert_array_equal(np.asarray(want), np.asarray(oracle))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
+    assert ops.range_gather(tt, torch.from_numpy(offs), w).equal(got)
+
+
+@pytest.mark.parametrize("alpha,n,b,w,tile", [
+    (DNA, 1200, 48, 64, 64), (DNA, 1500, 32, 256, 64),
+    (PROTEIN_CLASS, 800, 40, 4, 32), (BYTE, 600, 32, 16, 32),
+], ids=lambda v: getattr(v, "name", v))
+def test_suffix_lcp_words_equal(alpha, n, b, w, tile):
+    """Word LCP: plain port version == JAX Pallas (interpret) == JAX ref,
+    and == the byte symbol scan on distinct pairs."""
+    rng = np.random.default_rng(n + b + w)
+    s, pa, pb = _lcp_pairs_inputs(alpha, n, b, w, rng)
+    jt = jpk.pack_text(s, alpha, extra=w + 8)
+    tt = tpk.pack_text(s, ALPHABETS[alpha.name], extra=w + 8, device="cpu")
+    ja, jb = jnp.asarray(pa), jnp.asarray(pb)
+    pallas = np.asarray(j_lcp_words(jt, ja, jb, w, tile=tile, interpret=True))
+    want = np.asarray(jref.suffix_lcp_words_ref(jt, ja, jb, w))
+    got = tpg.suffix_lcp_words(tt, torch.from_numpy(pa), torch.from_numpy(pb),
+                               w).numpy()
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got, want)
+    if w % 4 == 0:
+        byte = np.asarray(jref.suffix_lcp_pairs_ref(
+            jnp.asarray(alpha.pad_string(s, extra=w + 8)), ja, jb, w))
+        distinct = pa != pb
+        np.testing.assert_array_equal(got[distinct], byte[distinct])
+    assert (got == w).any() and (got < w).any()
+
+
+@pytest.mark.parametrize("alpha,n,b,w,extra", [
+    (DNA, 700, 40, 4, 8), (PROTEIN_CLASS, 900, 48, 64, 72),
+    (BYTE, 800, 32, 256, 8), (BYTE, 500, 40, 16, 24),
+], ids=lambda v: getattr(v, "name", v))
+def test_suffix_lcp_pairs_equal(alpha, n, b, w, extra):
+    """Byte-text LCP: plain port version == JAX Pallas (interpret) == JAX
+    ref, with reads running past a short padding (clamped alike)."""
+    rng = np.random.default_rng(n + b + w)
+    s, pa, pb = _lcp_pairs_inputs(alpha, n, b, w, rng)
+    sp = alpha.pad_string(s, extra=extra)
+    ja, jb = jnp.asarray(pa), jnp.asarray(pb)
+    pallas = np.asarray(j_suffix_lcp(jnp.asarray(sp), ja, jb, w, tile=64,
+                                     interpret=True))
+    want = np.asarray(jref.suffix_lcp_pairs_ref(jnp.asarray(sp), ja, jb, w))
+    got = tslcp.suffix_lcp_pairs(torch.from_numpy(sp), torch.from_numpy(pa),
+                                 torch.from_numpy(pb), w).numpy()
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got, want)
+    assert (got == w).any() and (got < w).any()
+
+
+@pytest.mark.parametrize("leg", ["word", "byte"])
+@pytest.mark.parametrize("alpha", [DNA, PROTEIN_CLASS, BYTE],
+                         ids=lambda a: a.name)
+def test_suffix_lcp_dispatch_equal(monkeypatch, leg, alpha):
+    """``ops.suffix_lcp_pairs`` follows the JAX dispatch branch for branch:
+    dense text (word kernel or the byte-key oracle) and byte text."""
+    monkeypatch.setenv("REPRO_WORD_COMPARE", leg)
+    rng = np.random.default_rng(5)
+    w = 32
+    s, pa, pb = _lcp_pairs_inputs(alpha, 700, 40, w, rng)
+    jt = jpk.pack_text(s, alpha, extra=w + 8)
+    tt = tpk.pack_text(s, ALPHABETS[alpha.name], extra=w + 8, device="cpu")
+    sp = alpha.pad_string(s, extra=w + 8)
+    ta, tb = torch.from_numpy(pa), torch.from_numpy(pb)
+    for jtext, ttext in ((jt, tt), (jnp.asarray(sp), torch.from_numpy(sp))):
+        want = np.asarray(jops.suffix_lcp_pairs(jtext, jnp.asarray(pa),
+                                                jnp.asarray(pb), w))
+        got = ops.suffix_lcp_pairs(ttext, ta, tb, w)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_suffix_lcp_wrappers_check_inputs(monkeypatch):
+    """The checks a card call makes before any launch."""
+    pos = torch.zeros(3, dtype=torch.int32)
+    s = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tslcp.suffix_lcp_pairs(s, pos, pos, 6)
+    with pytest.raises(ValueError, match="equal 1-D"):
+        tslcp.suffix_lcp_pairs(s, pos, pos[:2], 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.range_gather_packed(tpk.pack_text(DNA.random_string(50, seed=1),
+                                              ALPHABETS["dna"], extra=16,
+                                              device="cpu"), pos, 6)
+    monkeypatch.setattr(tslcp, "_on_cpu", lambda *tensors: False)
+    with pytest.raises(ValueError, match="uint8"):
+        tslcp.suffix_lcp_pairs(s.to(torch.int32), pos, pos, 8)

@@ -26,6 +26,8 @@ from repro_torch.core.packing import words_to_numpy
 FIELDS = ("L", "start", "area", "b_off", "b_c1", "b_c2")
 LEGS = {"default": {}, "lexsort": {"REPRO_SORT": "lexsort"},
         "compact_off": {"REPRO_COMPACT": "off"}}
+# dense text also runs the byte-key oracle leg (range_gather_packed keys)
+DENSE_LEGS = {**LEGS, "byte": {"REPRO_WORD_COMPARE": "byte"}}
 
 
 def _both(s, alpha_name, mem, packing="auto"):
@@ -58,7 +60,7 @@ def _assert_fields(jst, tst):
                                       err_msg=field)
 
 
-@pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("leg", sorted(DENSE_LEGS))
 @pytest.mark.parametrize("alpha,n,mem,packing", [
     ("dna", 900, 1024, "auto"),
     ("dna", 1200, 768, "auto"),            # G > 1, uneven group sizes
@@ -66,7 +68,7 @@ def _assert_fields(jst, tst):
     ("byte", 450, 4096, "dense"),          # 8-bit words, codes >= 128
 ])
 def test_batched_build_grid(monkeypatch, leg, alpha, n, mem, packing):
-    for var, val in LEGS[leg].items():
+    for var, val in DENSE_LEGS[leg].items():
         monkeypatch.setenv(var, val)
     s = J_ALPHABETS[alpha].random_string(n, seed=n + mem)
     jst, tst, _ = _run(s, alpha, mem, packing)
@@ -114,11 +116,11 @@ def test_byte_device_text_is_the_padded_string():
     assert text.shape[0] == len(s) + 2 * tix.config.w_max + 8
 
 
-@pytest.mark.parametrize("leg", sorted(LEGS))
+@pytest.mark.parametrize("leg", sorted(DENSE_LEGS))
 @pytest.mark.parametrize("name,n,mem", [("dna", 6_000, 1 << 12),
                                         ("genome", 5_000, 1 << 12)])
 def test_bit_identity_grid(monkeypatch, leg, name, n, mem):
-    for var, val in LEGS[leg].items():
+    for var, val in DENSE_LEGS[leg].items():
         monkeypatch.setenv(var, val)
     s, _ = j_dataset(name, n, seed=0)
     jst, tst, g = _run(s, "dna", mem)
@@ -214,17 +216,18 @@ def test_device_text_words_equal():
 
 
 def test_byte_knob_only_refused_on_dense_text(monkeypatch):
-    """``REPRO_WORD_COMPARE=byte`` changes nothing on byte text (JAX reads
-    it only for a dense text), so a protein build runs and equals JAX;
-    on dense text it needs ``range_gather_packed`` and raises (B6)."""
+    """Once refused, now run: ``REPRO_WORD_COMPARE=byte`` changes nothing
+    on byte text (JAX reads it only for a dense text), and on dense text
+    it runs the byte branch on ``range_gather_packed`` keys; both equal
+    JAX under the same leg, and the dense run equals the word leg."""
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
     s = J_ALPHABETS["protein"].random_string(800, seed=4)
     jst, tst, _ = _run(s, "protein", 2048)
     _assert_fields(jst, tst)
     s = J_ALPHABETS["dna"].random_string(300, seed=4)
-    _, tix = _both(s, "dna", 2048)
-    groups = tix.partition(s)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tprep.subtree_prepare_batch(tix._device_text(s), groups,
-                                    tix._capacity(groups),
-                                    tix.config.elastic_config())
+    jst, tst, _ = _run(s, "dna", 2048)
+    _assert_fields(jst, tst)
+    monkeypatch.setenv("REPRO_WORD_COMPARE", "word")
+    _, tword, _ = _run(s, "dna", 2048)
+    for field in FIELDS:
+        assert torch.equal(getattr(tst, field), getattr(tword, field)), field

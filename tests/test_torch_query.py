@@ -135,11 +135,19 @@ def test_terminal_bearing_batch_other_alphabets(alpha):
 
 
 def test_byte_compare_knob_raises(monkeypatch):
+    """Once refused, now answered: under ``REPRO_WORD_COMPARE=byte`` a
+    dense index probes every batch through the byte-key probe
+    (``pattern_probe_packed``), equal to JAX under the same leg and to
+    the brute-force scan."""
     s, jdev = _jax_index("dna", 400, 2048, seed=78)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
-    with pytest.raises(NotImplementedError, match="B6"):
-        tdev.find_batch([np.asarray(s[3:9])])
+    pats = [np.asarray(s[3:9]), np.asarray(s[100:121])] + \
+        _terminal_patterns(s, 4)[:5]
+    assert not tdev._word_gate(tdev.pad_batch(pats[:1])[0], None)
+    for p, g, w in zip(pats, tdev.find_batch(pats), jdev.find_batch(pats)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, ref.occurrences(s, p))
 
 
 def test_byte_archive_raises():
