@@ -16,7 +16,13 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   loop (``suffix_lcp_words`` on DNA, ``suffix_lcp_pairs`` on protein, the
   node build's divergence rows and the global LCP's boundaries);
 * the ``REPRO_WORD_COMPARE=byte`` oracle leg on ``genome`` at n = 2**25
-  (``range_gather_packed``), held equal to the word leg.
+  (``range_gather_packed``, and ``probe_gather_packed`` for find-and-fetch),
+  held equal to the word leg;
+* find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
+  (``probe_gather_words`` on DNA, ``probe_gather_packed`` for the DNA
+  terminal-bearing batch, ``pattern_probe`` + ``range_gather_pack`` on the
+  protein byte text) and the ``AsyncServer`` stack through
+  ``run_closed_loop`` in its sync, async and cached modes.
 
 Phases, each printing one JSON line:
 
@@ -29,18 +35,29 @@ Phases, each printing one JSON line:
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
 5. serving  — the ``query_serve`` loop (batch 256, lengths 4–24);
+   find_fetch — ``find_fetch_batch`` (fetch 32) on 256 planted and random
+              patterns: ranges equal ``find_batch`` and the scan, windows
+              equal the text read on the card, ``verified`` 0 where found;
+              then its batch latency beside the search alone;
+   serving_stack — ``run_closed_loop`` in sync, async and cached mode with
+              fetch 0 and 32 on a hot workload of 16,384 requests, each mode
+              warmed once with every ``_dispatch`` under
+              ``torch.cuda.set_sync_debug_mode("error")``, every result equal
+              to ``find_batch`` / ``find_fetch_batch``;
 6. tree / analytics / analytics_serving — the tree path per dataset:
               build, engine, the serving loop (batch 512, window 64, 20
               batches), then its checks against brute force on the card;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
 8. kernels  — each kernel at the main path's shapes: time, plain-version
-              time, bound, and its launches on the paths above.
+              time, bound, and its launches on the paths above (the fused
+              kernels also at 2^20 rows, beside the time of the two ported
+              kernels they fuse).
 
 Launch counts are set to 0 just before each path (build + check +
-serving, the terminal-bearing check, each tree path from build to the
-end of its serving loop, each leg of the byte-leg phase) and read just
-after; the phase lines carry the counts so far.  Every kernel of a path
+serving, the terminal-bearing check, each find_fetch and serving_stack
+phase, each tree path from build to the end of its serving loop, each leg
+of the byte-leg phase) and read just after; the phase lines carry the counts so far.  Every kernel of a path
 must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or without the rest of the repository, the script exits
@@ -76,10 +93,23 @@ TREE_KERNELS = {
     "protein": ("kmer_histogram", "range_gather_pack", "lcp_pairs",
                 "suffix_lcp_pairs", "pattern_probe"),
 }
-BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed")
+BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed",
+                    "probe_gather_packed")
 WORD_ONLY_KERNELS = ("range_gather_words", "pattern_probe_words",
-                     "suffix_lcp_words")
+                     "suffix_lcp_words", "probe_gather_words")
+FETCH_KERNELS = {
+    "genome": ("pattern_probe_words", "probe_gather_words"),
+    "terminal": ("pattern_probe_packed", "probe_gather_packed"),
+    "protein": ("pattern_probe", "range_gather_pack"),
+}
+FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
+    "genome": ("probe_gather_packed",),
+    "terminal": ("probe_gather_words",),
+    "protein": ("probe_gather_words", "probe_gather_packed"),
+}
 BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
+FETCH = 32          # symbols fetched per match on the find-and-fetch paths
+SERVE_REQUESTS = 1 << 14
 
 
 def emit(obj) -> None:
@@ -171,6 +201,16 @@ def suffix_lcp_work(lcp: torch.Tensor, w: int, syms_per_read: int,
                         max=-(-w // syms_per_read))
     total = int(reads.sum())
     return b * 12 + min(text_bytes, 2 * total * read_bytes), total * 2 * 16
+
+
+def fused_work(b: int, nw_pat: int, nw_out: int, text_words: int,
+               n_words: int, n_int_in: int) -> tuple[float, float]:
+    """Bytes and ops of a fused probe + gather: ``n_int_in`` int32 inputs
+    per row (positions, lengths), the pattern and mask rows, the text words
+    this run's rows need, the verdict and the window out."""
+    return (b * 4 * n_int_in + 2 * b * nw_pat * 4
+            + min(n_words, text_words) * 4 + b * 4 + b * nw_out * 4,
+            text_words * 30)
 
 
 def sorted_pairs(keys: torch.Tensor, offs: torch.Tensor):
@@ -284,8 +324,301 @@ def main() -> int:
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.analytics_serve import make_query, serve_engine
     from repro_torch.launch.query_serve import make_workload, serve_index
+    from repro_torch.launch.serving import (
+        AsyncServer,
+        ServeConfig,
+        make_hot_workload,
+        run_closed_loop,
+    )
 
     cuda = torch.device("cuda")
+
+    def fused_reads(kind: str, ptx, pos, pat, mask, nw_out: int) -> int:
+        """Text words the fused kernel reads for these rows: each row reads
+        until its window is written and its verdict is decided, plus the
+        word its funnel shift straddles."""
+        spw, nw_pat = ptx.syms_per_word, pat.shape[1]
+        if kind == "words":
+            sw = kref.range_gather_words_ref(ptx, pos, nw_pat * spw) & mask
+            first = packing.lcp_words(sw, pat, ptx.bits).to(torch.int64) // spw
+        else:
+            neq = (kref.range_gather_packed_ref(ptx, pos, 4 * nw_pat)
+                   & mask) != pat
+            first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1),
+                                nw_pat).to(torch.int64)
+        need = torch.clamp(torch.clamp(first + 1, max=nw_pat), min=nw_out)
+        if kind == "packed":
+            need = -(-4 * need // spw)
+        return int((need + 1).sum())
+
+    def fused_case(kind: str, ptx, pos, pat, mask, lengths, fetch: int,
+                   inner: int) -> dict:
+        """A fused kernel against its plain version and against the two
+        ported kernels it fuses, launched one after the other (exact);
+        the three times and the bound."""
+        if kind == "words":
+            nw_out, n_in = -(-fetch // ptx.syms_per_word), 2
+            fused = lambda: ops.probe_gather_words(ptx, pos, pat, mask,
+                                                   lengths, fetch)
+            plain = lambda: kref.probe_gather_words_ref(
+                ptx, pos, pat, mask, lengths, fetch=fetch)
+            two = lambda: (ops.pattern_probe_words(ptx, pos, pat, mask,
+                                                   lengths),
+                           ops.range_gather_words(ptx, pos, fetch))
+        else:
+            nw_out, n_in = fetch // 4, 1
+            fused = lambda: ops.probe_gather_packed(ptx, pos, pat, mask, fetch)
+            plain = lambda: kref.probe_gather_packed_ref(ptx, pos, pat, mask,
+                                                         fetch=fetch)
+            two = lambda: (ops.pattern_probe_packed(ptx, pos, pat, mask),
+                           ops.range_gather_packed(ptx, pos, fetch))
+        got = fused()
+        for g, p_, t_, part in zip(got, plain(), two(), ("verdict", "window")):
+            assert_equal(g, p_, f"probe_gather_{kind} {part}")
+            assert_equal(g, t_, f"probe_gather_{kind} {part} vs two launches")
+        b_ms, b_by = bound(*fused_work(
+            pos.shape[0], pat.shape[1], nw_out,
+            fused_reads(kind, ptx, pos, pat, mask, nw_out),
+            ptx.words.shape[0], n_in))
+        return {"rows": pos.shape[0], "nw_pat": pat.shape[1], "fetch": fetch,
+                "max_abs_err": 0,
+                "verdicts": {str(v): int((got[0] == v).sum())
+                             for v in (-1, 0, 1)},
+                "ms": cuda_ms(fused, inner=inner),
+                "plain_ms": cuda_ms(plain, inner=max(1, inner // 5)),
+                "two_launch_ms": cuda_ms(two, inner=inner),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def fused_parity(name: str, ptx, sx: np.ndarray, ax) -> None:
+        """Both fused kernels on 4096 rows of a dense text (suffixes that
+        run into the terminal included), fetch wider and narrower than the
+        pattern; word rows hold real symbols, byte-key rows planted
+        suffixes of the terminal-padded string."""
+        nr = ptx.n_real
+        b = 4096
+        sp_x = ax.pad_string(sx, extra=64)
+        for m, fetch in ((8, 32), (16, 4), (24, 32), (64, 16)):
+            pos_np = rng.integers(0, nr + 1, size=b).astype(np.int32)
+            pos_np[-64:] = rng.integers(max(0, nr - m), nr + 1, size=64)
+            lens = torch.from_numpy(
+                rng.integers(1, m + 1, size=b).astype(np.int32)).to(cuda)
+            sym = rng.integers(0, len(ax.symbols),
+                               size=(b, m)).astype(np.int32)
+            sym_t = sym.copy()
+            for i in range(0, b, 2):
+                p = int(pos_np[i])
+                seg = sx[p:min(p + m, nr)]
+                sym[i, :seg.size] = seg
+                sym_t[i] = sp_x[p:p + m]
+            pos = torch.from_numpy(pos_np).to(cuda)
+            rows = {"words": _pack_query_batch(
+                        ptx, torch.from_numpy(sym).to(cuda), lens),
+                    "packed": _pack_query_batch(
+                        None, torch.from_numpy(sym_t).to(cuda), lens,
+                        word=False)}
+            for kind, (pat, mask) in rows.items():
+                emit({"phase": "parity", "kernel": f"probe_gather_{kind}",
+                      "text": name, "bits": ptx.bits, "m_pad": m,
+                      **fused_case(kind, ptx, pos, pat, mask, lens, fetch,
+                                   inner=20)})
+
+    def check_find_fetch(dev, s_dev: torch.Tensor, pats, what: str) -> dict:
+        """``find_fetch_batch``: ranges equal ``find_batch`` and the scan,
+        each window equals the text at its first match read on the card
+        (the terminal past the end), −1 where nothing matched, and the
+        fused verdict is 0 wherever the pattern occurs."""
+        n1 = s_dev.shape[0]
+        t0 = time.perf_counter()
+        ranges, wins = dev.find_fetch_batch(pats, fetch=FETCH)
+        t_ff = time.perf_counter() - t0
+        padded, lengths, route = dev.pad_batch(pats)
+        start, count, win, verified = dev.find_fetch_ranges(
+            padded, lengths, route, fetch=FETCH)
+        found = dev.find_batch(pats)
+        hits = 0
+        for p, r, f in zip(pats, ranges, found):
+            want = brute_force(s_dev, np.asarray(p))
+            if not (np.array_equal(r, f) and np.array_equal(r, want)):
+                raise AssertionError(f"{what}: find_fetch_batch disagrees "
+                                     f"with find_batch or the scan for "
+                                     f"pattern {np.asarray(p).tolist()}")
+            hits += int(want.size)
+        has = count > 0
+        if not np.array_equal(win.cpu().numpy(), wins):
+            raise AssertionError(f"{what}: find_fetch_batch and "
+                                 f"find_fetch_ranges disagree")
+        if bool((verified[has] != 0).any()):
+            raise AssertionError(f"{what}: a matched row failed the fused "
+                                 f"verdict")
+        pos0 = dev.ell[torch.clamp(start, 0, dev.n_leaves - 1)].to(torch.int64)
+        idx = torch.clamp(pos0[:, None] + torch.arange(FETCH, device=cuda),
+                          max=n1 - 1)
+        want_win = torch.where(has[:, None], s_dev[idx].to(torch.int32), -1)
+        if not torch.equal(win, want_win):
+            raise AssertionError(f"{what}: a fetched window differs from "
+                                 f"the text at its match")
+        return {"patterns": len(pats), "matched": int(has.sum()),
+                "occurrences": hits, "fetch": FETCH,
+                "windows_past_end": int(((pos0 + FETCH > n1 - 1) & has).sum()),
+                "t_find_fetch_batch_s": t_ff}
+
+    def fetch_latency(dev, pats) -> dict:
+        """Host milliseconds from dispatch to a synchronised result of the
+        search alone (``find_batch_ranges``) and of find-and-fetch
+        (``find_fetch_ranges``) on the same padded batch: medians of 20
+        runs each, taken in turns after one warm-up of each."""
+        padded, lengths, route = dev.pad_batch(pats)
+        calls = {"find_batch_ranges_ms": lambda: dev.find_batch_ranges(
+                     padded, lengths, route),
+                 "find_fetch_ranges_ms": lambda: dev.find_fetch_ranges(
+                     padded, lengths, route, fetch=FETCH)}
+        times = {k: [] for k in calls}
+        for _ in range(21):
+            for k, fn in calls.items():
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[k].append(time.perf_counter() - t0)
+        return {k: float(np.median(v[1:])) * 1e3 for k, v in times.items()}
+
+    def require_fetch(counts: dict, path: str, what: str) -> None:
+        require_launches(counts, FETCH_KERNELS[path], what)
+        for name in FETCH_ABSENT[path]:
+            if counts[name]:
+                raise AssertionError(f"{name} was launched on {what}")
+
+    class SyncFreeServer(AsyncServer):
+        """An AsyncServer whose every ``_dispatch`` runs under
+        ``torch.cuda.set_sync_debug_mode("error")`` (any call that
+        synchronises the host with the card raises), with the host seconds
+        of each dispatch, each wait for a batch's event and each consume
+        after it."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.t_dispatch, self.t_wait, self.t_consume = [], [], []
+
+        def _dispatch(self):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                flight = super()._dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if flight is not None:
+                self.t_dispatch.append(time.perf_counter() - t0)
+            return flight
+
+        def _consume(self, flight):
+            t0 = time.perf_counter()
+            if flight.ready is not None:
+                flight.ready.synchronize()
+            t1 = time.perf_counter()
+            super()._consume(flight)
+            self.t_wait.append(t1 - t0)
+            self.t_consume.append(time.perf_counter() - t1)
+
+        def host_ms(self) -> dict:
+            """Median host milliseconds per batch of each step."""
+            return {f"{k}_ms": float(np.median(v)) * 1e3 for k, v in (
+                ("dispatch", self.t_dispatch), ("wait", self.t_wait),
+                ("consume", self.t_consume))}
+
+    def device_ms(fn) -> float | None:
+        """Milliseconds of device time (kernels and copies) that
+        ``torch.profiler`` records while ``fn`` runs; None when it records
+        none."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages())
+        return us / 1e3 if us else None
+
+    def serving_stack(dev, sx: np.ndarray, ax, name: str) -> dict:
+        """``run_closed_loop`` in sync, async and cached mode, with fetch 0
+        and FETCH, on a hot workload; each mode warmed once by a
+        sync-free-dispatch pass, then timed; every result of both passes
+        equal to ``find_batch`` / ``find_fetch_batch`` on the same
+        patterns.  Returns the launch counts of the twelve passes."""
+        pats = make_hot_workload(sx, np.random.default_rng(29),
+                                 n_requests=SERVE_REQUESTS, hot_pool=32,
+                                 hot_frac=0.8, min_len=4, max_len=24,
+                                 n_symbols=len(ax.symbols))
+        uniq = {}
+        for p in pats:
+            uniq.setdefault(p.tobytes(), p)
+        t0 = time.perf_counter()
+        want_pos = dict(zip(uniq, dev.find_batch(list(uniq.values()))))
+        ranges, wins = dev.find_fetch_batch(list(uniq.values()), fetch=FETCH)
+        for k, r in zip(uniq, ranges):
+            if not np.array_equal(r, want_pos[k]):
+                raise AssertionError(f"{name}: find_fetch_batch ranges "
+                                     f"disagree with find_batch")
+        want_win = dict(zip(uniq, wins))
+        del ranges
+        emit({"phase": "serving_stack", "dataset": name,
+              "requests": len(pats), "distinct_patterns": len(uniq),
+              "positions_per_pass": sum(want_pos[p.tobytes()].size
+                                        for p in pats),
+              "t_reference_s": time.perf_counter() - t0})
+
+        def check(res, fetch: int, what: str) -> None:
+            seen = set()
+            for p, (pos, win) in zip(pats, res):
+                k = p.tobytes()
+                if (id(pos), k) not in seen:
+                    seen.add((id(pos), k))
+                    if not np.array_equal(pos, want_pos[k]):
+                        raise AssertionError(f"{what}: positions differ "
+                                             f"from find_batch")
+                if fetch and not np.array_equal(win, want_win[k]):
+                    raise AssertionError(f"{what}: a window differs from "
+                                         f"find_fetch_batch")
+                if not fetch and win is not None:
+                    raise AssertionError(f"{what}: a window without fetch")
+
+        ops.reset_launch_counts()
+        for fetch in (0, FETCH):
+            base = None
+            for mode, kw in (("sync", dict(pipeline=False, cache_size=0)),
+                             ("async", dict(pipeline=True, cache_size=0)),
+                             ("cached", dict(pipeline=True, cache_size=4096))):
+                cfg = ServeConfig(queue_depth=1024, max_batch=256,
+                                  max_wait_ms=1.0, fetch=fetch, **kw)
+                what = f"{name} serving {mode} fetch={fetch}"
+                t0 = time.perf_counter()
+                warm = SyncFreeServer(dev, cfg)
+                check(warm.serve(pats), fetch, what + " (warm-up)")
+                t_warm = time.perf_counter() - t0
+                res, st = run_closed_loop(dev, pats, cfg)
+                check(res, fetch, what)
+                del res
+                base = st["qps"] if mode == "sync" else base
+                busy = {}
+                if fetch:  # a third pass under the profiler: device time
+                    d_ms = device_ms(lambda: run_closed_loop(dev, pats, cfg))
+                    busy = {"device_ms_per_pass": d_ms,
+                            "device_busy_share": None if d_ms is None
+                            else d_ms / (st["wall_s"] * 1e3)}
+                emit({"phase": "serving_stack", "dataset": name,
+                      "mode": mode, "fetch": fetch, "qps": st["qps"],
+                      "lat_p50_ms": st["lat_p50_ms"],
+                      "lat_p99_ms": st["lat_p99_ms"],
+                      "vs_sync": st["qps"] / base,
+                      "cache_hit_rate": st["cache"]["hit_rate"],
+                      "cache": st["cache"], "batches": st["batches"],
+                      "rows_padded": st["rows_padded"],
+                      "shapes": st["shapes"], "wall_s": st["wall_s"],
+                      "warm_pass_s": t_warm, "warm_pass_host": warm.host_ms(),
+                      **busy, "sync_free_dispatch": True,
+                      "equal_to_find_batch": True})
+        counts = ops.launch_counts()
+        emit({"phase": "serving_stack", "dataset": name, "launches": counts})
+        return counts
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -385,6 +718,7 @@ def main() -> int:
               pt, pos, pat_b, mask_b), inner=20),
           "bound_ms": b_ms, "bound_by": b_by})
     del sp_dna
+    fused_parity("genome", pt, s, alpha)
 
     s_pad = torch.from_numpy(np.concatenate(
         [s, np.full(8, alpha.terminal_code, np.uint8)])).to(cuda)
@@ -483,6 +817,10 @@ def main() -> int:
                       lambda: kref.range_gather_pack_ref(sp, offs, w)),
                   "bound_ms": b_ms, "bound_by": b_by})
         del got, want
+
+    fused_parity("byte", packing.pack_text(s_byte, byte_alpha,
+                                           extra=2 * cfg.w_max + 8,
+                                           device=cuda), s_byte, byte_alpha)
 
     # lcp_pairs on sorted byte-key rows: a repeated eighth of the offsets
     # gives identical neighbours, the byte text bytes >= 128
@@ -618,6 +956,62 @@ def main() -> int:
     if term_counts["pattern_probe_words"] != 0:
         raise AssertionError("a terminal-bearing batch took the word probe")
 
+    # ---- 5b. find-and-fetch and the serving stack on the DNA index ---------
+    frng = np.random.default_rng(17)
+    ff_pats = make_workload(s, frng, batch=256, min_len=4, max_len=24,
+                            planted_frac=0.7, n_symbols=len(alpha.symbols))
+    ops.reset_launch_counts()
+    ff_check = check_find_fetch(dev, s_dev, ff_pats, "genome find_fetch")
+    ff_counts = ops.launch_counts()
+    emit({"phase": "find_fetch", "dataset": "genome", **ff_check,
+          "launches": ff_counts})
+    require_fetch(ff_counts, "genome", "the genome find-and-fetch path")
+    emit({"phase": "find_fetch_latency", "dataset": "genome",
+          "batch": len(ff_pats), **fetch_latency(dev, ff_pats)})
+    ops.reset_launch_counts()
+    ff_check = check_find_fetch(dev, s_dev, tpats, "genome terminal fetch")
+    tff_counts = ops.launch_counts()
+    emit({"phase": "find_fetch", "dataset": "genome",
+          "batch": "terminal-bearing", **ff_check, "launches": tff_counts})
+    require_fetch(tff_counts, "terminal", "the terminal-bearing fetch")
+    dna_serve_counts = serving_stack(dev, s, alpha, "genome")
+    require_fetch(dna_serve_counts, "genome", "the genome serving stack")
+
+    # the fused kernels at the find-and-fetch shape (a served batch of 256,
+    # fetch 32, at each pattern's lower-bound suffix) and at 2^20 rows
+    fetch_rows = []
+    big = 1 << 20
+    for kind, pats_b, replaces in (
+            ("words", ff_pats, "src/repro/kernels/probe_gather.py:80"),
+            ("packed", (tpats * 14)[:256],
+             "src/repro/kernels/probe_gather.py:174")):
+        padded, lens, route = dev.pad_batch(pats_b)
+        lens_t = torch.from_numpy(lens).to(cuda)
+        start, _ = dev.find_batch_ranges(padded, lens, route)
+        pos0 = dev.ell[torch.clamp(start, 0, dev.n_leaves - 1)]
+        pat, mask = _pack_query_batch(dev.s_text,
+                                      torch.from_numpy(padded).to(cuda),
+                                      lens_t, kind == "words")
+        row = fused_case(kind, dev.s_text, pos0, pat, mask, lens_t, FETCH,
+                         inner=100)
+        reps = big // pos0.shape[0]
+        pos_l = dev.ell[torch.randint(0, dev.n_leaves, (big,), device=cuda)]
+        large = fused_case(kind, dev.s_text, pos_l, pat.repeat(reps, 1),
+                           mask.repeat(reps, 1), lens_t.repeat(reps), FETCH,
+                           inner=1)
+        shape = lambda r: (f"rows={r['rows']} nw_pat={r['nw_pat']} "
+                           f"fetch={FETCH}")
+        fetch_rows.append({
+            "name": f"probe_gather_{kind}", "replaces": replaces,
+            "shape": shape(row), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "two_launch_ms": row["two_launch_ms"],
+            "large": {"shape": shape(large), **{
+                k: large[k] for k in ("ms", "plain_ms", "two_launch_ms",
+                                      "bound_ms", "bound_by")}}})
+    del pos0, pos_l, pat, mask, lens_t
+
     # ---- 6a. DNA kernels at the main path's shapes -------------------------
     rows = []
     # range_gather_words: the first elastic step reads w = 4 symbols after
@@ -741,6 +1135,18 @@ def main() -> int:
     require_launches(prot_counts, PROTEIN_KERNELS, "the protein path")
     if prot_counts["pattern_probe"] <= after_build["pattern_probe"]:
         raise AssertionError("the protein search never launched pattern_probe")
+    ff_pats = make_workload(s, frng, batch=256, min_len=4, max_len=24,
+                            planted_frac=0.7, n_symbols=len(protein.symbols))
+    ops.reset_launch_counts()
+    ff_check = check_find_fetch(dev, s_dev, ff_pats, "protein find_fetch")
+    prot_ff_counts = ops.launch_counts()
+    emit({"phase": "find_fetch", "dataset": "protein", **ff_check,
+          "launches": prot_ff_counts})
+    require_fetch(prot_ff_counts, "protein", "the protein find-and-fetch path")
+    emit({"phase": "find_fetch_latency", "dataset": "protein",
+          "batch": len(ff_pats), **fetch_latency(dev, ff_pats)})
+    prot_serve_counts = serving_stack(dev, s, protein, "protein")
+    require_fetch(prot_serve_counts, "protein", "the protein serving stack")
     del s_dev
 
     # ---- 6b. protein kernels at the main path's shapes ---------------------
@@ -1061,10 +1467,12 @@ def main() -> int:
             torch.cuda.synchronize()
             t_leg = time.perf_counter() - t0
             found = dev.find_batch(leg_pats)
+            fetched = dev.find_fetch_batch(leg_pats, fetch=FETCH)
             _, eng = EraIndexer(alpha, EraConfig(build_impl="none")
                                 ).build_analytics(s_leg)
             ms_leg = eng.matching_stats(leg_q, window=64)
             legs[leg] = {"ell": dev.ell.cpu().numpy(), "found": found,
+                         "fetched": fetched,
                          "lcp": eng.lcp_host, "ms": ms_leg,
                          "counts": ops.launch_counts(), "t_build_s": t_leg}
             if leg == "byte":
@@ -1080,6 +1488,11 @@ def main() -> int:
     same = (np.array_equal(wl["ell"], bl["ell"])
             and all(np.array_equal(a, b)
                     for a, b in zip(wl["found"], bl["found"]))
+            and all(np.array_equal(a, b)
+                    for a, b in zip(bl["found"], bl["fetched"][0]))
+            and all(np.array_equal(a, b)
+                    for a, b in zip(wl["fetched"][0], bl["fetched"][0]))
+            and np.array_equal(wl["fetched"][1], bl["fetched"][1])
             and np.array_equal(wl["lcp"], bl["lcp"])
             and all(np.array_equal(a, b) for a, b in zip(wl["ms"], bl["ms"])))
     emit({"phase": "byte_leg", "dataset": "genome", "n": n_leg,
@@ -1111,8 +1524,11 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by})
     del got, want, pt_leg, leg_ell
 
-    paths = [dna_counts, term_counts, prot_counts, tree["genome"]["counts"],
-             tree["protein"]["counts"], bl["counts"]]
+    rows += fetch_rows
+    paths = [dna_counts, term_counts, ff_counts, tff_counts, dna_serve_counts,
+             prot_counts, prot_ff_counts, prot_serve_counts,
+             tree["genome"]["counts"], tree["protein"]["counts"],
+             bl["counts"]]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     kernels = []
     for row in rows:
@@ -1126,7 +1542,8 @@ def main() -> int:
                         "bound_by": row["bound_by"], "library_ms": None,
                         "shape": row["shape"],
                         **{k: v for k, v in row.items()
-                           if k in ("aligned_offsets_ms", "plain_note")}})
+                           if k in ("aligned_offsets_ms", "plain_note",
+                                    "two_launch_ms", "large")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

@@ -16,6 +16,14 @@ JAX package:
 * the terminal-padded uint8 byte string (protein, english, byte, or
   ``packing="bytes"``) — ``pattern_probe`` on byte keys.
 
+:meth:`DeviceIndex.find_fetch_ranges` adds the find-and-fetch epilogue:
+one fused probe + gather launch at each pattern's lower-bound suffix
+(``probe_gather_words`` on dense words; ``probe_gather_packed`` for byte
+keys on dense text; ``pattern_probe`` + ``range_gather_pack`` on the byte
+string) returns the text there.  :class:`RouteCache` memoizes results by
+:meth:`DeviceIndex.route_key` for :meth:`DeviceIndex.find_batch_cached` and
+the serving loop (:mod:`repro_torch.launch.serving`).
+
 Archives keep the JAX package's npz layouts (dense ``s_words`` with a
 7-entry meta, byte ``s_padded`` with the 4-entry meta plus the epoch), so
 indexes load in both directions.
@@ -23,6 +31,7 @@ indexes load in both directions.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -115,6 +124,50 @@ def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
         ulo, uhi = (torch.where(uact & (ucmp <= 0), umid + 1, ulo),
                     torch.where(uact & (ucmp > 0), umid, uhi))
     return llo, ulo
+
+
+def _window_symbols(s_text, win: torch.Tensor, pos0: torch.Tensor,
+                    fetch: int, word: bool) -> torch.Tensor:
+    """Decode a fused-gather window to (B, fetch) int32 symbol codes
+    (``repro.core.query._window_symbols``).  Word rows hold ``bits``-wide
+    fields of int32 words (uint32 bit patterns: the arithmetic shift's
+    sign bits fall outside the field mask, C1), byte-key rows four
+    big-endian bytes.  A dense text substitutes ``sub_code`` past
+    ``n_real`` on the word path, so the true terminal is patched back in
+    by position: the window is the same for every storage and leg."""
+    b = win.shape[0]
+    dev = win.device
+    if word:
+        bits, spw = s_text.bits, s_text.syms_per_word
+        shifts = 32 - bits * (torch.arange(spw, device=dev) + 1)
+        sym = (win[:, :, None] >> shifts) & ((1 << bits) - 1)
+    else:
+        shifts = 24 - 8 * torch.arange(4, device=dev)
+        sym = (win[:, :, None] >> shifts) & 0xFF
+    sym = sym.reshape(b, -1)[:, :fetch].to(torch.int32)
+    if isinstance(s_text, packing_mod.PackedText):
+        past = (pos0.to(torch.int64)[:, None]
+                + torch.arange(fetch, device=dev)[None, :] >= s_text.n_real)
+        sym = torch.where(past, s_text.terminal, sym).to(torch.int32)
+    return sym
+
+
+def _fetch_windows(s_text, ell, start, count, pat_words, mask_words,
+                   lengths, *, word: bool, fetch: int):
+    """The find-and-fetch epilogue of ``repro.core.query._find_fetch_batch``:
+    one fused probe + gather launch at each lower-bound suffix
+    ``ell[start]`` re-verifies the match and reads ``fetch`` symbols there.
+    Returns ``(window, verified)``: window (B, fetch) int32 codes, −1 rows
+    where nothing matched; verified the fused verdict (0 where count > 0)."""
+    pos0 = ell[torch.clamp(start, 0, ell.shape[0] - 1)]
+    if word:
+        cmp, win = kops.probe_gather_words(s_text, pos0, pat_words,
+                                           mask_words, lengths, fetch)
+    else:
+        cmp, win = kops.probe_gather(s_text, pos0, pat_words, mask_words,
+                                     fetch)
+    sym = _window_symbols(s_text, win, pos0, fetch, word)
+    return torch.where((count > 0)[:, None], sym, -1).to(torch.int32), cmp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,15 +449,15 @@ class DeviceIndex:
                 pat_max = int(np.asarray(patterns).max(initial=0))
         return pat_max < self.s_text.terminal
 
-    def find_batch_ranges(self, patterns, lengths, route_syms,
-                          *, pat_max: int | None = None):
-        """(B, m_pad)/(B,)/(B, k_route) → (start, count) int32 slices of
-        ``ell`` on the device (matches are ``ell[start:start+count]``)."""
+    def _search(self, patterns, lengths, route_syms, pat_max):
+        """Pack, route and search a padded batch on the device; returns
+        ``(word, lengths, pat_words, mask_words, start, count)``.  Inputs
+        already on the device as int32 (the serving loop's uploads) are
+        used as they are."""
         word = self._word_gate(patterns, pat_max)
-        dev = self.device
-        patterns = torch.as_tensor(patterns, dtype=torch.int32, device=dev)
-        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        route_syms = torch.as_tensor(route_syms, dtype=torch.int32, device=dev)
+        patterns, lengths, route_syms = (
+            torch.as_tensor(a, dtype=torch.int32, device=self.device)
+            for a in (patterns, lengths, route_syms))
         pat_words, mask_words = _pack_query_batch(self.s_text, patterns,
                                                   lengths, word)
         lo0, hi0 = _route_window(self.win_lo, self.win_hi, self.pows,
@@ -412,14 +465,151 @@ class DeviceIndex:
         llo, ulo = _search_bounds(self.s_text, self.ell, pat_words,
                                   mask_words, lengths, lo0, hi0,
                                   n_iter=self.n_iter, word=word)
-        return llo, torch.clamp(ulo - llo, min=0)
+        return (word, lengths, pat_words, mask_words, llo,
+                torch.clamp(ulo - llo, min=0))
+
+    def find_batch_ranges(self, patterns, lengths, route_syms,
+                          *, pat_max: int | None = None):
+        """(B, m_pad)/(B,)/(B, k_route) → (start, count) int32 slices of
+        ``ell`` on the device (matches are ``ell[start:start+count]``).
+        Pass the batch's ``pat_max`` when it is known: the probe gate then
+        needs no device reduce, and device inputs make the call sync-free."""
+        return self._search(patterns, lengths, route_syms, pat_max)[4:]
+
+    def find_fetch_ranges(self, patterns, lengths, route_syms, *, fetch: int,
+                          pat_max: int | None = None):
+        """Find-and-fetch: :meth:`find_batch_ranges` plus ``fetch`` symbols
+        of text at the first (suffix-array order) match, from one fused
+        probe + gather launch.  Returns device tensors ``(start, count,
+        window, verified)``; window is (B, fetch) int32 codes (−1 rows
+        where count == 0), verified the fused verdict (0 where count > 0)."""
+        if fetch % 4 or fetch <= 0:
+            raise ValueError(f"fetch={fetch} must be a positive multiple of 4")
+        if fetch > self.max_pattern_len:
+            raise ValueError(
+                f"fetch={fetch} exceeds max_pattern_len={self.max_pattern_len}"
+                " (the gather-past-|S| padding guarantee)")
+        word, lengths, pat_words, mask_words, start, count = self._search(
+            patterns, lengths, route_syms, pat_max)
+        return (start, count) + _fetch_windows(
+            self.s_text, self.ell, start, count, pat_words, mask_words,
+            lengths, word=word, fetch=fetch)
+
+    def positions(self, start: int, count: int) -> np.ndarray:
+        """The sorted int64 occurrence positions ``ell[start:start+count]``
+        (from the host copy of ``ell``: no device copy per batch)."""
+        pos = self.ell_host[start : start + count].astype(np.int64)
+        pos.sort()
+        return pos
 
     def find_batch(self, patterns) -> list[np.ndarray]:
         """All occurrence positions for each pattern (sorted, int64)."""
         padded, lengths, route = self.pad_batch(patterns)
         start, count = self.find_batch_ranges(padded, lengths, route)
-        start = start.cpu().numpy()
-        count = count.cpu().numpy()
-        ell = self.ell_host  # avoid a full device->host copy per batch
-        return [np.sort(ell[s : s + c].astype(np.int64))
-                for s, c in zip(start, count)]
+        return [self.positions(s, c)
+                for s, c in zip(start.tolist(), count.tolist())]
+
+    def find_fetch_batch(self, patterns, *, fetch: int = 32):
+        """Host convenience find-and-fetch over a list of code arrays:
+        ``(ranges, windows)`` — the sorted occurrence positions per pattern
+        (as :meth:`find_batch`) and a (B, fetch) int32 array of the text at
+        each pattern's first (suffix-array order) match, −1 rows for
+        patterns that do not occur."""
+        padded, lengths, route = self.pad_batch(patterns)
+        start, count, win, _ = self.find_fetch_ranges(padded, lengths, route,
+                                                      fetch=fetch)
+        ranges = [self.positions(s, c)
+                  for s, c in zip(start.tolist(), count.tolist())]
+        return ranges, win.cpu().numpy()
+
+    # ---- hot-prefix route cache -------------------------------------------
+
+    def route_key(self, pattern) -> tuple[int, int, bytes]:
+        """Cache key of one pattern: ``(route code, length, bytes)``
+        (``repro.core.query.DeviceIndex.route_key``).  The route code is the
+        depth-``k_route`` cell :func:`_route_window` gathers, so keys
+        cluster by the route a query takes; the pattern bytes keep lookups
+        exact (verdicts do not depend on the padded width)."""
+        arr = np.asarray(pattern, np.int32)
+        kk = min(arr.size, self.k_route)
+        c = 0
+        for j in range(kk):
+            c = c * self.base + int(arr[j])
+        c *= self.base ** (self.k_route - kk)
+        return c, arr.size, arr.tobytes()
+
+    def find_batch_cached(self, patterns, cache: "RouteCache") -> list[np.ndarray]:
+        """:meth:`find_batch` through a :class:`RouteCache`: hits resolve to
+        their memoized ``(start, count)`` without the device; the misses run
+        as one smaller batch (a pattern repeated in the batch costs one
+        row) and fill the cache.  Results equal :meth:`find_batch`."""
+        keys = [self.route_key(p) for p in patterns]
+        bounds = [cache.get(k) for k in keys]
+        miss: dict[tuple, int] = {}
+        for i, bnd in enumerate(bounds):
+            if bnd is None and keys[i] not in miss:
+                miss[keys[i]] = i
+        if miss:
+            padded, lengths, route = self.pad_batch(
+                [patterns[i] for i in miss.values()])
+            start, count = self.find_batch_ranges(padded, lengths, route)
+            solved = dict(zip(miss, zip(start.tolist(), count.tolist())))
+            for k, bnd in solved.items():
+                cache.put(k, bnd)
+            bounds = [solved[k] if bnd is None else bnd
+                      for k, bnd in zip(keys, bounds)]
+        return [self.positions(s, c) for s, c in bounds]
+
+
+class RouteCache:
+    """LRU memo of route-keyed patterns → their bounds (or any value the
+    caller stores, such as the serving loop's materialized results), with
+    hit, miss and eviction counters (``repro.core.query.RouteCache``).
+    Exact-pattern keys make results with and without the cache equal."""
+
+    def __init__(self, capacity: int = 4096):
+        if capacity < 0:
+            raise ValueError(f"capacity={capacity} must be >= 0")
+        self.capacity = capacity
+        self._map: collections.OrderedDict = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def get(self, key):
+        if self.capacity == 0:
+            self.misses += 1
+            return None
+        got = self._map.get(key)
+        if got is None:
+            self.misses += 1
+            return None
+        self._map.move_to_end(key)
+        self.hits += 1
+        return got
+
+    def put(self, key, value) -> None:
+        if self.capacity == 0:
+            return
+        if key in self._map:
+            self._map.move_to_end(key)
+        self._map[key] = value
+        while len(self._map) > self.capacity:
+            self._map.popitem(last=False)
+            self.evictions += 1
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def stats(self) -> dict:
+        return {"size": len(self._map), "capacity": self.capacity,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions, "hit_rate": self.hit_rate}
+
+    def clear(self) -> None:
+        self._map.clear()

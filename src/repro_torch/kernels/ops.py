@@ -14,7 +14,8 @@ meanings, so one CI leg covers both packages:
   currency of a dense text; ``byte`` pins the byte-key oracle ON DENSE
   TEXT: construction reads byte keys from the dense words
   (``range_gather_packed``) and sorts and compares them as on byte text,
-  searches probe through ``pattern_probe_packed``, and suffix-pair LCPs
+  searches probe through ``pattern_probe_packed`` (find-and-fetch through
+  ``probe_gather_packed``, not ``probe_gather_words``), and suffix-pair LCPs
   run ``range_gather_packed`` + ``lcp_pairs``.  A byte-per-symbol text
   (protein, english, byte, ``packing="bytes"``) always runs the byte-key
   currency (``range_gather_pack``, ``lcp_pairs``, ``pattern_probe``,
@@ -43,6 +44,10 @@ from repro_torch.kernels.packed_gather import (
     suffix_lcp_words,
 )
 from repro_torch.kernels.pattern_probe import pattern_probe
+from repro_torch.kernels.probe_gather import (
+    probe_gather_packed,
+    probe_gather_words,
+)
 from repro_torch.kernels.range_gather import range_gather_pack
 from repro_torch.kernels.suffix_lcp import suffix_lcp_pairs as _suffix_lcp_bytes
 
@@ -57,10 +62,13 @@ KERNELS = {
     "range_gather_packed": range_gather_packed,
     "suffix_lcp_words": suffix_lcp_words,
     "suffix_lcp_pairs": _suffix_lcp_bytes,
+    "probe_gather_words": probe_gather_words,
+    "probe_gather_packed": probe_gather_packed,
 }
 
 __all__ = ["KERNELS", "kmer_histogram", "launch_counts", "lcp_pairs",
            "pattern_probe", "pattern_probe_packed", "pattern_probe_words",
+           "probe_gather", "probe_gather_packed", "probe_gather_words",
            "range_gather", "range_gather_pack", "range_gather_packed",
            "range_gather_words", "reset_launch_counts", "resolve_device",
            "suffix_lcp_pairs", "suffix_lcp_words"]
@@ -97,6 +105,21 @@ def range_gather(s_text, offs: torch.Tensor, w: int) -> torch.Tensor:
     if isinstance(s_text, PackedText):
         return range_gather_packed(s_text, offs, w)
     return range_gather_pack(s_text, offs, w)
+
+
+def probe_gather(s_text, pos: torch.Tensor, pat_words: torch.Tensor,
+                 mask_words: torch.Tensor, fetch: int):
+    """Find-and-fetch in the byte-key currency, dispatched on the text as
+    ``repro.kernels.ops.probe_gather_impl``: ``(cmp int32[B], keys
+    int32[B, fetch//4])``.  A dense :class:`PackedText` runs the fused
+    ``probe_gather_packed`` kernel; the terminal-padded byte string has no
+    fused kernel and runs the two launches ``pattern_probe`` +
+    ``range_gather_pack`` (the fused kernels' definition, so the results
+    are the same for either storage)."""
+    if isinstance(s_text, PackedText):
+        return probe_gather_packed(s_text, pos, pat_words, mask_words, fetch)
+    return (pattern_probe(s_text, pos, pat_words, mask_words),
+            range_gather_pack(s_text, pos, fetch))
 
 
 def suffix_lcp_pairs(s_text, pos_a: torch.Tensor, pos_b: torch.Tensor,

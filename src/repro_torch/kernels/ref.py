@@ -124,6 +124,30 @@ def pattern_probe_words_ref(pt: PackedText, pos: torch.Tensor,
     return probe_words_ref(sw, pat_dense, lim_s, lim_p, lengths, pt.bits)
 
 
+def probe_gather_words_ref(pt: PackedText, pos: torch.Tensor,
+                           pat_dense: torch.Tensor, mask_dense: torch.Tensor,
+                           lengths: torch.Tensor,
+                           lim_p: torch.Tensor | None = None, *,
+                           fetch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cmp int32[B], win int32[B, ceil(fetch/spw)]): by definition the
+    two-launch composition :func:`pattern_probe_words_ref` then
+    :func:`range_gather_words_ref` at the same positions, which the fused
+    kernel must match bit for bit (``repro.kernels.ref.probe_gather_words_ref``)."""
+    cmp = pattern_probe_words_ref(pt, pos, pat_dense, mask_dense, lengths,
+                                  lim_p)
+    return cmp, range_gather_words_ref(pt, pos, fetch)
+
+
+def probe_gather_packed_ref(pt: PackedText, pos: torch.Tensor,
+                            pat_words: torch.Tensor, mask_words: torch.Tensor,
+                            *, fetch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cmp int32[B], keys int32[B, fetch//4]): the two-launch composition
+    :func:`pattern_probe_packed_ref` then :func:`range_gather_packed_ref`
+    (``repro.kernels.ref.probe_gather_packed_ref``)."""
+    cmp = pattern_probe_packed_ref(pt, pos, pat_words, mask_words)
+    return cmp, range_gather_packed_ref(pt, pos, fetch)
+
+
 def suffix_lcp_words_ref(pt: PackedText, pos_a: torch.Tensor,
                          pos_b: torch.Tensor, w: int) -> torch.Tensor:
     """int32[B] LCP of dense suffix pairs: first differing word by XOR,

@@ -7,7 +7,9 @@ sustained loop of padded pattern batches through
 ``DeviceIndex.find_batch_ranges`` and reports queries/sec plus per-batch
 latency.  Every dataset runs: ``dna``/``genome`` index dense 2-bit words,
 ``protein``/``english``/``byte`` the byte-per-symbol text (byte-key
-kernels).  Runs on the card by default:
+kernels).  ``--index-path`` warm-starts from an npz archive (written by a
+cold run; the JAX package's archives load too).  Runs on the card by
+default:
 
   PYTHONPATH=src python -m repro_torch.launch.query_serve --dataset protein \
       --n 100000 --batch 256 --iters 20            # --device cpu: plain path
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import EraConfig, EraIndexer
-from repro_torch.data.strings import dataset
+from repro_torch.core.query import DeviceIndex
+from repro_torch.launch.warmstart import load_or_build, will_load
 
 
 def make_workload(s: np.ndarray, rng: np.random.Generator, *, batch: int,
@@ -102,24 +105,35 @@ def serve_queries(dataset_name: str = "dna", *, n: int = 100_000,
                   batch: int = 256, iters: int = 20, min_len: int = 4,
                   max_len: int = 24, planted_frac: float = 0.7,
                   memory_bytes: int = 1 << 20, seed: int = 0,
-                  device="cuda") -> dict:
+                  index_path: str | None = None, device="cuda") -> dict:
     """Build an index over ``dataset(dataset_name, n, seed)`` on ``device``
-    and run :func:`serve_index` on it."""
+    (or load it from the npz at ``index_path``, which a cold run writes;
+    archives of either package load) and run :func:`serve_index` on it."""
     if not 1 <= min_len <= max_len:
         raise ValueError(f"need 1 <= min_len <= max_len, got [{min_len}, {max_len}]")
     if iters < 1 or batch < 1:
         raise ValueError(f"need iters >= 1 and batch >= 1, got {iters}, {batch}")
-    if max_len >= n:
-        raise ValueError(f"max_len {max_len} must be < --n {n}")
     rng = np.random.default_rng(seed + 1)
     max_len4 = -(-max_len // 4) * 4  # pad_batch rounds to whole packed words
-    s, alphabet = dataset(dataset_name, n, seed=seed)
-    t0 = time.perf_counter()
-    cfg = EraConfig(memory_bytes=memory_bytes, build_impl="none")
-    dev = EraIndexer(alphabet, cfg, device=device).build_device(
-        s, max_pattern_len=max(64, max_len4))
-    _sync(dev.device)
-    t_build = time.perf_counter() - t0
+    if not will_load(index_path) and max_len >= n:
+        # cold path: fail before paying the build
+        raise ValueError(f"max_len {max_len} must be < --n {n}")
+
+    def build(s, alphabet):
+        cfg = EraConfig(memory_bytes=memory_bytes, build_impl="none")
+        dev = EraIndexer(alphabet, cfg, device=device).build_device(
+            s, max_pattern_len=max(64, max_len4))
+        _sync(dev.device)
+        return dev
+
+    dev, s, alphabet, t_build = load_or_build(
+        index_path, dataset_name, n, seed,
+        load=lambda path: DeviceIndex.load(path, device=device), build=build)
+    if max_len4 > dev.max_pattern_len:
+        raise ValueError(
+            f"--max-len {max_len} exceeds the cached index's "
+            f"max_pattern_len={dev.max_pattern_len}; delete the cache at "
+            f"--index-path or rebuild cold with a larger --max-len")
     stats = serve_index(dev, s, alphabet, rng, batch=batch, iters=iters,
                         min_len=min_len, max_len=max_len,
                         planted_frac=planted_frac)
@@ -136,13 +150,17 @@ def main():
     ap.add_argument("--min-len", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=24)
     ap.add_argument("--planted-frac", type=float, default=0.7)
+    ap.add_argument("--index-path", default=None,
+                    help="npz cache: load the flattened index if the file "
+                         "exists, else build once and save it there")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand kernels) or cpu (plain PyTorch versions)")
     args = ap.parse_args()
     stats = serve_queries(args.dataset, n=args.n, batch=args.batch,
                           iters=args.iters, min_len=args.min_len,
                           max_len=args.max_len,
-                          planted_frac=args.planted_frac, device=args.device)
+                          planted_frac=args.planted_frac,
+                          index_path=args.index_path, device=args.device)
     print(stats)
 
 

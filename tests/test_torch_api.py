@@ -228,6 +228,7 @@ def test_port_imports_no_jax():
             "import repro_torch.launch.query_serve, repro_torch.kernels.ops\n"
             "import repro_torch.core.analytics, repro_torch.core.suffix_tree\n"
             "import repro_torch.launch.analytics_serve\n"
+            "import repro_torch.launch.serving, repro_torch.kernels.probe_gather\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

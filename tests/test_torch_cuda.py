@@ -19,6 +19,7 @@ from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import pattern_probe as tprobe
+from repro_torch.kernels import probe_gather as tfused
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import suffix_lcp as tslcp
@@ -222,3 +223,92 @@ def test_cuda_launches_are_counted(cuda_device):
     s = torch.zeros(64, dtype=torch.uint8, device=cuda_device)
     ops.kmer_histogram(s, 60, 2, 5)
     assert ops.launch_counts()["kmer_histogram"] == 1
+
+
+FUSED_CASES = [("dna", 8, 32), ("dna", 16, 4), ("protein_class", 8, 16),
+               ("byte", 12, 12)]
+
+
+def _fused_rows(name, m, device, rng, b=600, n=20_000):
+    """Probe rows over a dense text: planted suffixes (terminal-tail ones
+    included) and random rows, as word and byte-key pattern batches."""
+    a = ALPHABETS[name]
+    s = a.random_string(n, seed=n + m)
+    pt = tpk.pack_text(s, a, extra=96, device=device)
+    m_pad = -(-m // 4) * 4
+    pos = rng.integers(0, n + 1, size=b).astype(np.int32)
+    pos[-40:] = rng.integers(n - m_pad, n + 1, size=40)
+    lengths = rng.integers(1, m + 1, size=b).astype(np.int32)
+    sym = rng.integers(0, len(a.symbols), size=(b, m_pad)).astype(np.int32)
+    sp = a.pad_string(s, m_pad)
+    for i in range(0, b, 2):
+        sym[i] = sp[pos[i]:pos[i] + m_pad]
+    sym_t = torch.from_numpy(sym).to(device)
+    len_t = torch.from_numpy(lengths).to(device)
+    word = _pack_query_batch(pt, sym_t, len_t)
+    byte = _pack_query_batch(None, sym_t, len_t, word=False)
+    return pt, torch.from_numpy(pos).to(device), len_t, word, byte
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha,m,fetch", FUSED_CASES)
+def test_cuda_probe_gather_words(cuda_device, alpha, m, fetch):
+    """Equal to its plain version and to the two launches it fuses."""
+    rng = np.random.default_rng(m + fetch)
+    pt, pos, lengths, (pat, mask), _ = _fused_rows(alpha, m, cuda_device, rng)
+    ops.reset_launch_counts()
+    cmp, win = tfused.probe_gather_words(pt, pos, pat, mask, lengths, fetch)
+    assert ops.launch_counts()["probe_gather_words"] == 1
+    want = tref.probe_gather_words_ref(pt, pos, pat, mask, lengths,
+                                       fetch=fetch)
+    assert torch.equal(cmp, want[0]) and torch.equal(win, want[1])
+    assert torch.equal(cmp, tpg.pattern_probe_words(pt, pos, pat, mask,
+                                                    lengths))
+    assert torch.equal(win, tpg.range_gather_words(pt, pos, fetch))
+    assert (cmp == 0).any() and (cmp != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha,m,fetch", FUSED_CASES)
+def test_cuda_probe_gather_packed(cuda_device, alpha, m, fetch):
+    rng = np.random.default_rng(2 * m + fetch)
+    pt, pos, _, _, (pat, mask) = _fused_rows(alpha, m, cuda_device, rng)
+    cmp, keys = tfused.probe_gather_packed(pt, pos, pat, mask, fetch)
+    want = tref.probe_gather_packed_ref(pt, pos, pat, mask, fetch=fetch)
+    assert torch.equal(cmp, want[0]) and torch.equal(keys, want[1])
+    assert torch.equal(cmp, tpg.pattern_probe_packed(pt, pos, pat, mask))
+    assert torch.equal(keys, tpg.range_gather_packed(pt, pos, fetch))
+    assert (cmp == 0).any() and (cmp != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", [0, 16])
+def test_cuda_async_server_equals_sync(cuda_device, fetch):
+    """The pipelined, cached server on the card returns what the
+    synchronous one returns, request for request."""
+    from repro_torch.core.api import EraConfig, EraIndexer
+    from repro_torch.launch.serving import (
+        ServeConfig,
+        make_hot_workload,
+        run_closed_loop,
+    )
+    a = ALPHABETS["dna"]
+    s = a.random_string(20_000, seed=11)
+    dev = EraIndexer(a, EraConfig(memory_bytes=1 << 16, build_impl="none"),
+                     device=cuda_device).build_device(s, max_pattern_len=64)
+    pats = make_hot_workload(s, np.random.default_rng(3), n_requests=2000,
+                             hot_pool=16, hot_frac=0.7, min_len=2,
+                             max_len=18)
+    sync, _ = run_closed_loop(dev, pats, ServeConfig(
+        pipeline=False, cache_size=0, fetch=fetch))
+    for kw in (dict(pipeline=True, cache_size=0, max_batch=64),
+               dict(pipeline=True, cache_size=256, max_batch=64)):
+        got, stats = run_closed_loop(dev, pats, ServeConfig(fetch=fetch, **kw))
+        assert stats["batches"] > 1
+        for (p1, w1), (p2, w2) in zip(got, sync):
+            np.testing.assert_array_equal(p1, p2)
+            if fetch:
+                np.testing.assert_array_equal(w1, w2)
+    ranges = dev.find_batch(pats)
+    for (p1, _), want in zip(sync, ranges):
+        np.testing.assert_array_equal(p1, want)

@@ -31,6 +31,8 @@ from repro.kernels import ops as jops
 from repro.kernels.packed_gather import range_gather_packed as j_gather_packed
 from repro.kernels.packed_gather import suffix_lcp_words as j_lcp_words
 from repro.kernels.suffix_lcp import suffix_lcp_pairs as j_suffix_lcp
+from repro.kernels.probe_gather import probe_gather_packed as j_fused_packed
+from repro.kernels.probe_gather import probe_gather_words as j_fused_words
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.kernels import _build
@@ -39,6 +41,7 @@ from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import pattern_probe as tprobe
+from repro_torch.kernels import probe_gather as tfused
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import suffix_lcp as tslcp
@@ -358,13 +361,18 @@ def _no_fallback_calls():
             pt, pos, pos, 8)),
         "suffix_lcp_pairs": (tslcp, lambda: tslcp.suffix_lcp_pairs(
             s, pos, pos, 8)),
+        "probe_gather_words": (tfused, lambda: tfused.probe_gather_words(
+            pt, pos, words, words, pos, 16)),
+        "probe_gather_packed": (tfused, lambda: tfused.probe_gather_packed(
+            pt, pos, words, words, 16)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["range_gather_pack", "lcp_pairs",
                                     "pattern_probe", "pattern_probe_packed",
                                     "range_gather_packed", "suffix_lcp_words",
-                                    "suffix_lcp_pairs"])
+                                    "suffix_lcp_pairs", "probe_gather_words",
+                                    "probe_gather_packed"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
@@ -383,7 +391,8 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
     monkeypatch.setattr(_build, "build_all", failed_build)
     for name in ("range_gather_pack_ref", "lcp_pairs_ref", "pattern_probe_ref",
                  "pattern_probe_packed_ref", "range_gather_packed_ref",
-                 "suffix_lcp_words_ref", "suffix_lcp_pairs_ref"):
+                 "suffix_lcp_words_ref", "suffix_lcp_pairs_ref",
+                 "probe_gather_words_ref", "probe_gather_packed_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
@@ -419,8 +428,12 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     ops.range_gather_packed(tt, offs, 16)
     ops.suffix_lcp_words(tt, offs, offs.flip(0), 16)
     ops.KERNELS["suffix_lcp_pairs"](sp, offs, offs.flip(0), 16)
+    dense = torch.zeros((offs.shape[0], 1), dtype=torch.int32)
+    ops.probe_gather_words(tt, offs, dense, dense, offs, 16)
+    ops.probe_gather_packed(tt, offs, keys, keys, 16)
+    ops.probe_gather(sp, offs, keys, keys, 16)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 10
+    assert len(ops.KERNELS) == 12
 
 
 def test_other_devices_raise():
@@ -585,3 +598,123 @@ def test_suffix_lcp_wrappers_check_inputs(monkeypatch):
     monkeypatch.setattr(tslcp, "_on_cpu", lambda *tensors: False)
     with pytest.raises(ValueError, match="uint8"):
         tslcp.suffix_lcp_pairs(s.to(torch.int32), pos, pos, 8)
+
+
+FUSED_CASES = [
+    (DNA, 900, 24, 8, 32),          # fetch wider than the pattern
+    (DNA, 700, 16, 16, 4),          # fetch narrower than the pattern
+    (PROTEIN_CLASS, 700, 20, 8, 16),
+    (BYTE, 500, 12, 12, 12),
+]
+
+
+def _fused_batch(alpha, n, b, m, seed):
+    """The probe workload of ``tests/test_packed.py::TestFusedProbeGather``:
+    terminal-tail positions and planted exact matches, in both packages."""
+    rng = np.random.default_rng(seed)
+    s = alpha.random_string(n, seed=n)
+    jt = jpk.pack_text(s, alpha, extra=96)
+    tt = tpk.pack_text(s, ALPHABETS[alpha.name], extra=96, device="cpu")
+    sp = alpha.pad_string(s, extra=96)
+    pos = np.concatenate([rng.integers(0, n, size=b - 4),
+                          rng.integers(max(0, n - m), n + 1, 4)]
+                         ).astype(np.int32)
+    m_pad = -(-m // 4) * 4
+    lengths = rng.integers(1, m + 1, size=len(pos)).astype(np.int32)
+    sym = rng.integers(0, len(alpha.symbols),
+                       size=(len(pos), m_pad)).astype(np.int32)
+    for i in range(0, len(pos), 3):
+        j = int(rng.integers(0, n - m_pad))
+        sym[i] = sp[j : j + m_pad]
+        pos[i] = j
+    valid = np.arange(m_pad)[None, :] < lengths[:, None]
+    return jt, tt, pos, np.where(valid, sym, 0), valid, lengths
+
+
+@pytest.mark.parametrize("alpha,n,b,m,fetch", FUSED_CASES,
+                         ids=lambda v: getattr(v, "name", v))
+def test_probe_gather_words_equal(alpha, n, b, m, fetch):
+    """Plain port version == JAX Pallas (interpret) == the two-launch
+    composition of the port's word probe and word gather."""
+    jt, tt, pos, sym, valid, lengths = _fused_batch(alpha, n, b, m, n + m)
+    bits = jt.bits
+    pat_j = jpk.pack_pattern_dense(jnp.asarray(sym), bits, jt.terminal)
+    mask_j = jpk.pack_dense(jnp.asarray(np.where(valid, (1 << bits) - 1, 0)),
+                            bits)
+    cmp_j, win_j = j_fused_words(jt, jnp.asarray(pos), pat_j, mask_j,
+                                 jnp.asarray(lengths), fetch=fetch, tile=64,
+                                 interpret=True)
+    pat_t = tpk.pack_pattern_dense(torch.from_numpy(sym), bits, tt.terminal)
+    mask_t = tpk.pack_dense(torch.from_numpy(
+        np.where(valid, (1 << bits) - 1, 0)), bits)
+    np.testing.assert_array_equal(tpk.words_to_numpy(pat_t), np.asarray(pat_j))
+    pos_t, len_t = torch.from_numpy(pos), torch.from_numpy(lengths)
+    cmp_t, win_t = tfused.probe_gather_words(tt, pos_t, pat_t, mask_t, len_t,
+                                             fetch)
+    np.testing.assert_array_equal(cmp_t.numpy(), np.asarray(cmp_j))
+    np.testing.assert_array_equal(tpk.words_to_numpy(win_t), np.asarray(win_j))
+    assert win_t.shape == (b, -(-fetch // tt.syms_per_word))
+    two = (tpg.pattern_probe_words(tt, pos_t, pat_t, mask_t, len_t),
+           tpg.range_gather_words(tt, pos_t, fetch))
+    assert cmp_t.equal(two[0]) and win_t.equal(two[1])
+    assert set(cmp_t.tolist()) >= {0}
+
+
+@pytest.mark.parametrize("alpha,n,b,m,fetch", FUSED_CASES,
+                         ids=lambda v: getattr(v, "name", v))
+def test_probe_gather_packed_equal(alpha, n, b, m, fetch):
+    """Plain port version == JAX Pallas (interpret) == the two-launch
+    composition of the port's packed probe and packed gather."""
+    jt, tt, pos, sym, valid, _ = _fused_batch(alpha, n, b, m, 2 * n + m)
+    pat, mask = _byte_words(sym, valid)
+    cmp_j, win_j = j_fused_packed(jt, jnp.asarray(pos), jnp.asarray(pat),
+                                  jnp.asarray(mask), fetch=fetch, tile=64,
+                                  interpret=True)
+    pos_t = torch.from_numpy(pos)
+    pat_t, mask_t = torch.from_numpy(pat), torch.from_numpy(mask)
+    cmp_t, win_t = tfused.probe_gather_packed(tt, pos_t, pat_t, mask_t, fetch)
+    np.testing.assert_array_equal(cmp_t.numpy(), np.asarray(cmp_j))
+    np.testing.assert_array_equal(win_t.numpy(), np.asarray(win_j))
+    two = (tpg.pattern_probe_packed(tt, pos_t, pat_t, mask_t),
+           tpg.range_gather_packed(tt, pos_t, fetch))
+    assert cmp_t.equal(two[0]) and win_t.equal(two[1])
+
+
+@pytest.mark.parametrize("leg", ["word", "byte"])
+def test_probe_gather_dispatch_equal(monkeypatch, leg):
+    """``ops.probe_gather`` follows the JAX dispatch: the fused packed
+    kernel on dense text, the two launches on the byte string, with equal
+    results for either storage."""
+    monkeypatch.setenv("REPRO_WORD_COMPARE", leg)
+    alpha, n, b, m, fetch = DNA, 600, 16, 8, 16
+    jt, tt, pos, sym, valid, _ = _fused_batch(alpha, n, b, m, 99)
+    sp = alpha.pad_string(alpha.random_string(n, seed=n), extra=96)
+    pat, mask = _byte_words(sym, valid)
+    args_j = (jnp.asarray(pos), jnp.asarray(pat), jnp.asarray(mask))
+    args_t = (torch.from_numpy(pos), torch.from_numpy(pat),
+              torch.from_numpy(mask))
+    dense_t = ops.probe_gather(tt, *args_t, fetch)
+    byte_t = ops.probe_gather(torch.from_numpy(sp), *args_t, fetch)
+    for text_j, got in ((jt, dense_t), (jnp.asarray(sp), byte_t)):
+        want = jops.probe_gather(text_j, *args_j, fetch)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert dense_t[0].equal(byte_t[0]) and dense_t[1].equal(byte_t[1])
+
+
+def test_probe_gather_wrappers_check_card_inputs(monkeypatch):
+    """The checks a card call makes before any launch: the read covers
+    max(pattern, fetch) symbols, byte-key windows need fetch % 4 == 0."""
+    pt = tpk.pack_text(DNA.random_string(100, seed=1), ALPHABETS["dna"],
+                       extra=16, device="cpu")
+    pos = torch.zeros(3, dtype=torch.int32)
+    one = torch.zeros((3, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfused.probe_gather_packed(pt, pos, one, one, 6)
+    monkeypatch.setattr(tfused, "_on_cpu", lambda *tensors: False)
+    with pytest.raises(ValueError, match="larger extra"):
+        tfused.probe_gather_words(pt, pos, one, one, pos, 64)
+    with pytest.raises(ValueError, match="larger extra"):
+        tfused.probe_gather_packed(pt, pos, one, one, 64)
+    with pytest.raises(ValueError, match="row counts"):
+        tfused.probe_gather_words(pt, pos, one, one, pos[:2], 8)
