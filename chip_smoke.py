@@ -22,7 +22,12 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   (``probe_gather_words`` on DNA, ``probe_gather_packed`` for the DNA
   terminal-bearing batch, ``pattern_probe`` + ``range_gather_pack`` on the
   protein byte text) and the ``AsyncServer`` stack through
-  ``run_closed_loop`` in its sync, async and cached modes.
+  ``run_closed_loop`` in its sync, async and cached modes;
+* LM serving — ``repro_torch.launch.serve.serve("qwen3-1.7b",
+  smoke=False)``: all 28 layers at full width (d_model 2048, 16 query and
+  8 KV heads of width 128, vocab 151,936; random weights from a seed) in
+  bf16, prefilling 4 prompts of 2048 tokens through the hand-written
+  ``flash_attention`` kernel, then decoding 32 tokens greedily.
 
 Phases, each printing one JSON line:
 
@@ -49,27 +54,45 @@ Phases, each printing one JSON line:
               batches), then its checks against brute force on the card;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
-8. kernels  — each kernel at the main path's shapes: time, plain-version
-              time, bound, and its launches on the paths above (the fused
+8. LM       — ``parity`` of ``flash_attention`` against its plain version
+              (float32 rtol 1e-5 / atol 2e-5 with TF32 off; bf16 one
+              bf16 ulp of the output, rtol 2^-7 / atol 2e-5),
+              on the JAX test's shapes, Sq != Sk, a ragged length, D 256
+              and the prefill shape; ``lm_serving``: ``serve`` three times
+              (cold, warm, under ``torch.profiler``) with 28 kernel
+              launches in each prefill and none in the decode, tokens in
+              the vocabulary, the cache at 2048 + 31; ``lm_check``: in
+              float32, decode steps 1 and 8 (``_sdpa`` over the cache)
+              against fresh prefills (the kernel) within ``LM_TOL`` of the
+              largest logit, and a 2-layer prefill on the card against the
+              CPU's plain versions within ``CPU_TOL``;
+9. kernels  — each kernel at the main path's shapes: time, plain-version
+              time, bound, and its launches on the paths above
+              (``flash_attention``: the warm ``lm_serving`` run; the fused
               kernels also at 2^20 rows, beside the time of the two ported
-              kernels they fuse).
+              kernels they fuse; ``flash_attention`` beside SDPA's time as
+              ``library_ms``).
 
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, each find_fetch and serving_stack
 phase, each tree path from build to the end of its serving loop, each leg
-of the byte-leg phase) and read just after; the phase lines carry the counts so far.  Every kernel of a path
-must have launched in it.  Any failure raises and exits
+of the byte-leg phase, each LM serving run and the LM check) and read
+just after; the phase lines carry the counts so far.  Every kernel of a
+path must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or without the rest of the repository, the script exits
 non-zero and prints no result.
 
   python3 chip_smoke.py                # n = 2**27 (the default)
-  python3 chip_smoke.py --n-log2 20    # a short compile-and-check run
+  python3 chip_smoke.py --n-log2 20    # a short run (the LM phases keep
+                                       # their full size)
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -110,9 +133,28 @@ FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
 BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
 SERVE_REQUESTS = 1 << 14
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+# Decode against prefill in float32 over 28 layers, as a share of the
+# largest logit: the decode's _sdpa and one-row products sum in another
+# order than the prefill's kernel and 513-row products (measured 6.4e-7).
+LM_TOL = 1e-5
+# Card against CPU, float32, 2 layers: rtol and atol as a share of the
+# largest logit, those of tests/test_torch_models.py (measured 1.2e-7).
+CPU_TOL = (1e-4, 2e-5)
+# flash_attention in bfloat16: one bf16 ulp of each output (ulp(x) <=
+# 2^-7 |x|; kernel and plain version round one float32 result each), plus
+# the float32 atol for outputs near 0 (measured 1.95e-3 = 2^-9, one ulp
+# of an output in [0.25, 0.5), at the prefill shape).
+BF16_TOL = (2.0 ** -7, 2e-5)
+LM_ARCH = "qwen3-1.7b"  # the LM phases' model, at full width and depth
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:  # seconds since the start, for the time budget
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -301,6 +343,296 @@ def require_launches(counts: dict, kernels, what: str) -> None:
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on {what}")
+
+
+def attention_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
+                   itemsize: int) -> tuple[float, float]:
+    """Bytes (q, k, v in, out written once) and FLOPs (QK^T and PV over the
+    key positions each row sees) of one causal attention call."""
+    pairs = sum(min(i + 1, sk) for i in range(sq))
+    return ((2 * b * sq * h * d + 2 * b * sk * kv * d) * itemsize,
+            4.0 * b * h * pairs * d)
+
+
+def flash_parity(cuda) -> list:
+    """``flash_attention`` against ``flash_attention_ref`` on the card, float32
+    matrix products in full precision (TF32 off, set here).  Tolerances:
+    float32 rtol 1e-5 / atol 2e-5 (the JAX test's own: the online softmax
+    sums in another order); bfloat16 ``BF16_TOL``, one bf16 ulp of each
+    output."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, Sq, Sk, H, KV, D, causal, dtype)
+        (2, 128, 128, 4, 2, 32, True, f32),    # tests/test_flash_and_packed.py
+        (1, 256, 256, 8, 8, 64, True, f32),
+        (2, 128, 128, 4, 1, 32, False, f32),
+        (1, 64, 64, 2, 2, 16, True, f32),
+        (2, 96, 96, 4, 4, 32, True, f32),
+        (1, 128, 128, 4, 2, 32, True, bf16),   # its bf16 case
+        (2, 64, 128, 4, 2, 32, True, f32),     # Sq != Sk
+        (2, 200, 77, 4, 2, 48, True, f32),
+        (1, 1000, 1000, 4, 2, 128, True, f32),  # a ragged length
+        (1, 300, 300, 8, 2, 256, True, f32),   # D 256
+        (1, 300, 300, 8, 2, 256, False, bf16),
+        (4, 2048, 2048, 16, 8, 128, True, bf16),  # qwen3-1.7b's prefill
+        (4, 2048, 2048, 16, 8, 128, True, f32),
+    ]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    out = []
+    for b, sq, sk, h, kv, d, causal, dtype in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                   for shape in ((b, sq, h, d), (b, sk, kv, d),
+                                 (b, sk, kv, d)))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = kref.flash_attention_ref(q, k, v, causal)
+        tol = (1e-5, 2e-5) if dtype == f32 else BF16_TOL
+        err = float((got.float() - want.float()).abs().max())
+        case = {"phase": "parity", "kernel": "flash_attention",
+                "shape": [b, sq, sk, h, kv, d], "causal": causal,
+                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                "rtol": tol[0], "atol": tol[1], "tf32": False}
+        emit(case)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                                   atol=tol[1])
+        out.append(case)
+        del q, k, v, got, want
+    return out
+
+
+def lm_serving(cuda):
+    """``serve(LM_ARCH)`` at full width in bf16 on the card, 4 prompts of
+    2048 tokens and 32 generated, twice (the first warms the libraries),
+    then once under ``torch.profiler``: times, peak memory above what
+    earlier phases hold, flash launches per step kind, and the device time
+    by kernel.
+    The decode step is wrapped to read the launch count around each call
+    and the cache position it returns; the path itself is unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.registry import get_config
+    cfg = get_config(LM_ARCH)
+    batch, prompt_len, gen = 4, 2048, 32
+    real_step = serve_mod.step_lib.make_decode_step
+    seen = {"decode_launches": 0, "pos": None}
+
+    def counted_step(cfg_, **kw):
+        step = real_step(cfg_, **kw)
+
+        def run(params, tokens, cache):
+            before = ops.launch_counts()["flash_attention"]
+            nxt, cache = step(params, tokens, cache)
+            seen["decode_launches"] += (ops.launch_counts()["flash_attention"]
+                                        - before)
+            seen["pos"] = cache["pos"]
+            return nxt, cache
+        return run
+
+    serve_mod.step_lib.make_decode_step = counted_step
+    runs = []
+    try:
+        for name in ("cold", "warm", "profiled"):
+            ops.reset_launch_counts()
+            seen.update(decode_launches=0, pos=None)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # left by earlier phases
+            # device activity only: summarizing a CPU op trace of the
+            # decode's ~10^5 ops took a minute
+            ctx = (profile(activities=[ProfilerActivity.CUDA])
+                   if name == "profiled" else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx as prof:
+                tokens, st = serve_mod.serve(
+                    LM_ARCH, smoke=False, batch=batch, prompt_len=prompt_len,
+                    gen=gen, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            flash = counts["flash_attention"]
+            row = {"phase": "lm_serving", "run": name, "arch": LM_ARCH,
+                   "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "params": cfg.param_count(), "dtype": "bfloat16",
+                   "batch": batch, "prompt_len": prompt_len, "gen": gen,
+                   **st, "wall_s": wall,
+                   "prefill_tok_s": batch * prompt_len / st["t_prefill_s"],
+                   "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                      - held) / 1e9,
+                   "held_before_gb": held / 1e9,
+                   "flash_launches_prefill": flash - seen["decode_launches"],
+                   "flash_launches_decode": seen["decode_launches"],
+                   "pos": seen["pos"], "launches": counts}
+            if prof is not None:
+                row.update(device_breakdown(
+                    prof, st["t_prefill_s"] + st["t_decode_s"]))
+            emit(row)
+            toks = tokens.cpu()
+            if (row["flash_launches_prefill"] != cfg.n_layers
+                    or seen["decode_launches"] != 0):
+                raise AssertionError(f"lm_serving: flash_attention launched "
+                                     f"{row['flash_launches_prefill']} times "
+                                     f"in the prefill (want {cfg.n_layers}) "
+                                     f"and {seen['decode_launches']} in the "
+                                     f"decode (want 0)")
+            if (toks.shape != (batch, gen) or toks.dtype != torch.int32
+                    or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab):
+                raise AssertionError("lm_serving: tokens out of the vocabulary")
+            if seen["pos"] != prompt_len + gen - 1:
+                raise AssertionError(f"lm_serving: cache pos {seen['pos']}, "
+                                     f"want {prompt_len + gen - 1}")
+            runs.append(row)
+    finally:
+        serve_mod.step_lib.make_decode_step = real_step
+    return runs
+
+
+def device_breakdown(prof, span_s: float) -> dict:
+    """Device milliseconds by kernel name (top 8) and the device's busy
+    share of ``span_s``, the prefill and decode seconds ``serve`` timed
+    (the device total also holds the few ms of parameter init)."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us:
+            rows.append((us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return {"device_ms": total,
+            "device_busy_share": total / (span_s * 1e3) if total else None,
+            "top_kernels": [{"name": k[:80], "ms": ms, "calls": c}
+                            for ms, k, c in rows[:8]]}
+
+
+def lm_check(cuda):
+    """Decode against prefill in float32 at full width, batch 2, prompt
+    512: the logits of decode step j (``_sdpa`` over the cache) against
+    the last-position logits of a fresh prefill over prompt + the j tokens
+    decoded before (the ``flash_attention`` kernel, at a ragged length);
+    then a 2-layer
+    full-width prefill on the card against the same parameters on the CPU
+    (plain versions).  Tolerances (float32 over 28 and 2 layers, sums in
+    another order on the card and the CPU): see LM_TOL and CPU_TOL."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    batch, prompt_len, steps = 2, 512, (1, 8)
+    ops.reset_launch_counts()
+    params = T.init_params(1, cfg, torch.float32, cuda)
+    rng = np.random.default_rng(21)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)).to(cuda)
+    jmax = max(steps)
+    cache = T.init_cache(cfg, batch, prompt_len + jmax + 1, torch.float32, cuda)
+    logits, cache = T.forward_prefill(params, {"tokens": prompt}, cfg, cache)
+    fed = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
+    results = []
+    for j in range(1, jmax + 1):
+        dec_logits, cache = T.forward_decode(params, fed[-1], cfg, cache)
+        if j in steps:
+            seq = torch.cat([prompt] + fed, dim=1)
+            fresh = T.init_cache(cfg, batch, seq.shape[1], torch.float32, cuda)
+            want, _ = T.forward_prefill(params, {"tokens": seq}, cfg, fresh)
+            del fresh
+            got, want = dec_logits[:, -1], want[:, -1]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            results.append({"step": j, "prefill_len": seq.shape[1],
+                            "max_abs_err": err, "max_abs_logit": scale,
+                            "rel_err": err / scale,
+                            "argmax_equal": bool(torch.equal(
+                                got.argmax(-1), want.argmax(-1)))})
+            if not torch.isfinite(got).all() or err > LM_TOL * scale:
+                raise AssertionError(f"lm_check: decode step {j} differs from "
+                                     f"the prefill by {err} (max |logit| "
+                                     f"{scale}, tolerance {LM_TOL} of it)")
+        fed.append(torch.argmax(dec_logits[:, -1], -1).to(torch.int32)[:, None])
+    counts = ops.launch_counts()
+    emit({"phase": "lm_check", "what": "decode vs prefill", "arch": LM_ARCH,
+          "dtype": "float32", "n_layers": cfg.n_layers, "batch": batch,
+          "prompt_len": prompt_len, "steps": results, "tolerance": LM_TOL,
+          "flash_launches": counts["flash_attention"]})
+    if counts["flash_attention"] != cfg.n_layers * (1 + len(steps)):
+        raise AssertionError("lm_check: every prefill layer must run "
+                             "flash_attention")
+    del cache, logits
+
+    # 2 layers of the same parameters, on the card and on the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = dict(params, layers={k: _slice_tree(v, 2)
+                              for k, v in params["layers"].items()})
+    del params
+    torch.cuda.empty_cache()
+    got, _ = T.forward_prefill(p2, {"tokens": prompt}, cfg2, T.init_cache(
+        cfg2, batch, prompt_len, torch.float32, cuda))
+    p_cpu = _to_device(p2, "cpu")
+    del p2
+    torch.cuda.empty_cache()
+    want, _ = T.forward_prefill(p_cpu, {"tokens": prompt.cpu()}, cfg2,
+                                T.init_cache(cfg2, batch, prompt_len,
+                                             torch.float32, "cpu"))
+    got = got.cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    emit({"phase": "lm_check", "what": "card vs cpu", "arch": LM_ARCH,
+          "dtype": "float32", "n_layers": 2, "batch": batch,
+          "prompt_len": prompt_len, "max_abs_err": err, "max_abs_logit": scale,
+          "rel_err": err / scale, "rtol": CPU_TOL[0], "atol_rel": CPU_TOL[1]})
+    torch.testing.assert_close(got, want, rtol=CPU_TOL[0],
+                               atol=CPU_TOL[1] * scale)
+
+
+def flash_row(cuda, cases: list) -> dict:
+    """``flash_attention`` at the prefill shape of qwen3-1.7b (bf16, B 4,
+    S 2048, H 16, KV 8, D 128, causal): its time, the plain version's, SDPA's
+    on the same inputs, and the bound (FLOPs over the bf16 tensor-core
+    peak, or bytes over the memory rate, whichever is larger)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    b, s, h, kv, d = 4, 2048, 16, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    nbytes, flops = attention_work(b, s, s, h, kv, d, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    path = [c for c in cases if c["shape"] == [b, s, s, h, kv, d]
+            and c["dtype"] == "bfloat16"]
+    return {"name": "flash_attention",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "shape": f"B={b} S={s} H={h} KV={kv} D={d} causal bf16",
+            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v)),
+            "plain_ms": cuda_ms(
+                lambda: kref.flash_attention_ref(q, k, v, True)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)),
+            "library": "torch.nn.functional.scaled_dot_product_attention"
+                       "(is_causal=True, enable_gqa=True)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": path[0]["max_abs_err"]}
+
+
+def _slice_tree(tree, n: int):
+    if isinstance(tree, torch.Tensor):
+        return tree[:n]
+    return {k: _slice_tree(v, n) for k, v in tree.items()}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _to_device(v, device) for k, v in tree.items()}
 
 
 def main() -> int:
@@ -1524,11 +1856,23 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by})
     del got, want, pt_leg, leg_ell
 
+    # ---- 9. LM serving: qwen3-1.7b prefill -> decode (flash_attention) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_start",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    flash_cases = flash_parity(cuda)
+    lm_runs = lm_serving(cuda)
+    lm_check(cuda)
+
     rows += fetch_rows
+    rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
+    # the LM's main path is one serve call: the warm run, counted from 0
+    lm_main = next(r["launches"] for r in lm_runs if r["run"] == "warm")
     paths = [dna_counts, term_counts, ff_counts, tff_counts, dna_serve_counts,
              prot_counts, prot_ff_counts, prot_serve_counts,
              tree["genome"]["counts"], tree["protein"]["counts"],
-             bl["counts"]]
+             bl["counts"], lm_main]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     kernels = []
     for row in rows:
@@ -1536,14 +1880,19 @@ def main() -> int:
                         "source": f"src/repro_torch/kernels/csrc/"
                                   f"{row['name']}.cu",
                         "replaces": row["replaces"],
-                        "launches": counts[row["name"]], "max_abs_err": 0,
+                        "launches": counts[row["name"]],
+                        "max_abs_err": row.get("max_abs_err", 0),
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": None,
+                        "bound_by": row["bound_by"],
+                        "library_ms": row.get("library_ms"),
                         "shape": row["shape"],
+                        # what the redesign queue ranks by (ROADMAP)
+                        "launch_excess_ms": counts[row["name"]]
+                        * (row["ms"] - row["bound_ms"]),
                         **{k: v for k, v in row.items()
                            if k in ("aligned_offsets_ms", "plain_note",
-                                    "two_launch_ms", "large")}})
+                                    "two_launch_ms", "large", "library")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

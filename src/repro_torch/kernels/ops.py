@@ -34,6 +34,7 @@ import os
 import torch
 
 from repro_torch.core.packing import PackedText
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kmer_histogram import kmer_histogram
 from repro_torch.kernels.lcp import lcp_pairs
 from repro_torch.kernels.packed_gather import (
@@ -64,11 +65,13 @@ KERNELS = {
     "suffix_lcp_pairs": _suffix_lcp_bytes,
     "probe_gather_words": probe_gather_words,
     "probe_gather_packed": probe_gather_packed,
+    "flash_attention": flash_attention,
 }
 
-__all__ = ["KERNELS", "kmer_histogram", "launch_counts", "lcp_pairs",
-           "pattern_probe", "pattern_probe_packed", "pattern_probe_words",
-           "probe_gather", "probe_gather_packed", "probe_gather_words",
+__all__ = ["KERNELS", "flash_attention", "kmer_histogram", "launch_counts",
+           "lcp_pairs", "pattern_probe", "pattern_probe_packed",
+           "pattern_probe_words", "probe_gather", "probe_gather_packed",
+           "probe_gather_words",
            "range_gather", "range_gather_pack", "range_gather_packed",
            "range_gather_words", "reset_launch_counts", "resolve_device",
            "suffix_lcp_pairs", "suffix_lcp_words"]

@@ -1,13 +1,17 @@
 """Plain PyTorch versions of the port's hand-written CUDA kernels.
 
-Each function here computes exactly what its kernel computes (all are
-integer kernels, so every comparison against them is exact).  The
+Each function here computes exactly what its kernel computes.  All but
+:func:`flash_attention_ref` are integer kernels, so every comparison
+against them is exact; attention sums floats in another order than its
+kernel, and its comparisons state their tolerance.  The
 kernel wrappers run them for tensors that lie on the CPU, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -180,3 +184,24 @@ def kmer_histogram_ref(s: torch.Tensor, n: int, k: int,
     for d in range(k):
         codes = codes * base + s[d:d + n].to(torch.int64)
     return torch.bincount(codes, minlength=base**k).to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """(B, Sq, H, D) attention of q (B, Sq, H, D) over k/v (B, Sk, KV, D)
+    with GQA (query head h reads KV head ``h // (H // KV)``), scale
+    1/sqrt(D), row i seeing keys j <= i when ``causal``: the einsum/softmax
+    of ``tests/test_flash_and_packed.py:ref_attn``, in float32 with the
+    mask value -1e30, cast back to ``q.dtype``."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d).to(torch.float32)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg,
+                          k.to(torch.float32)) / math.sqrt(d)
+    if causal:
+        rows = torch.arange(sq, device=q.device)
+        mask = rows[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)

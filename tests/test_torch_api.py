@@ -229,6 +229,7 @@ def test_port_imports_no_jax():
             "import repro_torch.core.analytics, repro_torch.core.suffix_tree\n"
             "import repro_torch.launch.analytics_serve\n"
             "import repro_torch.launch.serving, repro_torch.kernels.probe_gather\n"
+            "import repro_torch.launch.serve, repro_torch.models.transformer\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

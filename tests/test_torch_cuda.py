@@ -4,7 +4,7 @@ Each test carries the ``cuda`` marker and skips without an NVIDIA card
 (the kernels have no CPU mode); run them on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The file imports
 no JAX, so it also runs where only PyTorch is installed.  Tolerance:
-exact — the kernels are integer kernels.
+exact for the integer kernels; ``flash_attention`` states its own.
 """
 
 import numpy as np
@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.core.query import _pack_query_batch
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmer_histogram as tkmer
 from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
@@ -23,6 +24,9 @@ from repro_torch.kernels import probe_gather as tfused
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import suffix_lcp as tslcp
+from repro_torch.models import transformer as T
+from repro_torch.models.config import smoke_config
+from repro_torch.models.registry import get_config
 
 
 @pytest.fixture
@@ -312,3 +316,69 @@ def test_cuda_async_server_equals_sync(cuda_device, fetch):
     ranges = dev.find_batch(pats)
     for (p1, _), want in zip(sync, ranges):
         np.testing.assert_array_equal(p1, want)
+
+
+# flash_attention against its plain version on the card.  Tolerances: in
+# float32 the JAX test's own (rtol 1e-5, atol 2e-5: the online softmax sums
+# in another order), matrix products in full float32 (TF32 off, stated and
+# set here); in bfloat16 one bf16 ulp of each output (rtol 2^-7, since
+# ulp(x) <= 2^-7 |x| and both sides round one float32 result) plus the
+# float32 atol 2e-5 for outputs near 0.
+FLASH_CASES = [  # (B, Sq, Sk, H, KV, D)
+    (2, 128, 128, 4, 2, 32), (1, 256, 256, 8, 8, 64), (2, 128, 128, 4, 1, 32),
+    (1, 64, 64, 2, 2, 16), (2, 96, 96, 4, 4, 32), (1, 1000, 1000, 4, 2, 128),
+    (2, 77, 200, 4, 2, 48), (2, 200, 77, 2, 1, 256), (1, 300, 300, 8, 2, 256),
+    (1, 1, 33, 4, 4, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", FLASH_CASES)
+def test_cuda_flash_attention(cuda_device, b, sq, sk, h, kv, d, causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * 7 + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(dtype)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    launches = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == launches + 1
+    want = tref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == (b, sq, h, d)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_prefill_counts_flash(cuda_device):
+    """A smoke-width qwen3-1.7b prefill on the card launches the kernel once
+    per layer and its logits equal the CPU run's (plain versions) to the
+    float32 tolerance of tests/test_torch_models.py; the decode launches
+    none."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_config("qwen3-1.7b"))
+    params = T.init_params(0, cfg, torch.float32, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 40), dtype=np.int32))
+    want, _ = T.forward_prefill(params, {"tokens": tokens}, cfg,
+                                T.init_cache(cfg, 2, 48, torch.float32, "cpu"))
+    dev_params = _to(params, cuda_device)
+    cache = T.init_cache(cfg, 2, 48, torch.float32, cuda_device)
+    ops.reset_launch_counts()
+    got, cache = T.forward_prefill(dev_params, {"tokens": tokens.to(cuda_device)},
+                                   cfg, cache)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=2e-5 * float(want.abs().max()))
+    T.forward_decode(dev_params, tokens[:, :1].to(cuda_device), cfg, cache)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _to(v, device) for k, v in tree.items()}

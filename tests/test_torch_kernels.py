@@ -33,9 +33,11 @@ from repro.kernels.packed_gather import suffix_lcp_words as j_lcp_words
 from repro.kernels.suffix_lcp import suffix_lcp_pairs as j_suffix_lcp
 from repro.kernels.probe_gather import probe_gather_packed as j_fused_packed
 from repro.kernels.probe_gather import probe_gather_words as j_fused_words
+from repro.kernels.flash_attention import flash_attention as j_flash
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmer_histogram as tkmer
 from repro_torch.kernels import lcp as tlcp
 from repro_torch.kernels import ops
@@ -365,6 +367,9 @@ def _no_fallback_calls():
             pt, pos, words, words, pos, 16)),
         "probe_gather_packed": (tfused, lambda: tfused.probe_gather_packed(
             pt, pos, words, words, 16)),
+        "flash_attention": (tflash, lambda: tflash.flash_attention(
+            torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
+            torch.zeros((1, 8, 2, 16)))),
     }
 
 
@@ -372,7 +377,7 @@ def _no_fallback_calls():
                                     "pattern_probe", "pattern_probe_packed",
                                     "range_gather_packed", "suffix_lcp_words",
                                     "suffix_lcp_pairs", "probe_gather_words",
-                                    "probe_gather_packed"])
+                                    "probe_gather_packed", "flash_attention"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
@@ -392,7 +397,8 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
     for name in ("range_gather_pack_ref", "lcp_pairs_ref", "pattern_probe_ref",
                  "pattern_probe_packed_ref", "range_gather_packed_ref",
                  "suffix_lcp_words_ref", "suffix_lcp_pairs_ref",
-                 "probe_gather_words_ref", "probe_gather_packed_ref"):
+                 "probe_gather_words_ref", "probe_gather_packed_ref",
+                 "flash_attention_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
@@ -432,8 +438,10 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     ops.probe_gather_words(tt, offs, dense, dense, offs, 16)
     ops.probe_gather_packed(tt, offs, keys, keys, 16)
     ops.probe_gather(sp, offs, keys, keys, 16)
+    ops.flash_attention(torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 1, 16)),
+                        torch.zeros((1, 4, 1, 16)))
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 12
+    assert len(ops.KERNELS) == 13
 
 
 def test_other_devices_raise():
@@ -718,3 +726,93 @@ def test_probe_gather_wrappers_check_card_inputs(monkeypatch):
         tfused.probe_gather_packed(pt, pos, one, one, 64)
     with pytest.raises(ValueError, match="row counts"):
         tfused.probe_gather_words(pt, pos, one, one, pos[:2], 8)
+
+
+# ---- flash_attention: the plain version against the Pallas kernel ---------
+# Float tolerances: in float32 the JAX test's own (rtol 1e-5, atol 2e-5),
+# since the kernel's online softmax sums in another order than one softmax
+# over the row; in bfloat16 one bf16 ulp of each output (rtol 2^-7, since
+# ulp(x) <= 2^-7 |x| and both round an f32 result to bf16 once) plus the
+# float32 atol 2e-5 for outputs near 0.
+
+FLASH_SHAPES = [  # tests/test_flash_and_packed.py's sweep
+    (2, 128, 4, 2, 32, 32, 64, True),
+    (1, 256, 8, 8, 64, 64, 128, True),
+    (2, 128, 4, 1, 32, 64, 32, False),
+    (1, 64, 2, 2, 16, 16, 16, True),
+    (2, 96, 4, 4, 32, 32, 32, True),
+]
+
+
+def _qkv(b, sq, sk, h, kv, d, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, d)).astype(dtype),
+            rng.normal(size=(b, sk, kv, d)).astype(dtype),
+            rng.normal(size=(b, sk, kv, d)).astype(dtype))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,bq,bk,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("flip", [False, True], ids=["as_listed", "flipped"])
+def test_flash_attention_ref_matches_pallas(b, s, h, kv, d, bq, bk, causal,
+                                            flip):
+    causal = causal != flip  # each shape with both causal flags
+    q, k, v = _qkv(b, s, s, h, kv, d, seed=s * h)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, blk_q=bq, blk_k=bk, interpret=True)
+    got = tflash.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk,causal", [
+    (64, 128, 32, 64, True), (128, 64, 32, 32, True), (64, 128, 64, 32, False),
+])
+def test_flash_attention_ref_uneven_lengths(sq, sk, bq, bk, causal):
+    """Sq != Sk where the Pallas kernel takes it: row i sees keys j <= i,
+    both counted from 0."""
+    q, k, v = _qkv(2, sq, sk, 4, 2, 32, seed=sq + sk)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, blk_q=bq, blk_k=bk, interpret=True)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_ref_bf16():
+    """tests/test_flash_and_packed.py::test_bf16's case, output in bf16."""
+    q, k, v = _qkv(1, 128, 128, 4, 2, 32, seed=1)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(j_flash(jq, jk, jv, blk_q=32, blk_k=64, interpret=True),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (jq, jk, jv))
+    got = tflash.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=2e-5)
+
+
+def test_flash_attention_checks_card_inputs(monkeypatch):
+    """The checks a card call makes before any build or launch."""
+    monkeypatch.setattr(tflash, "_on_cpu", lambda *tensors: False)
+    q, k = torch.zeros((1, 8, 4, 24)), torch.zeros((1, 8, 2, 24))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tflash.flash_attention(q, k, k)
+    q, k = torch.zeros((1, 8, 4, 272)), torch.zeros((1, 8, 2, 272))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tflash.flash_attention(q, k, k)
+    q, k = torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="float32 or all"):
+        tflash.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="float32 or all"):
+        tflash.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, k)
+    with pytest.raises(ValueError, match="Sq, Sk >= 1"):
+        tflash.flash_attention(q[:, :0], k, k)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        tflash.flash_attention(torch.zeros((1, 8, 3, 16)), k, k)
