@@ -27,7 +27,8 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   smoke=False)``: all 28 layers at full width (d_model 2048, 16 query and
   8 KV heads of width 128, vocab 151,936; random weights from a seed) in
   bf16, prefilling 4 prompts of 2048 tokens through the hand-written
-  ``flash_attention`` kernel, then decoding 32 tokens greedily.
+  ``flash_attention`` kernel (its bf16 design, ``wgmma_tma``: tensor-core
+  tiles fed by TMA), then decoding 32 tokens greedily.
 
 Phases, each printing one JSON line:
 
@@ -55,10 +56,12 @@ Phases, each printing one JSON line:
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
 8. LM       — ``parity`` of ``flash_attention`` against its plain version
-              (float32 rtol 1e-5 / atol 2e-5 with TF32 off; bf16 one
-              bf16 ulp of the output, rtol 2^-7 / atol 2e-5),
-              on the JAX test's shapes, Sq != Sk, a ragged length, D 256
-              and the prefill shape; ``lm_serving``: ``serve`` three times
+              (float32 rtol 1e-5 / atol 2e-5 with TF32 off, the
+              ``cuda_cores`` design; bf16 one bf16 ulp of the output, rtol
+              2^-7 / atol 2e-5, the ``wgmma_tma`` design), on the JAX
+              test's shapes, Sq != Sk, ragged lengths, D 16 to 256, GQA
+              groups 1 to 8, q x 8 and the prefill shape; each case's
+              design is checked; ``lm_serving``: ``serve`` three times
               (cold, warm, under ``torch.profiler``) with 28 kernel
               launches in each prefill and none in the decode, tokens in
               the vocabulary, the cache at 2048 + 31; ``lm_check``: in
@@ -71,7 +74,10 @@ Phases, each printing one JSON line:
               (``flash_attention``: the warm ``lm_serving`` run; the fused
               kernels also at 2^20 rows, beside the time of the two ported
               kernels they fuse; ``flash_attention`` beside SDPA's time as
-              ``library_ms``).
+              ``library_ms``, with its bf16 ``design``;
+              ``range_gather_pack`` with the rows and key words its
+              counted launches gathered, the excess weighted by those
+              rows, and the gather on sorted positions beside the sort).
 
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, each find_fetch and serving_stack
@@ -345,6 +351,16 @@ def require_launches(counts: dict, kernels, what: str) -> None:
             raise AssertionError(f"{name} was never launched on {what}")
 
 
+def counts_now() -> dict:
+    """``ops.launch_counts()`` plus the rows and key words that
+    ``range_gather_pack``'s counted launches gathered (its time scales with
+    them, so ROADMAP queue B ranks it by them, not by launches alone)."""
+    from repro_torch.kernels import ops
+    return {**ops.launch_counts(),
+            "range_gather_pack_rows": ops.range_gather_pack.rows,
+            "range_gather_pack_words": ops.range_gather_pack.words}
+
+
 def attention_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
                    itemsize: int) -> tuple[float, float]:
     """Bytes (q, k, v in, out written once) and FLOPs (QK^T and PV over the
@@ -359,13 +375,13 @@ def flash_parity(cuda) -> list:
     matrix products in full precision (TF32 off, set here).  Tolerances:
     float32 rtol 1e-5 / atol 2e-5 (the JAX test's own: the online softmax
     sums in another order); bfloat16 ``BF16_TOL``, one bf16 ulp of each
-    output."""
+    output.  A case with a ninth field scales q by it before the cast."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (B, Sq, Sk, H, KV, D, causal, dtype)
+    cases = [  # (B, Sq, Sk, H, KV, D, causal, dtype[, q scale])
         (2, 128, 128, 4, 2, 32, True, f32),    # tests/test_flash_and_packed.py
         (1, 256, 256, 8, 8, 64, True, f32),
         (2, 128, 128, 4, 1, 32, False, f32),
@@ -377,23 +393,46 @@ def flash_parity(cuda) -> list:
         (1, 1000, 1000, 4, 2, 128, True, f32),  # a ragged length
         (1, 300, 300, 8, 2, 256, True, f32),   # D 256
         (1, 300, 300, 8, 2, 256, False, bf16),
+        # the edges of the bf16 wgmma + TMA kernel's 64-row, 64-key and
+        # 64-column tiles and of its two warpgroups
+        (1, 192, 192, 4, 4, 128, True, bf16),  # GQA group 1
+        (2, 160, 160, 8, 2, 64, True, bf16),   # group 4
+        (1, 256, 256, 8, 1, 128, True, bf16),  # group 8
+        (2, 100, 100, 4, 2, 16, True, bf16),   # D 16
+        (1, 130, 130, 4, 2, 48, False, bf16),  # D 48
+        (2, 150, 150, 4, 2, 80, True, bf16),   # D 80
+        (1, 300, 300, 8, 2, 256, True, bf16),  # D 256
+        (2, 1, 300, 8, 2, 128, True, bf16),    # Sq 1
+        (1, 1000, 1000, 4, 2, 128, True, bf16),  # Sq not a multiple of 64
+        (2, 50, 40, 4, 2, 64, True, bf16),     # Sk < 64
+        (1, 65, 300, 4, 2, 128, True, bf16),   # Sq < Sk
+        (1, 300, 65, 4, 2, 128, True, bf16),   # Sq > Sk
+        (2, 300, 300, 8, 2, 128, True, bf16, 8.0),  # q x 8: the max moves
         (4, 2048, 2048, 16, 8, 128, True, bf16),  # qwen3-1.7b's prefill
         (4, 2048, 2048, 16, 8, 128, True, f32),
     ]
     gen = torch.Generator(device=cuda).manual_seed(5)
     out = []
-    for b, sq, sk, h, kv, d, causal, dtype in cases:
-        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    for b, sq, sk, h, kv, d, causal, dtype, *q_scale in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda)
                    for shape in ((b, sq, h, d), (b, sk, kv, d),
                                  (b, sk, kv, d)))
+        if q_scale:
+            q = q * q_scale[0]
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        design = ops.flash_attention.route
+        if design != ("wgmma_tma" if dtype == bf16 else "cuda_cores"):
+            raise AssertionError(f"flash_attention ran {design} for {dtype}")
         want = kref.flash_attention_ref(q, k, v, causal)
         tol = (1e-5, 2e-5) if dtype == f32 else BF16_TOL
         err = float((got.float() - want.float()).abs().max())
         case = {"phase": "parity", "kernel": "flash_attention",
                 "shape": [b, sq, sk, h, kv, d], "causal": causal,
-                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                "dtype": str(dtype).replace("torch.", ""), "design": design,
+                "q_scale": q_scale[0] if q_scale else 1.0,
+                "max_abs_err": err,
                 "rtol": tol[0], "atol": tol[1], "tf32": False}
         emit(case)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
@@ -452,7 +491,7 @@ def lm_serving(cuda):
                     gen=gen, dtype=torch.bfloat16)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
+            counts = counts_now()
             flash = counts["flash_attention"]
             row = {"phase": "lm_serving", "run": name, "arch": LM_ARCH,
                    "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -465,6 +504,7 @@ def lm_serving(cuda):
                    "held_before_gb": held / 1e9,
                    "flash_launches_prefill": flash - seen["decode_launches"],
                    "flash_launches_decode": seen["decode_launches"],
+                   "flash_design": ops.flash_attention.route,
                    "pos": seen["pos"], "launches": counts}
             if prof is not None:
                 row.update(device_breakdown(
@@ -472,12 +512,15 @@ def lm_serving(cuda):
             emit(row)
             toks = tokens.cpu()
             if (row["flash_launches_prefill"] != cfg.n_layers
-                    or seen["decode_launches"] != 0):
+                    or seen["decode_launches"] != 0
+                    or row["flash_design"] != "wgmma_tma"):
                 raise AssertionError(f"lm_serving: flash_attention launched "
                                      f"{row['flash_launches_prefill']} times "
                                      f"in the prefill (want {cfg.n_layers}) "
                                      f"and {seen['decode_launches']} in the "
-                                     f"decode (want 0)")
+                                     f"decode (want 0), the last through "
+                                     f"{row['flash_design']} (want "
+                                     f"wgmma_tma)")
             if (toks.shape != (batch, gen) or toks.dtype != torch.int32
                     or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab):
                 raise AssertionError("lm_serving: tokens out of the vocabulary")
@@ -554,7 +597,7 @@ def lm_check(cuda):
                                      f"the prefill by {err} (max |logit| "
                                      f"{scale}, tolerance {LM_TOL} of it)")
         fed.append(torch.argmax(dec_logits[:, -1], -1).to(torch.int32)[:, None])
-    counts = ops.launch_counts()
+    counts = counts_now()
     emit({"phase": "lm_check", "what": "decode vs prefill", "arch": LM_ARCH,
           "dtype": "float32", "n_layers": cfg.n_layers, "batch": batch,
           "prompt_len": prompt_len, "steps": results, "tolerance": LM_TOL,
@@ -607,15 +650,22 @@ def flash_row(cuda, cases: list) -> dict:
     t_ops = flops / BF16_FLOPS * 1e3
     path = [c for c in cases if c["shape"] == [b, s, s, h, kv, d]
             and c["dtype"] == "bfloat16"]
+    # 10 back-to-back calls a window: the wrapper's host work (three
+    # tensor-map encodes) overlaps the device, as in the prefill
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), inner=10)
+    if ops.flash_attention.route != "wgmma_tma":
+        raise AssertionError("bf16 flash_attention did not run wgmma_tma")
     return {"name": "flash_attention",
             "replaces": "src/repro/kernels/flash_attention.py:73",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "design": "wgmma_tma",
             "shape": f"B={b} S={s} H={h} KV={kv} D={d} causal bf16",
-            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v)),
+            "ms": ms,
             "plain_ms": cuda_ms(
                 lambda: kref.flash_attention_ref(q, k, v, True)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)),
+                is_causal=True, enable_gqa=True), inner=10),
             "library": "torch.nn.functional.scaled_dot_product_attention"
                        "(is_causal=True, enable_gqa=True)",
             "bound_ms": max(t_bytes, t_ops),
@@ -948,7 +998,7 @@ def main() -> int:
                       "warm_pass_s": t_warm, "warm_pass_host": warm.host_ms(),
                       **busy, "sync_free_dispatch": True,
                       "equal_to_find_batch": True})
-        counts = ops.launch_counts()
+        counts = counts_now()
         emit({"phase": "serving_stack", "dataset": name, "launches": counts})
         return counts
     # ---- 1. device --------------------------------------------------------
@@ -1239,7 +1289,7 @@ def main() -> int:
     dev = EraIndexer(alpha, cfg).build_device(s, report)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    after_build = ops.launch_counts()
+    after_build = counts_now()
     emit({"phase": "build", "dataset": "genome", "n": n,
           "memory_bytes": cfg.memory_bytes, "f_max": cfg.f_max,
           "t_total_s": t_build, "t_vertical_s": report.t_vertical,
@@ -1259,11 +1309,11 @@ def main() -> int:
                          planted_frac=0.7, n_symbols=len(alpha.symbols))
     emit({"phase": "check", "dataset": "genome",
           **check_index(dev, s, s_dev, pats, "genome"),
-          "launches": ops.launch_counts()})
+          "launches": counts_now()})
     stats = serve_index(dev, s, alpha, np.random.default_rng(1),
                         batch=256, iters=20, min_len=4, max_len=24,
                         planted_frac=0.7)
-    dna_counts = ops.launch_counts()
+    dna_counts = counts_now()
     emit({"phase": "serving", "dataset": "genome", **stats,
           "launches": dna_counts})
     require_launches(dna_counts, DNA_KERNELS, "the DNA path")
@@ -1281,7 +1331,7 @@ def main() -> int:
                            planted_frac=0.7, n_symbols=len(alpha.symbols))
     ops.reset_launch_counts()
     term_check = check_index(dev, s, s_dev, tpats, "genome terminal batch")
-    term_counts = ops.launch_counts()
+    term_counts = counts_now()
     emit({"phase": "check", "dataset": "genome", "batch": "terminal-bearing",
           **term_check, "launches": term_counts})
     require_launches(term_counts, TERMINAL_KERNELS, "the terminal batch")
@@ -1294,7 +1344,7 @@ def main() -> int:
                             planted_frac=0.7, n_symbols=len(alpha.symbols))
     ops.reset_launch_counts()
     ff_check = check_find_fetch(dev, s_dev, ff_pats, "genome find_fetch")
-    ff_counts = ops.launch_counts()
+    ff_counts = counts_now()
     emit({"phase": "find_fetch", "dataset": "genome", **ff_check,
           "launches": ff_counts})
     require_fetch(ff_counts, "genome", "the genome find-and-fetch path")
@@ -1302,7 +1352,7 @@ def main() -> int:
           "batch": len(ff_pats), **fetch_latency(dev, ff_pats)})
     ops.reset_launch_counts()
     ff_check = check_find_fetch(dev, s_dev, tpats, "genome terminal fetch")
-    tff_counts = ops.launch_counts()
+    tff_counts = counts_now()
     emit({"phase": "find_fetch", "dataset": "genome",
           "batch": "terminal-bearing", **ff_check, "launches": tff_counts})
     require_fetch(tff_counts, "terminal", "the terminal-bearing fetch")
@@ -1433,7 +1483,7 @@ def main() -> int:
     dev = EraIndexer(protein, cfg).build_device(s, report)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    after_build = ops.launch_counts()
+    after_build = counts_now()
     emit({"phase": "build", "dataset": "protein", "n": n,
           "memory_bytes": cfg.memory_bytes, "f_max": cfg.f_max,
           "t_total_s": t_build, "t_vertical_s": report.t_vertical,
@@ -1457,11 +1507,11 @@ def main() -> int:
                          planted_frac=0.7, n_symbols=len(protein.symbols))
     emit({"phase": "check", "dataset": "protein",
           **check_index(dev, s, s_dev, pats, "protein"),
-          "launches": ops.launch_counts()})
+          "launches": counts_now()})
     stats = serve_index(dev, s, protein, np.random.default_rng(1),
                         batch=256, iters=20, min_len=4, max_len=24,
                         planted_frac=0.7)
-    prot_counts = ops.launch_counts()
+    prot_counts = counts_now()
     emit({"phase": "serving", "dataset": "protein", **stats,
           "launches": prot_counts})
     require_launches(prot_counts, PROTEIN_KERNELS, "the protein path")
@@ -1471,7 +1521,7 @@ def main() -> int:
                             planted_frac=0.7, n_symbols=len(protein.symbols))
     ops.reset_launch_counts()
     ff_check = check_find_fetch(dev, s_dev, ff_pats, "protein find_fetch")
-    prot_ff_counts = ops.launch_counts()
+    prot_ff_counts = counts_now()
     emit({"phase": "find_fetch", "dataset": "protein", **ff_check,
           "launches": prot_ff_counts})
     require_fetch(prot_ff_counts, "protein", "the protein find-and-fetch path")
@@ -1495,14 +1545,21 @@ def main() -> int:
     ell_aligned = ell & ~3
     rows.append({"name": "range_gather_pack",
                  "replaces": "src/repro/kernels/range_gather.py:44",
-                 "shape": f"rows={ell.shape[0]} w=4",
+                 "shape": f"rows={ell.shape[0]} w=4", "rows": ell.shape[0],
                  "ms": cuda_ms(lambda: ops.range_gather_pack(sp, ell, 4)),
                  "plain_ms": cuda_ms(
                      lambda: kref.range_gather_pack_ref(sp, ell, 4), reps=3),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "aligned_offsets_ms": cuda_ms(
                      lambda: ops.range_gather_pack(sp, ell_aligned, 4))})
-    del ell_aligned
+    # the untried fix of ROADMAP queue B: sort the positions first (the
+    # gather on sorted rows, and the sort itself with its permutation)
+    ell_sorted = torch.sort(ell).values
+    rows[-1].update(
+        sorted_offsets_ms=cuda_ms(
+            lambda: ops.range_gather_pack(sp, ell_sorted, 4)),
+        sort_ms=cuda_ms(lambda: torch.sort(ell), reps=3))
+    del ell_aligned, ell_sorted
     keys = got
     prev = torch.cat([keys[:1], keys[:-1]]).contiguous()
     del want
@@ -1567,7 +1624,7 @@ def main() -> int:
               "groups": report.n_groups, "prefixes": report.n_prefixes,
               "n_leaves": index.n_leaves, "n_internal": index.n_internal,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "launches": ops.launch_counts()})
+              "launches": counts_now()})
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         eng = index.analytics()
@@ -1577,11 +1634,11 @@ def main() -> int:
               "n_subtrees": eng.dev.n_subtrees, "levels": eng.vals.shape[0],
               "table_bytes": eng.vals.numel() * 4 + eng.vals_rev.numel() * 4,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "launches": ops.launch_counts()})
+              "launches": counts_now()})
         stats = serve_engine(eng, sx, ax, np.random.default_rng(1),
                              batch=512, iters=20, window=64,
                              planted_frac=0.7)
-        counts = ops.launch_counts()
+        counts = counts_now()
         emit({"phase": "analytics_serving", "dataset": name, **stats,
               "launches": counts})
         require_launches(counts, TREE_KERNELS[name], f"the {name} tree path")
@@ -1806,7 +1863,7 @@ def main() -> int:
             legs[leg] = {"ell": dev.ell.cpu().numpy(), "found": found,
                          "fetched": fetched,
                          "lcp": eng.lcp_host, "ms": ms_leg,
-                         "counts": ops.launch_counts(), "t_build_s": t_leg}
+                         "counts": counts_now(), "t_build_s": t_leg}
             if leg == "byte":
                 leg_ell = dev.ell
             del dev, eng
@@ -1874,11 +1931,19 @@ def main() -> int:
              tree["genome"]["counts"], tree["protein"]["counts"],
              bl["counts"], lm_main]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
+    gathered = {k: sum(c.get(f"range_gather_pack_{k}", 0) for c in paths)
+                for k in ("rows", "words")}
+    for row in rows:  # its excess from the rows its launches read
+        if row["name"] == "range_gather_pack":
+            row.update(rows_gathered=gathered["rows"],
+                       words_gathered=gathered["words"],
+                       row_weighted_excess_ms=gathered["rows"] / row["rows"]
+                       * (row["ms"] - row["bound_ms"]))
     kernels = []
     for row in rows:
         kernels.append({"name": row["name"], "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/"
-                                  f"{row['name']}.cu",
+                        "source": row.get("source", f"src/repro_torch/kernels/"
+                                                    f"csrc/{row['name']}.cu"),
                         "replaces": row["replaces"],
                         "launches": counts[row["name"]],
                         "max_abs_err": row.get("max_abs_err", 0),
@@ -1892,7 +1957,11 @@ def main() -> int:
                         * (row["ms"] - row["bound_ms"]),
                         **{k: v for k, v in row.items()
                            if k in ("aligned_offsets_ms", "plain_note",
-                                    "two_launch_ms", "large", "library")}})
+                                    "two_launch_ms", "large", "library",
+                                    "design", "sorted_offsets_ms",
+                                    "sort_ms", "rows_gathered",
+                                    "words_gathered",
+                                    "row_weighted_excess_ms")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

@@ -25,7 +25,7 @@ SOURCES = ("range_gather_words", "pattern_probe_words", "kmer_histogram",
            "range_gather_pack", "lcp_pairs", "pattern_probe",
            "pattern_probe_packed", "range_gather_packed", "suffix_lcp_words",
            "suffix_lcp_pairs", "probe_gather_words", "probe_gather_packed",
-           "flash_attention")
+           "flash_attention", "flash_attention_sm90")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,10 +1,12 @@
-// flash_attention: causal (or full) online-softmax attention with GQA.
-// q (B, Sq, H, D), k/v (B, Sk, KV, D), all float32 or all bfloat16,
-// contiguous; out (B, Sq, H, D) in q's type.  Query head h reads KV head
-// h / (H / KV); the scale is 1/sqrt(D); with `causal`, row i sees keys
-// j <= i, both counted from 0 (also for Sq != Sk).  Sums, the running max
-// and the denominator are float32; out = acc / max(l, 1e-30), so a row
-// with no visible key gives 0.
+// flash_attention: causal (or full) online-softmax attention with GQA, the
+// float32 route on the CUDA cores.  q (B, Sq, H, D), k/v (B, Sk, KV, D),
+// all float32, contiguous; out (B, Sq, H, D) float32.  Query head h reads
+// KV head h / (H / KV); the scale is 1/sqrt(D); with `causal`, row i sees
+// keys j <= i, both counted from 0 (also for Sq != Sk).  Sums, the running
+// max and the denominator are float32; out = acc / max(l, 1e-30), so a
+// row with no visible key gives 0.  bfloat16 inputs run
+// flash_attention_sm90.cu (wgmma tiles fed by TMA); the wrapper routes by
+// dtype.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:flash_attention
 // (body `_kernel` at :31, pallas_call at :94), which walks (blk_q, blk_k)
@@ -24,15 +26,11 @@
 // correction and p then cost one value per lane, and p is broadcast key
 // by key for acc += p * v.
 //
-// Bound on the H100: operations.  At the prefill shape of qwen3-1.7b
-// (B 4, S 2048, H 16, KV 8, D 128, causal) one call is 4*B*H*S^2*D/2 =
-// 68.7 GFLOP against < 0.1 GB of inputs and output: 0.07 ms at the
-// 989 TFLOP/s bf16 tensor-core peak.  This kernel runs on the CUDA cores
-// in float32 (67 TFLOP/s at best, so >= 1 ms) and reads every K/V tile
-// from shared memory once per warp; wgmma tiles fed by TMA, and sharing a
-// K/V tile across the query heads of a GQA group, are left to a later
-// redesign.
-#include <cuda_bf16.h>
+// Bound on the H100: operations.  Attention in float32 has no tensor-core
+// route as exact as the plain version's full-float32 products, so this
+// kernel runs on the CUDA cores (67 TFLOP/s at best): it serves the
+// float32 checks (the LM's float32 prefill, the parity cases), not the
+// bf16 serving path.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,13 +43,7 @@ constexpr int BK = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // One step of the transpose-reduction over a warp: the lane keeps the
 // half of its OFF-wide block of partial sums that its bit OFF selects and
@@ -233,18 +225,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// bf16: 1 for bfloat16 tensors, 0 for float32.  Shapes as in the header;
-// d a multiple of 16 in [16, 256], h a multiple of kvh (the wrapper checks).
+// float32 tensors; shapes as in the header, d a multiple of 16 in
+// [16, 256], h a multiple of kvh (the wrapper checks).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int sq, int sk, int h, int kvh,
-                               int d, int causal, int bf16, float scale,
-                               void* stream) {
+                               int d, int causal, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || kvh <= 0 || h % kvh != 0 || d < 16 ||
       d > 256 || d % 16 != 0 || b > 65535 || h > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, d,
-                                        causal, scale, s)
-              : dispatch<float>(q, k, v, o, b, sq, sk, h, kvh, d, causal,
-                                scale, s);
+  return dispatch<float>(q, k, v, o, b, sq, sk, h, kvh, d, causal, scale,
+                         (cudaStream_t)stream);
 }

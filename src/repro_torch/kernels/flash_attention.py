@@ -1,11 +1,17 @@
-"""Wrapper of the flash-attention CUDA kernel (the LM prefill's attention).
+"""Wrapper of the flash-attention CUDA kernels (the LM prefill's attention).
 
-:func:`flash_attention` runs ``csrc/flash_attention.cu``, the port of
-``repro/kernels/flash_attention.py:flash_attention``, for CUDA tensors and
-the plain version (:func:`repro_torch.kernels.ref.flash_attention_ref`)
-for CPU tensors.  It keeps the JAX layout and flag; the Pallas kernel's
-``blk_q``/``blk_k`` were TPU tiling, and the CUDA kernel picks its own
-tiles.  Launches are counted in ``flash_attention.launches``.
+:func:`flash_attention` is the port of
+``repro/kernels/flash_attention.py:flash_attention``.  For CUDA tensors it
+runs one of two hand-written kernels, chosen by dtype (:data:`ROUTES`):
+bfloat16 runs ``csrc/flash_attention_sm90.cu`` (design ``wgmma_tma``:
+tensor-core tiles fed by TMA), float32 runs ``csrc/flash_attention.cu``
+(design ``cuda_cores``).  Neither gives way to the other or to the plain
+version: a failed build or launch raises.  CPU tensors run the plain
+version (:func:`repro_torch.kernels.ref.flash_attention_ref`).  It keeps
+the JAX layout and flag; the Pallas kernel's ``blk_q``/``blk_k`` were TPU
+tiling, and the CUDA kernels pick their own tiles.  Launches of both
+routes are counted in ``flash_attention.launches``, and
+``flash_attention.route`` names the design of the last launch.
 """
 
 from __future__ import annotations
@@ -21,7 +27,11 @@ from repro_torch.kernels.packed_gather import _on_cpu, _stream
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
-_DTYPES = (torch.float32, torch.bfloat16)
+# dtype -> (design, C entry point = library name in csrc/)
+ROUTES = {torch.bfloat16: ("wgmma_tma", "flash_attention_sm90"),
+          torch.float32: ("cuda_cores", "flash_attention")}
+_SIG = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+        ctypes.c_float, _P]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -32,7 +42,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row i sees keys j <= i, both counted from 0 (also when Sq != Sk).
 
     On the card the inputs must be contiguous, all float32 or all
-    bfloat16, with D a multiple of 16 up to 256 and Sq, Sk >= 1.
+    bfloat16, with D a multiple of 16 up to 256 and Sq, Sk >= 1.  bfloat16
+    runs the ``wgmma_tma`` kernel (inputs not 16-byte aligned, as a view
+    at an odd offset can be, are copied first for its TMA loads); float32
+    runs the ``cuda_cores`` kernel.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention needs q (B, Sq, H, D) and k, v "
@@ -48,7 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"flash_attention takes head widths that are a "
                          f"multiple of 16 up to 256, got D={d}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention needs q, k, v all float32 or all "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -57,18 +70,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(b, sq, sk) < 1 or max(b, h) > 65535:
         raise ValueError(f"flash_attention needs 1 <= B, H <= 65535 and "
                          f"Sq, Sk >= 1, got {tuple(q.shape)}, {tuple(k.shape)}")
+    design, lib = ROUTES[q.dtype]
+    scale = 1.0 / math.sqrt(d)
+    if design == "wgmma_tma":
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+        scale *= math.log2(math.e)  # the kernel takes exp2
     out = torch.empty_like(q)
-    fn = _build.entry("flash_attention",
-                      [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
-                       _I32, _I32, ctypes.c_float, _P])
+    fn = _build.entry(lib, _SIG)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                sq, sk, h, kvh, d, int(causal),
-                int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
-                _stream(q.device))
-    _build.check(rc, "flash_attention")
+                sq, sk, h, kvh, d, int(causal), scale, _stream(q.device))
+    _build.check(rc, lib)
     flash_attention.launches += 1
+    flash_attention.route = design
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route = None

@@ -83,8 +83,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count (and ``range_gather_pack``'s row tallies)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    range_gather_pack.rows = range_gather_pack.words = 0
 
 
 def resolve_device(device) -> torch.device:

@@ -3,7 +3,10 @@
 :func:`range_gather_pack` runs ``csrc/range_gather_pack.cu``, the port of
 ``repro/kernels/range_gather.py:range_gather_pack``, for CUDA tensors and
 the plain version (:func:`repro_torch.kernels.ref.range_gather_pack_ref`)
-for CPU tensors.  Launches are counted in ``range_gather_pack.launches``.
+for CPU tensors.  Launches are counted in ``range_gather_pack.launches``,
+and the rows and key words they gathered in ``range_gather_pack.rows``
+and ``range_gather_pack.words`` (the kernel's time scales with them, so a
+launch count alone does not say what the launches cost).
 """
 
 from __future__ import annotations
@@ -57,7 +60,11 @@ def range_gather_pack(s_padded: torch.Tensor, offs: torch.Tensor,
                 nw, out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_pack")
     range_gather_pack.launches += 1
+    range_gather_pack.rows += f
+    range_gather_pack.words += f * nw
     return out
 
 
 range_gather_pack.launches = 0
+range_gather_pack.rows = 0
+range_gather_pack.words = 0

@@ -217,8 +217,13 @@ def attention(
              and not bidirectional and (is_global or window <= 0))
     if cache is not None:
         k_cache, v_cache = cache
-        k_cache[:, cache_index:cache_index + sq] = k.to(k_cache.dtype)
-        v_cache[:, cache_index:cache_index + sq] = v.to(v_cache.dtype)
+        # the start clamped as jax.lax.dynamic_update_slice clamps it: a
+        # write past the end overwrites the last sq slots (a prompt longer
+        # than the cache still fails on the shapes); the mask below is not
+        # clamped, as in the JAX package
+        start = max(0, min(cache_index, k_cache.shape[1] - sq))
+        k_cache[:, start:start + sq] = k.to(k_cache.dtype)
+        v_cache[:, start:start + sq] = v.to(v_cache.dtype)
         new_cache = (k_cache, v_cache)
         if flash:  # the keys as cached, in the compute dtype
             out = ops.flash_attention(

@@ -98,9 +98,14 @@ def test_cuda_range_gather_pack(cuda_device, alpha):
                          device=cuda_device)
     offs[-300:] = torch.arange(sp.shape[0] - 300, sp.shape[0],
                                dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
     for w in (4, 16, 64, 256):
         got = trg.range_gather_pack(sp, offs, w)
         assert torch.equal(got, tref.range_gather_pack_ref(sp, offs, w))
+    # the tallies the redesign queue ranks the kernel by
+    assert trg.range_gather_pack.launches == 4
+    assert trg.range_gather_pack.rows == 4 * 4096
+    assert trg.range_gather_pack.words == 4096 * (1 + 4 + 16 + 64)
 
 
 @pytest.mark.cuda
@@ -329,6 +334,18 @@ FLASH_CASES = [  # (B, Sq, Sk, H, KV, D)
     (1, 64, 64, 2, 2, 16), (2, 96, 96, 4, 4, 32), (1, 1000, 1000, 4, 2, 128),
     (2, 77, 200, 4, 2, 48), (2, 200, 77, 2, 1, 256), (1, 300, 300, 8, 2, 256),
     (1, 1, 33, 4, 4, 16),
+    # the edges of the bf16 wgmma + TMA kernel's tiles (64 rows, 64 keys,
+    # 64 columns of D, two warpgroups on a GQA pair or on one head)
+    (1, 192, 192, 4, 4, 128),  # GQA group 1: two row tiles of one head
+    (2, 160, 160, 8, 2, 64),   # group 4
+    (1, 256, 256, 8, 1, 128),  # group 8
+    (2, 100, 100, 4, 2, 16),   # D 16
+    (1, 130, 130, 4, 2, 48),   # D 48
+    (2, 150, 150, 4, 2, 80),   # D 80
+    (2, 1, 300, 8, 2, 128),    # Sq 1
+    (2, 50, 40, 4, 2, 64),     # Sk < 64
+    (1, 65, 300, 4, 2, 128),   # Sq < Sk
+    (1, 300, 65, 4, 2, 128),   # Sq > Sk
 ]
 
 
@@ -351,6 +368,48 @@ def test_cuda_flash_attention(cuda_device, b, sq, sk, h, kv, d, causal, dtype):
     assert got.dtype == dtype and got.shape == (b, sq, h, d)
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 300, 300, 8, 2, 128, True), (1, 130, 200, 4, 4, 64, False),
+    (1, 200, 200, 4, 1, 256, True)])
+def test_cuda_flash_attention_moving_max(cuda_device, b, sq, sk, h, kv, d,
+                                         causal):
+    """bf16 with q scaled x8: scores of ~+-90, so the running max moves a
+    long way between key tiles and the rescaling of the accumulator is
+    exercised; the same bf16 tolerance as above."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    q, k, v = (q * 8).bfloat16(), k.bfloat16(), v.bfloat16()
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_routes(cuda_device):
+    """bf16 reaches the wgmma + TMA kernel and float32 the CUDA-core one;
+    both count as launches of ``flash_attention``."""
+    q = torch.randn((1, 70, 4, 64), device=cuda_device)
+    k = torch.randn((1, 70, 2, 64), device=cuda_device)
+    for dtype, design in ((torch.bfloat16, "wgmma_tma"),
+                          (torch.float32, "cuda_cores")):
+        launches = tflash.flash_attention.launches
+        tflash.flash_attention(q.to(dtype), k.to(dtype), k.to(dtype))
+        torch.cuda.synchronize()
+        assert tflash.flash_attention.route == design
+        assert tflash.flash_attention.launches == launches + 1
+    # a bf16 view at an offset that is not 16-byte aligned is copied for
+    # the kernel's TMA loads and gives the same result
+    flat = torch.randn(70 * 4 * 64 + 1, device=cuda_device).bfloat16()
+    q_odd = flat[1:].view(1, 70, 4, 64)
+    got = tflash.flash_attention(q_odd, k.bfloat16(), k.bfloat16())
+    want = tflash.flash_attention(q_odd.clone(), k.bfloat16(), k.bfloat16())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -444,6 +444,19 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     assert len(ops.KERNELS) == 13
 
 
+def test_reset_clears_range_gather_pack_tallies(monkeypatch):
+    """``reset_launch_counts`` also zeroes the rows and key words that
+    ``range_gather_pack``'s launches gathered, which CPU calls never add
+    to."""
+    monkeypatch.setattr(trg.range_gather_pack, "rows", 7)
+    monkeypatch.setattr(trg.range_gather_pack, "words", 21)
+    ops.reset_launch_counts()
+    assert (trg.range_gather_pack.rows, trg.range_gather_pack.words) == (0, 0)
+    sp = torch.from_numpy(DNA.pad_string(DNA.random_string(100, seed=1), 24))
+    ops.range_gather_pack(sp, torch.arange(0, 90, 3, dtype=torch.int32), 16)
+    assert (trg.range_gather_pack.rows, trg.range_gather_pack.words) == (0, 0)
+
+
 def test_other_devices_raise():
     s, jt, tt = _texts(DNA, 100, 24, seed=4)
     meta = torch.empty(4, dtype=torch.int32, device="meta")
@@ -793,6 +806,40 @@ def test_flash_attention_ref_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,design,lib", [
+    (torch.bfloat16, "wgmma_tma", "flash_attention_sm90"),
+    (torch.float32, "cuda_cores", "flash_attention")], ids=["bf16", "f32"])
+def test_flash_attention_routes_by_dtype(monkeypatch, dtype, design, lib):
+    """A card call asks for the entry point of its dtype's design (bf16:
+    the wgmma + TMA kernel) and nothing else: when that entry point is
+    missing the call raises, with no other kernel, no plain version and
+    no launch counted."""
+    assert tflash.ROUTES[dtype] == (design, lib)
+    assert lib in _build.SOURCES
+    assert (_build.CSRC / f"{lib}.cu").exists()
+    monkeypatch.setattr(tflash, "_on_cpu", lambda *tensors: False)
+    asked = []
+
+    def entry(name, argtypes):
+        asked.append(name)
+        raise LookupError(f"no entry point {name}")
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran for a card tensor")
+
+    monkeypatch.setattr(_build, "entry", entry)
+    monkeypatch.setattr(tref, "flash_attention_ref", plain)
+    monkeypatch.setattr(tflash.flash_attention, "route", None)
+    ops.reset_launch_counts()
+    q, k = torch.zeros((1, 8, 4, 16), dtype=dtype), torch.zeros(
+        (1, 8, 2, 16), dtype=dtype)
+    with pytest.raises(LookupError, match=lib):
+        tflash.flash_attention(q, k, k)
+    assert asked == [lib]
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert tflash.flash_attention.route is None
 
 
 def test_flash_attention_checks_card_inputs(monkeypatch):

@@ -73,9 +73,9 @@ class Pair:
                                        ).astype(np.float32)
         return b
 
-    def caches(self):
-        return (JT.init_cache(self.jcfg, B, MAX_LEN, jnp.float32),
-                T.init_cache(self.cfg, B, MAX_LEN, torch.float32, "cpu"))
+    def caches(self, max_len: int = MAX_LEN):
+        return (JT.init_cache(self.jcfg, B, max_len, jnp.float32),
+                T.init_cache(self.cfg, B, max_len, torch.float32, "cpu"))
 
     def prefill(self, batch, jc, tc):
         jl, jc = jax.jit(lambda p, b, c: JT.forward_prefill(p, b, self.jcfg, c))(
@@ -143,6 +143,57 @@ def test_chunked_prefill(pair):
     assert tc["pos"] == int(jc["pos"]) == 8 + 8 + pair.cfg.frontend_len
     assert_close(tl, jl)
     assert_close(tc["k"], jc["k"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-2b"])
+def test_decode_past_cache_end(arch):
+    """Decode steps that run past the end of the cache (a vlm ``serve``
+    reaches them: both packages size the cache without ``frontend_len``).
+    The write start clamps to ``S_max - 1`` as ``dynamic_update_slice``
+    clamps it, the validity mask does not.  Logits of every step and both
+    caches against JAX, at the module's tolerance (rtol 1e-4, atol 2e-5
+    of the largest reference value)."""
+    p = Pair(arch)
+    rng = np.random.default_rng(11)
+    s = 12 + p.cfg.frontend_len
+    jl, jc, tl, tc = p.prefill(p.batch(rng, 12), *p.caches(s + 2))
+    step = jax.jit(lambda prm, t, c: JT.forward_decode(prm, t, p.jcfg, c))
+    for _ in range(5):  # positions s .. s + 4: the last three past the end
+        tok = rng.integers(0, p.cfg.vocab, size=(B, 1), dtype=np.int32)
+        jl, jc = step(p.jp, jnp.asarray(tok), jc)
+        tl, tc = T.forward_decode(p.tp, torch.from_numpy(tok), p.cfg, tc)
+        assert_close(tl, jl)
+    assert tc["pos"] == int(jc["pos"]) == s + 5
+    assert_close(tc["k"], jc["k"])
+    assert_close(tc["v"], jc["v"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-2b"])
+def test_chunk_past_cache_end(arch):
+    """A second prompt chunk that overflows the cache by 4 slots: its
+    write shifts back to end at ``S_max`` (JAX's clamp) instead of failing
+    on the shapes.  Logits and both caches against JAX, at the module's
+    tolerance; a prompt longer than the whole cache still fails."""
+    p = Pair(arch)
+    rng = np.random.default_rng(13)
+    first = p.batch(rng, 8)
+    second = {"tokens": rng.integers(0, p.cfg.vocab, size=(B, 8),
+                                     dtype=np.int32)}
+    s = 8 + p.cfg.frontend_len
+    _, jc, _, tc = p.prefill(first, *p.caches(s + 4))
+    jl, jc, tl, tc = p.prefill(second, jc, tc)
+    assert tc["pos"] == int(jc["pos"]) == s + 8
+    assert_close(tl, jl)
+    assert_close(tc["k"], jc["k"])
+    assert_close(tc["v"], jc["v"])
+    too_long = p.batch(rng, 8)
+    jc, tc = p.caches(s - 1)
+    with pytest.raises(TypeError, match="dynamic_update_slice"):
+        JT.forward_prefill(p.jp, {k: jnp.asarray(v) for k, v in
+                                  too_long.items()}, p.jcfg, jc)
+    with pytest.raises(RuntimeError):
+        T.forward_prefill(p.tp, {k: torch.from_numpy(v) for k, v in
+                                 too_long.items()}, p.cfg, tc)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-2b"])
