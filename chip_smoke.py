@@ -5,16 +5,19 @@ Drives ``repro_torch`` on one CUDA card, through the entry points a user
 calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
 
 * the DNA path — the ``genome`` dataset, dense 2-bit words
-  (``range_gather_words``, ``pattern_probe_words``, ``kmer_histogram``),
-  plus a batch carrying the terminal code (``pattern_probe_packed``);
+  (``range_gather_words``, ``kmer_histogram``, and ``search_bounds_words``:
+  each search batch one launch), plus a batch carrying the terminal code
+  (a loop of ``pattern_probe_packed`` steps);
 * the protein path — the ``protein`` dataset, byte-per-symbol text, the
   byte-key currency (``range_gather_pack``, ``lcp_pairs``,
-  ``pattern_probe``, and ``kmer_histogram`` for the partition);
+  ``search_bounds_bytes``, and ``kmer_histogram`` for the partition);
 * the tree + analytics path on both datasets —
   ``EraIndexer(alphabet, EraConfig(node_lcp="words")).build(s)`` →
   ``SuffixTreeIndex`` → ``index.analytics()`` → the ``analytics_serve``
   loop (``suffix_lcp_words`` on DNA, ``suffix_lcp_pairs`` on protein, the
-  node build's divergence rows and the global LCP's boundaries);
+  node build's divergence rows and the global LCP's boundaries; matching
+  statistics lower-bound through ``search_bounds_words`` /
+  ``search_bounds_bytes``, one launch a batch);
 * the ``REPRO_WORD_COMPARE=byte`` oracle leg on ``genome`` at n = 2**25
   (``range_gather_packed``, and ``probe_gather_packed`` for find-and-fetch),
   held equal to the word leg;
@@ -35,12 +38,21 @@ Phases, each printing one JSON line:
 1. device   — the card (``nvidia-smi`` name and power limit), torch/CUDA
               versions, and the build of every CUDA kernel from ``csrc/``;
 2. parity   — each hand kernel against its plain PyTorch version on the
-              card, exact equality (integer kernels), with its time;
+              card, exact equality (integer kernels), with its time (the
+              search kernels at the 2^27 indexes, after their paths: each
+              against the loop with the plain probes, the loop of
+              single-step kernels and a counted loop, on the serving
+              batch, unrouted and empty windows, terminal-tail patterns,
+              the lower bound alone, NW at and past the register
+              templates, B = 1, B = 0 and 2^20 rows);
 3. build    — ``EraIndexer(alphabet, EraConfig()).build_device(s)``;
 4. check    — ``ell`` is a permutation of the suffixes, and ``find_batch``
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
 5. serving  — the ``query_serve`` loop (batch 256, lengths 4–24);
+   search_launches — one search batch per counted DNA, protein and tree
+              path, counted from 0: its search kernel launched once and no
+              single-step probe, or the run fails;
    find_fetch — ``find_fetch_batch`` (fetch 32) on 256 planted and random
               patterns: ranges equal ``find_batch`` and the scan, windows
               equal the text read on the card, ``verified`` 0 where found;
@@ -73,8 +85,10 @@ Phases, each printing one JSON line:
               time, bound, and its launches on the paths above
               (``flash_attention``: the warm ``lm_serving`` run; the fused
               kernels also at 2^20 rows, beside the time of the two ported
-              kernels they fuse; ``flash_attention`` beside SDPA's time as
-              ``library_ms``, with its bf16 ``design``;
+              kernels they fuse; the search kernels beside ``loop_ms``, the
+              loop of single-step kernels they replace, with this run's
+              trips per row against ``n_iter``; ``flash_attention`` beside
+              SDPA's time as ``library_ms``, with its bf16 ``design``;
               ``range_gather_pack`` with the rows and key words its
               counted launches gathered, the excess weighted by those
               rows, and the gather on sorted positions beside the sort).
@@ -112,28 +126,33 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak (data sheet)
-DNA_KERNELS = ("range_gather_words", "pattern_probe_words", "kmer_histogram")
+DNA_KERNELS = ("range_gather_words", "search_bounds_words", "kmer_histogram")
 TERMINAL_KERNELS = ("pattern_probe_packed",)
 PROTEIN_KERNELS = ("kmer_histogram", "range_gather_pack", "lcp_pairs",
-                   "pattern_probe")
+                   "search_bounds_bytes")
 TREE_KERNELS = {
     "genome": ("kmer_histogram", "range_gather_words", "suffix_lcp_words",
-               "pattern_probe_words"),
+               "search_bounds_words"),
     "protein": ("kmer_histogram", "range_gather_pack", "lcp_pairs",
-                "suffix_lcp_pairs", "pattern_probe"),
+                "suffix_lcp_pairs", "search_bounds_bytes"),
 }
+# the single-step probes a search no longer launches (the terminal-bearing
+# batch and the byte leg keep their loop of pattern_probe_packed steps)
+SEARCH_STEPS = {"search_bounds_words": "pattern_probe_words",
+                "search_bounds_bytes": "pattern_probe"}
 BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed",
                     "probe_gather_packed")
 WORD_ONLY_KERNELS = ("range_gather_words", "pattern_probe_words",
-                     "suffix_lcp_words", "probe_gather_words")
+                     "suffix_lcp_words", "probe_gather_words",
+                     "search_bounds_words")
 FETCH_KERNELS = {
-    "genome": ("pattern_probe_words", "probe_gather_words"),
+    "genome": ("search_bounds_words", "probe_gather_words"),
     "terminal": ("pattern_probe_packed", "probe_gather_packed"),
-    "protein": ("pattern_probe", "range_gather_pack"),
+    "protein": ("search_bounds_bytes", "pattern_probe", "range_gather_pack"),
 }
 FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
-    "genome": ("probe_gather_packed",),
-    "terminal": ("probe_gather_words",),
+    "genome": ("probe_gather_packed", "pattern_probe_words"),
+    "terminal": ("probe_gather_words", "search_bounds_words"),
     "protein": ("probe_gather_words", "probe_gather_packed"),
 }
 BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
@@ -261,6 +280,57 @@ def fused_work(b: int, nw_pat: int, nw_out: int, text_words: int,
             text_words * 30)
 
 
+def search_work(kind: str, text, ell, pat, mask, lengths, lim_p, lo0, hi0,
+                n_iter: int, bounds: int):
+    """What a search needs on this run's data, from the loop run with the
+    plain verdicts: (trips per row, bytes, 32-bit ops, bounds).  Bytes:
+    each row's pattern and mask once, its window, limits and result, and
+    per trip 4 B of ``ell`` plus the text words read up to the compare's
+    first difference (and the word a funnel shift or byte pick
+    straddles)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ref as kref
+    b, nw = pat.shape
+    rep = lambda t: t if bounds == 1 else torch.cat([t, t])
+    p2, m2, lo, hi = rep(pat), rep(mask), rep(lo0), rep(hi0)
+    if kind == "words":
+        l2, lp2 = rep(lengths), rep(lengths if lim_p is None else lim_p)
+        per_row_in = 2 * nw * 4 + 4 * 4  # pattern, mask, lo, hi, len, lim
+    else:
+        live = (m2 != 0).sum(1)  # zero mask words skip their load
+        per_row_in = 2 * nw * 4 + 2 * 4
+    upper = torch.arange(bounds * b, device=lo.device) >= b
+    trips = torch.zeros(bounds * b, dtype=torch.int64, device=lo.device)
+    text_bytes = 0
+    total = ell.shape[0]
+    for _ in range(n_iter):
+        act = lo < hi
+        if not bool(act.any()):
+            break
+        mid = (lo + hi) // 2
+        pos = ell[torch.clamp(mid, 0, total - 1)]
+        if kind == "words":
+            cmp = kref.pattern_probe_words_ref(text, pos, p2, m2, l2, lp2)
+            spw = text.syms_per_word
+            sw = kref.range_gather_words_ref(text, pos, nw * spw) & m2
+            first = packing.lcp_words(sw, p2, text.bits).to(torch.int64) // spw
+            read = torch.clamp(first + 1, max=nw) + 1
+        else:
+            cmp = kref.pattern_probe_ref(text, pos, p2, m2)
+            neq = (kref.range_gather_pack_ref(text, pos, 4 * nw) & m2) != p2
+            first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1),
+                                nw).to(torch.int64)
+            read = torch.minimum(first + 1, live) + 1
+        text_bytes += int((read * 4)[act].sum())
+        trips += act
+        right = torch.where(upper, cmp <= 0, cmp < 0)
+        lo, hi = (torch.where(act & right, mid + 1, lo),
+                  torch.where(act & ~right, mid, hi))
+    n_trips = int(trips.sum())
+    nbytes = b * per_row_in + bounds * b * 4 + n_trips * 4 + text_bytes
+    return trips, nbytes, n_trips * (nw * 30 + 20), lo.reshape(bounds, b)
+
+
 def sorted_pairs(keys: torch.Tensor, offs: torch.Tensor):
     """Offsets ordered by their key rows (unsigned, lexicographic), as
     (left, right) neighbour pairs: long shared prefixes, as adjacent
@@ -349,6 +419,25 @@ def require_launches(counts: dict, kernels, what: str) -> None:
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on {what}")
+
+
+def search_batch_launches(search, kernel: str, what: str) -> None:
+    """One search batch launches its search kernel once and no
+    single-step probe: counted from 0 around one call."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    search()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = {k: counts[k] for k in ("pattern_probe_words", "pattern_probe",
+                                    "pattern_probe_packed")}
+    emit({"phase": "search_launches", "path": what, "kernel": kernel,
+          "search_launches_per_batch": counts[kernel],
+          "single_step_probe_launches": steps})
+    if counts[kernel] != 1 or any(steps.values()):
+        raise AssertionError(f"{what}: a search batch launched {kernel} "
+                             f"{counts[kernel]} times and the single-step "
+                             f"probes {steps}")
 
 
 def counts_now() -> dict:
@@ -844,16 +933,47 @@ def main() -> int:
                 "windows_past_end": int(((pos0 + FETCH > n1 - 1) & has).sum()),
                 "t_find_fetch_batch_s": t_ff}
 
+    @contextlib.contextmanager
+    def search_as_loop():
+        """The search kernels swapped for the loop they replace (n_iter
+        single-step probe launches and the small ops around each), the
+        yardstick of an end-to-end search."""
+        saved = ops.search_bounds_words, ops.search_bounds_bytes
+        ops.search_bounds_words = (
+            lambda pt, ell, pat, mask, lengths, lim_p, lo0, hi0, **kw:
+            ops.search_loop(ops.pattern_probe_words, pt, ell, pat, mask,
+                            lengths, lim_p, lo0, hi0, **kw))
+        ops.search_bounds_bytes = (
+            lambda sp, ell, pat, mask, lo0, hi0, **kw: ops.search_loop(
+                ops.pattern_probe, sp, ell, pat, mask, None, None, lo0, hi0,
+                **kw))
+        try:
+            yield
+        finally:
+            ops.search_bounds_words, ops.search_bounds_bytes = saved
+
     def fetch_latency(dev, pats) -> dict:
         """Host milliseconds from dispatch to a synchronised result of the
-        search alone (``find_batch_ranges``) and of find-and-fetch
-        (``find_fetch_ranges``) on the same padded batch: medians of 20
-        runs each, taken in turns after one warm-up of each."""
+        search alone (``find_batch_ranges``), of the same search through
+        the loop of single-step probes the search kernels replace, and of
+        find-and-fetch (``find_fetch_ranges``) on the same padded batch:
+        medians of 20 runs each, taken in turns after one warm-up of
+        each."""
         padded, lengths, route = dev.pad_batch(pats)
+
+        def loop_ranges():
+            with search_as_loop():
+                return dev.find_batch_ranges(padded, lengths, route)
+
         calls = {"find_batch_ranges_ms": lambda: dev.find_batch_ranges(
                      padded, lengths, route),
+                 "find_batch_ranges_loop_ms": loop_ranges,
                  "find_fetch_ranges_ms": lambda: dev.find_fetch_ranges(
                      padded, lengths, route, fetch=FETCH)}
+        for got, want, part in zip(calls["find_batch_ranges_ms"](),
+                                   loop_ranges(), ("start", "count")):
+            assert_equal(got, want, f"find_batch_ranges {part} against the "
+                                    f"loop of single-step probes")
         times = {k: [] for k in calls}
         for _ in range(21):
             for k, fn in calls.items():
@@ -1001,6 +1121,139 @@ def main() -> int:
         counts = counts_now()
         emit({"phase": "serving_stack", "dataset": name, "launches": counts})
         return counts
+    def search_parity(kind: str, dev, sx: np.ndarray, ax, name: str) -> dict:
+        """A search kernel against the loop with the plain probes, the loop
+        of single-step kernels and the counted loop of ``search_work``
+        (exact) on the serving batch (256 patterns of 4-24 symbols, routed
+        windows) and its edges: unrouted and empty windows, patterns that
+        end at the terminal tail, the lower bound alone (words: with a
+        pattern limit below the compare length), NW at and past the
+        register-template edges, B = 1, B = 0 and 2^20 rows.  Returns the
+        kernel's row at the serving shape."""
+        from repro_torch.core.query import _route_window
+        kernel = f"search_bounds_{kind}"
+        word = kind == "words"
+        step = ops.pattern_probe_words if word else ops.pattern_probe
+        plain_probe = (kref.pattern_probe_words_ref if word
+                       else kref.pattern_probe_ref)
+        srng = np.random.default_rng(23)
+        n_real = len(sx) - 1
+        total = dev.n_leaves
+
+        def batch_rows(pats, m_pad=None):
+            padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad)
+            t = lambda x: torch.from_numpy(x).to(cuda)
+            len_t = t(lengths)
+            pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t, word)
+            lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows,
+                                     dev.spans, len_t, t(route), dev.k_route)
+            return pat, mask, len_t, lo0.contiguous(), hi0.contiguous()
+
+        def calls(pat, mask, lengths, lo0, hi0, bounds, lim_p=None):
+            kw = dict(n_iter=dev.n_iter, bounds=bounds)
+            if word:
+                args = (dev.s_text, dev.ell, pat, mask, lengths, lim_p, lo0,
+                        hi0)
+                fused = lambda: ops.search_bounds_words(*args, **kw)
+            else:
+                args = (dev.s_text, dev.ell, pat, mask, None, None, lo0, hi0)
+                fused = lambda: ops.search_bounds_bytes(
+                    dev.s_text, dev.ell, pat, mask, lo0, hi0, **kw)
+            return (fused, lambda: ops.search_loop(plain_probe, *args, **kw),
+                    lambda: ops.search_loop(step, *args, **kw))
+
+        def case(what, pat, mask, lengths, lo0, hi0, bounds=2, lim_p=None):
+            fused, plain, loop = calls(pat, mask, lengths, lo0, hi0, bounds,
+                                       lim_p)
+            got = fused()
+            assert_equal(got, plain(), f"{kernel} {name} {what}")
+            assert_equal(got, loop(), f"{kernel} {name} {what} against the "
+                                      f"loop of single-step kernels")
+            trips, _, _, want = search_work(kind, dev.s_text, dev.ell, pat,
+                                            mask, lengths, lim_p, lo0, hi0,
+                                            dev.n_iter, bounds)
+            assert_equal(got, want, f"{kernel} {name} {what} against the "
+                                    f"counted loop")
+            emit({"phase": "parity", "kernel": kernel, "text": name,
+                  "case": what, "rows": bounds * pat.shape[0],
+                  "nw": pat.shape[1], "bounds": bounds, "max_abs_err": 0,
+                  "trips_max": int(trips.max()) if trips.numel() else 0,
+                  "n_iter": dev.n_iter})
+
+        serving = make_workload(sx, srng, batch=256, min_len=4, max_len=24,
+                                planted_frac=0.7, n_symbols=len(ax.symbols))
+        pat, mask, lengths, lo0, hi0 = batch_rows(serving)
+        case("serving", pat, mask, lengths, lo0, hi0)
+        case("unrouted", pat, mask, lengths, torch.zeros_like(lo0),
+             torch.full_like(hi0, total))
+        empty = torch.randint(0, total + 1, lo0.shape, device=cuda,
+                              dtype=torch.int32)
+        case("empty", pat, mask, lengths, empty, empty.clone())
+        tail = [np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
+        if not word:  # the byte string: patterns running into the terminal
+            tail += [np.append(sx[n_real - k:n_real], ax.terminal_code)
+                     .astype(np.uint8) for k in range(24)]
+        case("terminal_tail", *batch_rows(tail))
+        lim_p = (torch.clamp(lengths - torch.randint_like(lengths, 0, 8),
+                             min=0) if word else None)
+        case("lower_bound" + ("_lim_p" if word else ""), pat, mask, lengths,
+             lo0, hi0, bounds=1, lim_p=lim_p)
+        spw = dev.s_text.syms_per_word if word else 4
+        for nw in (1, 2, 3, 4, 8, 16, 17, 32 if word else 128):
+            pats = []
+            for i in range(256):  # lengths that need all nw words
+                m = int(srng.integers((nw - 1) * spw + 1, nw * spw + 1))
+                if i % 2:
+                    p0 = int(srng.integers(0, n_real - m))
+                    pats.append(np.asarray(sx[p0:p0 + m]))
+                else:
+                    pats.append(srng.integers(0, len(ax.symbols), m)
+                                .astype(np.uint8))
+            case(f"nw={nw}", *batch_rows(pats, m_pad=nw * spw))
+        case("B=1", pat[:1], mask[:1], lengths[:1], lo0[:1], hi0[:1])
+        case("B=0", pat[:0], mask[:0], lengths[:0], lo0[:0], hi0[:0])
+        idx = torch.randint(0, pat.shape[0], (1 << 19,), device=cuda)
+        large = (pat[idx].contiguous(), mask[idx].contiguous(), lengths[idx],
+                 lo0[idx], hi0[idx])
+        case("2^20 rows", *large)
+
+        # the row: the serving batch, both bounds in one launch
+        fused, plain, loop = calls(pat, mask, lengths, lo0, hi0, 2)
+        trips, nbytes, n_ops, _ = search_work(kind, dev.s_text, dev.ell, pat,
+                                              mask, lengths, None, lo0, hi0,
+                                              dev.n_iter, 2)
+        b_ms, b_by = bound(nbytes, n_ops)
+        fl, _, ll = calls(*large, 2)
+        trips_l, nbytes_l, n_ops_l, _ = search_work(
+            kind, dev.s_text, dev.ell, *large[:3], None, *large[3:],
+            dev.n_iter, 2)
+        bl_ms, bl_by = bound(nbytes_l, n_ops_l)
+        win = (hi0 - lo0).to(torch.float64)
+        replaces = ("src/repro/kernels/packed_gather.py:335" if word
+                    else "src/repro/kernels/pattern_probe.py:57")
+        return {"name": kernel, "replaces": replaces,
+                "replaces_loop": "src/repro/core/query.py:114",
+                "shape": f"rows={2 * pat.shape[0]} nw={pat.shape[1]} "
+                         f"bounds=2 (B={pat.shape[0]})",
+                "ms": cuda_ms(fused, inner=100),
+                "loop_ms": cuda_ms(loop, inner=10),
+                "plain_ms": cuda_ms(plain, inner=2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_note": "this run's trips' bytes over 3.35 TB/s; the "
+                              "kernel is bound by dependent DRAM latency "
+                              "times trips, not bytes",
+                "trips_max": int(trips.max()),
+                "trips_mean": float(trips.to(torch.float64).mean()),
+                "n_iter": dev.n_iter, "window_max": int(win.max()),
+                "window_mean": float(win.mean()),
+                "large": {"shape": f"rows={2 * large[0].shape[0]} "
+                                   f"nw={pat.shape[1]} bounds=2",
+                          "ms": cuda_ms(fl, inner=5),
+                          "loop_ms": cuda_ms(ll, inner=1),
+                          "bound_ms": bl_ms, "bound_by": bl_by,
+                          "trips_mean": float(trips_l.to(torch.float64)
+                                              .mean())}}
+
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -1320,8 +1573,12 @@ def main() -> int:
     for name in ("range_gather_words", "kmer_histogram"):
         if after_build[name] <= 0:
             raise AssertionError(f"{name} was never launched by the build")
-    if dna_counts["pattern_probe_words"] <= after_build["pattern_probe_words"]:
-        raise AssertionError("the search never launched pattern_probe_words")
+    if dna_counts["search_bounds_words"] <= after_build["search_bounds_words"]:
+        raise AssertionError("the search never launched search_bounds_words")
+    if dna_counts["pattern_probe_words"]:
+        raise AssertionError("the DNA path launched the single-step probe")
+    search_batch_launches(lambda: dev.find_batch_ranges(
+        *dev.pad_batch(pats)), "search_bounds_words", "genome find_batch")
 
     # ---- 4b. the DNA terminal-bearing batch (counted) ----------------------
     term = alpha.terminal_code
@@ -1335,7 +1592,8 @@ def main() -> int:
     emit({"phase": "check", "dataset": "genome", "batch": "terminal-bearing",
           **term_check, "launches": term_counts})
     require_launches(term_counts, TERMINAL_KERNELS, "the terminal batch")
-    if term_counts["pattern_probe_words"] != 0:
+    if (term_counts["pattern_probe_words"]
+            or term_counts["search_bounds_words"]):
         raise AssertionError("a terminal-bearing batch took the word probe")
 
     # ---- 5b. find-and-fetch and the serving stack on the DNA index ---------
@@ -1459,6 +1717,7 @@ def main() -> int:
                  "plain_ms": cuda_ms(lambda: kref.pattern_probe_packed_ref(
                      dev.s_text, pos2, pat2, mask2), inner=20),
                  "bound_ms": b_ms, "bound_by": b_by})
+    rows.append(search_parity("words", dev, s, alpha, "genome"))
     # kmer_histogram: the deepest kernel-counted DNA partition scan (t = 6)
     k = 6
     b_ms, b_by = bound(*kmer_work(n_win, k, alpha.base))
@@ -1515,8 +1774,13 @@ def main() -> int:
     emit({"phase": "serving", "dataset": "protein", **stats,
           "launches": prot_counts})
     require_launches(prot_counts, PROTEIN_KERNELS, "the protein path")
-    if prot_counts["pattern_probe"] <= after_build["pattern_probe"]:
-        raise AssertionError("the protein search never launched pattern_probe")
+    if prot_counts["search_bounds_bytes"] <= after_build["search_bounds_bytes"]:
+        raise AssertionError("the protein search never launched "
+                             "search_bounds_bytes")
+    if prot_counts["pattern_probe"]:
+        raise AssertionError("the protein path launched the single-step probe")
+    search_batch_launches(lambda: dev.find_batch_ranges(
+        *dev.pad_batch(pats)), "search_bounds_bytes", "protein find_batch")
     ff_pats = make_workload(s, frng, batch=256, min_len=4, max_len=24,
                             planted_frac=0.7, n_symbols=len(protein.symbols))
     ops.reset_launch_counts()
@@ -1599,6 +1863,7 @@ def main() -> int:
                  "plain_ms": cuda_ms(lambda: kref.pattern_probe_ref(
                      dev.s_text, pos2, pat2, mask2), inner=20),
                  "bound_ms": b_ms, "bound_by": b_by})
+    rows.append(search_parity("bytes", dev, s, protein, "protein"))
 
     del dev, ell, got, want, pos2, pat2, mask2
     torch.cuda.empty_cache()
@@ -1642,6 +1907,14 @@ def main() -> int:
         emit({"phase": "analytics_serving", "dataset": name, **stats,
               "launches": counts})
         require_launches(counts, TREE_KERNELS[name], f"the {name} tree path")
+        kernel = TREE_KERNELS[name][-1]
+        if counts[SEARCH_STEPS[kernel]]:
+            raise AssertionError(f"the {name} tree path launched the "
+                                 f"single-step probe")
+        q = make_query(sx, qrng, batch=512, planted_frac=0.7,
+                       n_symbols=len(ax.symbols))
+        search_batch_launches(lambda: eng.matching_stats(q, window=64),
+                              kernel, f"{name} matching_stats")
 
         # -- tree checks: text-derived divergence rows == the prepare
         #    state's b_off on every sub-tree; find == brute force
@@ -1961,7 +2234,10 @@ def main() -> int:
                                     "design", "sorted_offsets_ms",
                                     "sort_ms", "rows_gathered",
                                     "words_gathered",
-                                    "row_weighted_excess_ms")}})
+                                    "row_weighted_excess_ms", "loop_ms",
+                                    "replaces_loop", "bound_note",
+                                    "trips_max", "trips_mean", "n_iter",
+                                    "window_max", "window_mean")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

@@ -18,9 +18,10 @@ the index's device:
   and O(log n) maximal-interval expansion.
 
 Four batched workloads ride on top, each equal to the JAX package's:
-matching statistics (one lower-bound search per query position through
-the probe kernel, then the two neighbours' gathers and LCPs), top-k
-maximal repeats, the distinct-substring count, and the k-mer spectrum.
+matching statistics (one lower-bound search per query position, all of
+them in one search-kernel launch, then the two neighbours' gathers and
+LCPs), top-k maximal repeats, the distinct-substring count, and the
+k-mer spectrum.
 ``jax.lax.top_k`` returns equal values lowest index first; the port takes
 the first k of a stable descending sort, which keeps that order.
 """
@@ -54,17 +55,23 @@ def _matching_stats(s_text, ell, win_lo, win_hi, pows, q_ext: torch.Tensor,
 
     ``q_ext``: (B + w,) int32 query codes, terminal-padded past ``n_q``.
     Each position's window ``q[i:i+w]`` is routed and lower-bounded like a
-    ``find_batch`` pattern (the probe kernel is the only text read of each
-    search step); the max-LCP suffix is one of the two lexicographic
-    neighbours of the insertion point.  ``word`` (dense text, terminal-free
-    query) compares dense words with the window's first terminal as its
-    limit; otherwise byte keys.  Returns int32 (2, B): (ms, witness).
+    ``find_batch`` pattern (one search-kernel launch, ``bounds=1``; a loop
+    of ``pattern_probe_packed`` steps for byte keys on dense text); the
+    max-LCP suffix is one of the two lexicographic neighbours of the
+    insertion point.  ``word`` (dense text, terminal-free query) compares
+    dense words with the window's first terminal as its limit; otherwise
+    byte keys.  Returns int32 (2, B): (ms, witness).
     """
     dev = ell.device
     b = q_ext.shape[0] - w
     total = ell.shape[0]
     idx = torch.arange(b, dtype=torch.int64, device=dev)
     windows = q_ext[idx[:, None] + torch.arange(w, device=dev)[None, :]]
+    # routing: the window is always k_route symbols deep (terminal-padded),
+    # so its depth-k_route code owns exactly one cell
+    c = torch.sum(windows[:, :k_route] * pows[None, :], dim=1)
+    lo = win_lo[c]
+    hi = torch.maximum(win_hi[c], lo)
     if word:
         bits = s_text.bits
         pat_words = packing.pack_pattern_dense(windows, bits, s_text.terminal)
@@ -75,34 +82,14 @@ def _matching_stats(s_text, ell, win_lo, win_hi, pows, q_ext: torch.Tensor,
         # comparison limit is the first terminal (== n_q - i, clipped)
         lim_p = torch.clamp(n_q - idx, 0, w).to(torch.int32)
         w_arr = torch.full((b,), w, dtype=torch.int32, device=dev)
-
-        def probe(pos):
-            return kops.pattern_probe_words(s_text, pos, pat_words,
-                                            mask_words, w_arr, lim_p)
         gather = kops.range_gather_words
     else:
         pat_words = packing.pack_words(windows)
         mask_words = torch.full_like(pat_words, -1)  # full-width comparison
-        byte_probe = (kops.pattern_probe_packed
-                      if isinstance(s_text, packing.PackedText)
-                      else kops.pattern_probe)
-
-        def probe(pos):
-            return byte_probe(s_text, pos, pat_words, mask_words)
+        w_arr = lim_p = None
         gather = kops.range_gather
-
-    # routing: the window is always k_route symbols deep (terminal-padded),
-    # so its depth-k_route code owns exactly one cell
-    c = torch.sum(windows[:, :k_route] * pows[None, :], dim=1)
-    lo = win_lo[c]
-    hi = torch.maximum(win_hi[c], lo)
-    for _ in range(n_iter):
-        mid = (lo + hi) // 2
-        cmp = probe(ell[torch.clamp(mid, 0, total - 1)])
-        act = lo < hi
-        lo, hi = (torch.where(act & (cmp < 0), mid + 1, lo),
-                  torch.where(act & (cmp >= 0), mid, hi))
-    pos = lo
+    pos = kops.search_bounds(s_text, ell, pat_words, mask_words, w_arr, lim_p,
+                             lo, hi, n_iter=n_iter, bounds=1, word=word)[0]
 
     # the suffix maximizing LCP with the window is a lex neighbour of the
     # insertion point; compare both neighbours' reads with the window

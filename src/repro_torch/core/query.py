@@ -5,16 +5,17 @@ concatenated leaf arrays in prefix order, i.e. the suffix array), the
 per-sub-tree tables, and a dense top-trie routing table at depth
 ``k_route``.  :meth:`DeviceIndex.find_batch_ranges` resolves a whole
 ``(B, m)`` batch with one routing gather and a fixed-trip lower/upper
-bound binary search whose only text read is one probe kernel launch per
-search step — ``n_iter`` launches per batch (the JAX ``fori_loop`` written
-out as a Python loop).  The probe follows the served string, as in the
-JAX package:
+bound binary search (the JAX ``fori_loop``), which runs as ONE search
+kernel launch per batch: each row walks its routed window and stops once
+it is empty.  The search follows the served string, as in the JAX
+package:
 
 * a dense :class:`repro_torch.core.packing.PackedText` —
-  ``pattern_probe_words`` on dense pattern words, or, for a batch that
-  carries the terminal code, ``pattern_probe_packed`` on byte keys;
+  ``search_bounds_words`` on dense pattern words, or, for a batch that
+  carries the terminal code, a loop of ``pattern_probe_packed`` steps on
+  byte keys (``n_iter`` launches);
 * the terminal-padded uint8 byte string (protein, english, byte, or
-  ``packing="bytes"``) — ``pattern_probe`` on byte keys.
+  ``packing="bytes"``) — ``search_bounds_bytes`` on byte keys.
 
 :meth:`DeviceIndex.find_fetch_ranges` adds the find-and-fetch epilogue:
 one fused probe + gather launch at each pattern's lower-bound suffix
@@ -89,41 +90,6 @@ def _route_window(win_lo, win_hi, pows, spans, lengths, route_syms,
     lo0 = win_lo[c_lo]
     hi0 = torch.maximum(win_hi[c_hi], lo0)
     return lo0, hi0
-
-
-def _search_bounds(s_text, ell, pat_words, mask_words, lengths, lo0, hi0,
-                   *, n_iter: int, word: bool = True):
-    """Fixed-trip binary search; the lower and upper bound run fused as
-    one 2B-row probe launch per step.  Returns (llo, ulo) into ``ell``."""
-    b = pat_words.shape[0]
-    total = ell.shape[0]
-    if word:
-        len2 = torch.cat([lengths, lengths])
-        probe = lambda st, pos, pat, mask: kops.pattern_probe_words(
-            st, pos, pat, mask, len2)
-    elif isinstance(s_text, packing_mod.PackedText):
-        probe = kops.pattern_probe_packed
-    else:
-        probe = kops.pattern_probe
-    pat2 = torch.cat([pat_words, pat_words], dim=0)
-    mask2 = torch.cat([mask_words, mask_words], dim=0)
-    llo, lhi, ulo, uhi = lo0, hi0, lo0, hi0
-    for _ in range(n_iter):
-        lmid = (llo + lhi) // 2
-        umid = (ulo + uhi) // 2
-        mids = torch.cat([lmid, umid])
-        pos = ell[torch.clamp(mids, 0, total - 1)]
-        cmp = probe(s_text, pos, pat2, mask2)
-        lcmp, ucmp = cmp[:b], cmp[b:]
-        lact = llo < lhi
-        uact = ulo < uhi
-        # lower bound: first suffix >= pattern (prefix match counts as >=)
-        llo, lhi = (torch.where(lact & (lcmp < 0), lmid + 1, llo),
-                    torch.where(lact & (lcmp >= 0), lmid, lhi))
-        # upper bound: first suffix > pattern
-        ulo, uhi = (torch.where(uact & (ucmp <= 0), umid + 1, ulo),
-                    torch.where(uact & (ucmp > 0), umid, uhi))
-    return llo, ulo
 
 
 def _window_symbols(s_text, win: torch.Tensor, pos0: torch.Tensor,
@@ -462,9 +428,9 @@ class DeviceIndex:
                                                   lengths, word)
         lo0, hi0 = _route_window(self.win_lo, self.win_hi, self.pows,
                                  self.spans, lengths, route_syms, self.k_route)
-        llo, ulo = _search_bounds(self.s_text, self.ell, pat_words,
-                                  mask_words, lengths, lo0, hi0,
-                                  n_iter=self.n_iter, word=word)
+        llo, ulo = kops.search_bounds(self.s_text, self.ell, pat_words,
+                                      mask_words, lengths, None, lo0, hi0,
+                                      n_iter=self.n_iter, bounds=2, word=word)
         return (word, lengths, pat_words, mask_words, llo,
                 torch.clamp(ulo - llo, min=0))
 

@@ -8,15 +8,20 @@
 // order).  Here one thread per row builds each suffix word as
 // range_gather_pack does (byte_read.cuh), ANDs it with the mask word and
 // stops at the first word that differs; uint32_t compares are unsigned,
-// which byte codes >= 128 need.  A zero mask word skips its load.
+// which byte codes >= 128 need.  A zero mask word skips its load.  The
+// compare is probe_bytes.cuh's, shared with search_bounds_bytes.cu.
 //
 // Bound on the H100: launch latency.  A search step is 2B rows (lower and
-// upper bound fused) of a few words each — a few KB — and the binary
-// search launches the kernel n_iter times per batch.
+// upper bound fused) of a few words each, a few KB.  The searches of the
+// main path no longer launch it once per step: search_bounds_bytes.cu runs
+// the whole binary search in one launch.  This kernel stays the exact
+// counterpart of the TPU function, the probe of the protein find-and-fetch
+// epilogue (with range_gather_pack), and the single-step yardstick the
+// search kernel is timed against.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "byte_read.cuh"
+#include "probe_bytes.cuh"
 
 __global__ void pattern_probe_kernel(const uint8_t* __restrict__ s,
                                      long long n_s,
@@ -27,18 +32,8 @@ __global__ void pattern_probe_kernel(const uint8_t* __restrict__ s,
                                      int32_t* __restrict__ out) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
-    long long p0 = pos[i];
-    int v = 0;
-    for (int j = 0; j < nw; ++j) {
-      uint32_t m = mask[i * nw + j];
-      uint32_t sw = m ? (byte_key_word(s, n_s, p0 + 4LL * j) & m) : 0u;
-      uint32_t pw = pat[i * nw + j];
-      if (sw != pw) {
-        v = sw < pw ? -1 : 1;
-        break;
-      }
-    }
-    out[i] = v;
+    GlobalRow row{pat + i * nw, mask + i * nw};
+    out[i] = probe_bytes_verdict<0>(s, n_s, pos[i], row, nw);
   }
 }
 

@@ -1,22 +1,24 @@
 // pattern_probe_words: -1/0/+1 per row, the masked dense pattern against
 // the suffix at pos, by XOR, first differing word, clz and the
-// terminal-limit rules of repro_torch.kernels.ref.probe_words_ref.
+// terminal-limit rules of repro_torch.kernels.ref.probe_words_ref (the
+// shared compare of probe_words.cuh).
 //
 // Replaces the TPU kernel repro/kernels/packed_gather.py:pattern_probe_words
 // (pallas_call at :383; rules of _words_probe_kernel, :306-331).  One
 // thread per row walks the row's NW words and stops at the first nonzero
 // XOR, so a row reads only as many text words as it needs.
 //
-// Bound on the H100: launch latency.  A search batch of B patterns is 2B
-// rows (lower and upper bound fused) of a few words each — a few KB of
-// traffic — and the binary search launches the kernel n_iter times per
-// batch (29 at n = 2^27), so the time per launch is the launch overhead,
-// not bytes or operations.  Capturing the search loop in a CUDA graph is
-// the remedy, left to a later change.
+// Bound on the H100: launch latency.  One search step of a batch of B
+// patterns is 2B rows of a few words each, a few KB of traffic.  The
+// searches of the main path no longer launch it once per step:
+// search_bounds_words.cu runs the whole binary search in one launch with
+// this compare.  This kernel stays the exact counterpart of the TPU
+// function, and the single-step yardstick the search kernel is timed
+// against.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "dense_read.cuh"
+#include "probe_words.cuh"
 
 __global__ void pattern_probe_words_kernel(
     const uint32_t* __restrict__ words, long long n_words,
@@ -24,41 +26,11 @@ __global__ void pattern_probe_words_kernel(
     const uint32_t* __restrict__ mask, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ lim_p, long long b, int nw, int bits,
     long long n_real, uint32_t sub_word, int32_t* __restrict__ out) {
-  const int spw = 32 / bits;
-  const long long big = (long long)nw * spw;
-  const uint32_t ones = (1u << bits) - 1u;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
-    long long p0 = pos[i];
-    long long p = big;
-    int sym = 0;
-    uint32_t aw = 0, bw = 0;
-    for (int j = 0; j < nw; ++j) {
-      uint32_t sw = dense_read_word(words, n_words, p0, j, bits, spw, n_real,
-                                    sub_word) & mask[i * nw + j];
-      uint32_t pw = pat[i * nw + j];
-      uint32_t x = sw ^ pw;
-      if (x != 0u) {
-        sym = __clz((int)x) / bits;
-        p = (long long)j * spw + sym;
-        aw = sw;
-        bw = pw;
-        break;
-      }
-    }
-    int sh = 32 - bits * (sym + 1);
-    int ca = (int)((aw >> sh) & ones);
-    int cb = (int)((bw >> sh) & ones);
-    int sym_sign = ca < cb ? -1 : 1;
-    // limits at or past the compare length saturate out of the comparison
-    long long cmp_len = lengths[i];
-    long long ls = n_real - p0;
-    long long lp = lim_p[i];
-    ls = ls < cmp_len ? ls : big;
-    lp = lp < cmp_len ? lp : big;
-    int lim_sign = ls < lp ? 1 : (lp < ls ? -1 : 0);
-    long long lim = ls < lp ? ls : lp;
-    out[i] = p < lim ? sym_sign : lim_sign;
+    GlobalRow row{pat + i * nw, mask + i * nw};
+    out[i] = probe_words_verdict<0>(words, n_words, pos[i], row, nw, bits,
+                                    n_real, sub_word, lengths[i], lim_p[i]);
   }
 }
 

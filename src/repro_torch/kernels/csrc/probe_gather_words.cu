@@ -11,7 +11,8 @@
 // funnel shift, each word once: the first nw_out go to the window, the
 // first nw_pat feed the verdict with the rules of pattern_probe_words.cu
 // (masked XOR, first differing word, __clz / bits, both terminal limits
-// saturated at the compare length, lim_p defaulting to the lengths).  The
+// saturated at the compare length by probe_words.cuh's resolve, lim_p
+// defaulting to the lengths).  The
 // compare stops at its first difference; the read stops only once the
 // window is written as well.
 //
@@ -24,7 +25,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "dense_read.cuh"
+#include "probe_words.cuh"
 
 __global__ void probe_gather_words_kernel(
     const uint32_t* __restrict__ words, long long n_words,
@@ -35,7 +36,6 @@ __global__ void probe_gather_words_kernel(
     uint32_t* __restrict__ win) {
   const int spw = 32 / bits;
   const long long big = (long long)nw_pat * spw;
-  const uint32_t ones = (1u << bits) - 1u;
   const int nw_rd = nw_pat > nw_out ? nw_pat : nw_out;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
@@ -62,19 +62,8 @@ __global__ void probe_gather_words_kernel(
         }
       }
     }
-    int sh = 32 - bits * (sym + 1);
-    int ca = (int)((aw >> sh) & ones);
-    int cb = (int)((bw >> sh) & ones);
-    int sym_sign = ca < cb ? -1 : 1;
-    // limits at or past the compare length saturate out of the comparison
-    long long cmp_len = lengths[i];
-    long long ls = n_real - p0;
-    long long lp = lim_p[i];
-    ls = ls < cmp_len ? ls : big;
-    lp = lp < cmp_len ? lp : big;
-    int lim_sign = ls < lp ? 1 : (lp < ls ? -1 : 0);
-    long long lim = ls < lp ? ls : lp;
-    cmp[i] = p < lim ? sym_sign : lim_sign;
+    cmp[i] = probe_words_resolve(p, sym, aw, bw, bits, big, lengths[i],
+                                 n_real - p0, lim_p[i]);
   }
 }
 

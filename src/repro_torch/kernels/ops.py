@@ -14,14 +14,15 @@ meanings, so one CI leg covers both packages:
   currency of a dense text; ``byte`` pins the byte-key oracle ON DENSE
   TEXT: construction reads byte keys from the dense words
   (``range_gather_packed``) and sorts and compares them as on byte text,
-  searches probe through ``pattern_probe_packed`` (find-and-fetch through
-  ``probe_gather_packed``, not ``probe_gather_words``), and suffix-pair LCPs
-  run ``range_gather_packed`` + ``lcp_pairs``.  A byte-per-symbol text
-  (protein, english, byte, ``packing="bytes"``) always runs the byte-key
-  currency (``range_gather_pack``, ``lcp_pairs``, ``pattern_probe``,
+  searches run a loop of ``pattern_probe_packed`` steps (find-and-fetch
+  through ``probe_gather_packed``, not ``probe_gather_words``), and
+  suffix-pair LCPs run ``range_gather_packed`` + ``lcp_pairs``.  A
+  byte-per-symbol text (protein, english, byte, ``packing="bytes"``)
+  always runs the byte-key currency (``range_gather_pack``,
+  ``lcp_pairs``, ``search_bounds_bytes``, ``pattern_probe``,
   ``suffix_lcp_pairs``), and a dense index answers a batch carrying the
   terminal code through ``pattern_probe_packed``, as the JAX package
-  does;
+  does.  Searches on dense words run ``search_bounds_words``;
 * ``REPRO_SORT=fused|lexsort`` — fused single-lane sort keys or the
   multi-key oracle sort;
 * ``REPRO_COMPACT=tail|off`` — tail compaction of the elastic step.
@@ -50,6 +51,11 @@ from repro_torch.kernels.probe_gather import (
     probe_gather_words,
 )
 from repro_torch.kernels.range_gather import range_gather_pack
+from repro_torch.kernels.search import (
+    search_bounds_bytes,
+    search_bounds_words,
+    search_loop,
+)
 from repro_torch.kernels.suffix_lcp import suffix_lcp_pairs as _suffix_lcp_bytes
 
 KERNELS = {
@@ -66,6 +72,8 @@ KERNELS = {
     "probe_gather_words": probe_gather_words,
     "probe_gather_packed": probe_gather_packed,
     "flash_attention": flash_attention,
+    "search_bounds_words": search_bounds_words,
+    "search_bounds_bytes": search_bounds_bytes,
 }
 
 __all__ = ["KERNELS", "flash_attention", "kmer_histogram", "launch_counts",
@@ -74,6 +82,8 @@ __all__ = ["KERNELS", "flash_attention", "kmer_histogram", "launch_counts",
            "probe_gather_words",
            "range_gather", "range_gather_pack", "range_gather_packed",
            "range_gather_words", "reset_launch_counts", "resolve_device",
+           "search_bounds", "search_bounds_bytes", "search_bounds_words",
+           "search_loop",
            "suffix_lcp_pairs", "suffix_lcp_words"]
 
 
@@ -125,6 +135,29 @@ def probe_gather(s_text, pos: torch.Tensor, pat_words: torch.Tensor,
         return probe_gather_packed(s_text, pos, pat_words, mask_words, fetch)
     return (pattern_probe(s_text, pos, pat_words, mask_words),
             range_gather_pack(s_text, pos, fetch))
+
+
+def search_bounds(s_text, ell: torch.Tensor, pat: torch.Tensor,
+                  mask: torch.Tensor, lengths: torch.Tensor,
+                  lim_p: torch.Tensor | None, lo0: torch.Tensor,
+                  hi0: torch.Tensor, *, n_iter: int, bounds: int,
+                  word: bool) -> torch.Tensor:
+    """(bounds, B) int32 lower (and upper) bounds of pattern rows in
+    ``[lo0, hi0)`` of ``ell``, dispatched on the text and the compare
+    currency: one ``search_bounds_words`` launch for dense word rows, one
+    ``search_bounds_bytes`` launch on the terminal-padded byte string, and
+    for byte keys on a dense :class:`PackedText` (a terminal-bearing batch,
+    or ``REPRO_WORD_COMPARE=byte``) the loop of ``n_iter``
+    ``pattern_probe_packed`` steps.  ``lengths`` and ``lim_p`` feed the
+    word compare only."""
+    if word:
+        return search_bounds_words(s_text, ell, pat, mask, lengths, lim_p,
+                                   lo0, hi0, n_iter=n_iter, bounds=bounds)
+    if isinstance(s_text, PackedText):
+        return search_loop(pattern_probe_packed, s_text, ell, pat, mask, None,
+                           None, lo0, hi0, n_iter=n_iter, bounds=bounds)
+    return search_bounds_bytes(s_text, ell, pat, mask, lo0, hi0,
+                               n_iter=n_iter, bounds=bounds)
 
 
 def suffix_lcp_pairs(s_text, pos_a: torch.Tensor, pos_b: torch.Tensor,

@@ -7,13 +7,15 @@ no JAX, so it also runs where only PyTorch is installed.  Tolerance:
 exact for the integer kernels; ``flash_attention`` states its own.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
-from repro_torch.core.query import _pack_query_batch
+from repro_torch.core.query import _pack_query_batch, _route_window
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmer_histogram as tkmer
 from repro_torch.kernels import lcp as tlcp
@@ -23,6 +25,7 @@ from repro_torch.kernels import pattern_probe as tprobe
 from repro_torch.kernels import probe_gather as tfused
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import search as tsearch
 from repro_torch.kernels import suffix_lcp as tslcp
 from repro_torch.models import transformer as T
 from repro_torch.models.config import smoke_config
@@ -441,3 +444,138 @@ def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return {k: _to(v, device) for k, v in tree.items()}
+
+
+# ---- the search kernels: one launch per search --------------------------
+
+# m_pad per search kind, so that NW sits at and past the register-template
+# edges (2, 4, 8, 16) and on the shared-memory route above 16: DNA packs
+# 16 symbols a word (NW 1 2 3 4 8 16 17 32), byte keys 4 (NW 1 2 3 4 8 16
+# 17 128 — max_pattern_len 512)
+SEARCH_M_PAD = {"words": (16, 32, 48, 64, 128, 256, 272, 512),
+                "bytes": (4, 8, 12, 16, 32, 64, 68, 512)}
+
+
+@functools.lru_cache(maxsize=None)
+def _search_index(kind):
+    """A card index: DNA on dense words, protein on the byte string, each
+    with a planted repeat (long matches)."""
+    from repro_torch.core.api import EraConfig, EraIndexer
+    a = ALPHABETS["dna" if kind == "words" else "protein"]
+    s = a.random_string(60_000, seed=9)
+    s[30_000:30_600] = s[1_000:1_600]
+    dev = EraIndexer(a, EraConfig(memory_bytes=1 << 16),
+                     device="cuda").build_device(s)
+    return s, a, dev
+
+
+def _search_rows(kind, m_pad, window, rng, b=700):
+    """Pattern rows of lengths 1..m_pad (planted substrings, patterns that
+    end at the text's terminal tail, random codes) and their windows:
+    routed, unrouted ([0, total): every trip runs) or empty."""
+    s, a, dev = _search_index(kind)
+    n = len(s) - 1
+    pats = []
+    for i in range(b):
+        m = int(rng.integers(1, m_pad + 1))
+        if i % 3 == 0:
+            p = int(rng.integers(0, n))
+            pats.append(s[p:p + m])
+        elif i % 3 == 1:
+            tail = s[n - min(m, n):n]
+            if kind == "bytes" and i % 2:  # into the terminal
+                tail = np.append(tail[1:], a.terminal_code).astype(np.uint8)
+            pats.append(tail if tail.size else s[:1])
+        else:
+            pats.append(rng.integers(0, len(a.symbols), m).astype(np.uint8))
+    padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad)
+    t = lambda x: torch.from_numpy(x).cuda()
+    len_t = t(lengths)
+    pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t,
+                                  kind == "words")
+    lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows, dev.spans,
+                             len_t, t(route), dev.k_route)
+    if window == "unrouted":
+        lo0, hi0 = torch.zeros_like(lo0), torch.full_like(hi0, dev.n_leaves)
+    elif window == "empty":
+        lo0 = torch.randint(0, dev.n_leaves + 1, lo0.shape, device="cuda",
+                            dtype=torch.int32)
+        hi0 = lo0.clone()
+    return dev, pat, mask, len_t, lo0.contiguous(), hi0.contiguous()
+
+
+def _searches(kind, dev, pat, mask, lengths, lim_p, lo0, hi0, bounds):
+    """(kernel, loop with the plain probe, loop of single-step kernels)."""
+    kw = dict(n_iter=dev.n_iter, bounds=bounds)
+    if kind == "words":
+        rows = (dev.s_text, dev.ell, pat, mask, lengths, lim_p, lo0, hi0)
+        return (ops.search_bounds_words(*rows, **kw),
+                tsearch.search_loop(tref.pattern_probe_words_ref, *rows, **kw),
+                tsearch.search_loop(ops.pattern_probe_words, *rows, **kw))
+    rows = (dev.s_text, dev.ell, pat, mask)
+    return (ops.search_bounds_bytes(*rows, lo0, hi0, **kw),
+            tsearch.search_loop(tref.pattern_probe_ref, *rows, None, None,
+                                lo0, hi0, **kw),
+            tsearch.search_loop(ops.pattern_probe, *rows, None, None, lo0,
+                                hi0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["routed", "unrouted", "empty"])
+@pytest.mark.parametrize("kind,m_pad", [(k, m) for k in SEARCH_M_PAD
+                                        for m in SEARCH_M_PAD[k]])
+def test_cuda_search_bounds(cuda_device, kind, m_pad, window):
+    """Each search kernel equals the loop with the plain probes and the
+    loop of single-step kernels, both bounds and the lower bound alone
+    (words: also with a pattern limit below the compare length), in one
+    launch."""
+    rng = np.random.default_rng(m_pad)
+    dev, pat, mask, lengths, lo0, hi0 = _search_rows(kind, m_pad, window,
+                                                     rng)
+    lim_cut = torch.clamp(lengths - torch.randint_like(lengths, 0, 8), min=0)
+    for bounds, lim_p in ((2, None), (1, None), (1, lim_cut)):
+        if lim_p is not None and kind == "bytes":
+            continue
+        ops.reset_launch_counts()
+        got, plain, steps = _searches(kind, dev, pat, mask, lengths, lim_p,
+                                      lo0, hi0, bounds)
+        assert ops.launch_counts()[f"search_bounds_{kind}"] == 1
+        assert got.shape == (bounds, pat.shape[0])
+        assert torch.equal(got, plain) and torch.equal(got, steps)
+        if window == "empty":
+            assert torch.equal(got[0], lo0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "bytes"])
+@pytest.mark.parametrize("b", [0, 1, 1 << 19, 1 << 20])
+def test_cuda_search_bounds_batch_sizes(cuda_device, kind, b):
+    """B = 0 and B = 1, and 2^20 and 2^21 rows (both bounds), where each
+    thread of the capped grid strides over several rows."""
+    rng = np.random.default_rng(b)
+    dev, pat, mask, lengths, lo0, hi0 = _search_rows(kind, 24, "routed", rng)
+    idx = torch.from_numpy(rng.integers(0, pat.shape[0], b)).cuda()
+    got, plain, steps = _searches(kind, dev, pat[idx].contiguous(),
+                                  mask[idx].contiguous(), lengths[idx], None,
+                                  lo0[idx], hi0[idx], 2)
+    assert got.shape == (2, b)
+    assert torch.equal(got, plain) and torch.equal(got, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "bytes"])
+def test_cuda_find_batch_is_one_search_launch(cuda_device, kind):
+    """A search batch launches its search kernel once and no single-step
+    probe; the ranges hold exactly each pattern's occurrences."""
+    s, a, dev = _search_index(kind)
+    rng = np.random.default_rng(4)
+    pats = [s[p:p + m] for p, m in zip(rng.integers(0, len(s) - 30, 40),
+                                       rng.integers(1, 24, 40))]
+    ops.reset_launch_counts()
+    found = dev.find_batch(pats)
+    counts = ops.launch_counts()
+    assert counts[f"search_bounds_{kind}"] == 1
+    assert counts["pattern_probe_words"] == counts["pattern_probe"] == 0
+    for p, got in zip(pats, found):
+        win = np.lib.stride_tricks.sliding_window_view(s[:-1], len(p))
+        assert got.tolist() == np.nonzero((win == p).all(1))[0].tolist()

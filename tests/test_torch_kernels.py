@@ -46,6 +46,7 @@ from repro_torch.kernels import pattern_probe as tprobe
 from repro_torch.kernels import probe_gather as tfused
 from repro_torch.kernels import range_gather as trg
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import search as tsearch
 from repro_torch.kernels import suffix_lcp as tslcp
 
 
@@ -370,6 +371,11 @@ def _no_fallback_calls():
         "flash_attention": (tflash, lambda: tflash.flash_attention(
             torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
             torch.zeros((1, 8, 2, 16)))),
+        "search_bounds_words": (tsearch, lambda: tsearch.search_bounds_words(
+            pt, pos, words, words, pos, None, pos, pos + 3, n_iter=4,
+            bounds=2)),
+        "search_bounds_bytes": (tsearch, lambda: tsearch.search_bounds_bytes(
+            s, pos, words, words, pos, pos + 3, n_iter=4, bounds=1)),
     }
 
 
@@ -377,7 +383,9 @@ def _no_fallback_calls():
                                     "pattern_probe", "pattern_probe_packed",
                                     "range_gather_packed", "suffix_lcp_words",
                                     "suffix_lcp_pairs", "probe_gather_words",
-                                    "probe_gather_packed", "flash_attention"])
+                                    "probe_gather_packed", "flash_attention",
+                                    "search_bounds_words",
+                                    "search_bounds_bytes"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
@@ -398,7 +406,7 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
                  "pattern_probe_packed_ref", "range_gather_packed_ref",
                  "suffix_lcp_words_ref", "suffix_lcp_pairs_ref",
                  "probe_gather_words_ref", "probe_gather_packed_ref",
-                 "flash_attention_ref"):
+                 "flash_attention_ref", "pattern_probe_words_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
@@ -440,8 +448,12 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     ops.probe_gather(sp, offs, keys, keys, 16)
     ops.flash_attention(torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 1, 16)),
                         torch.zeros((1, 4, 1, 16)))
+    ops.search_bounds_words(tt, offs, dense, dense, offs, None, offs,
+                            offs + 5, n_iter=3, bounds=2)
+    ops.search_bounds_bytes(sp, offs, keys, keys, offs, offs + 5, n_iter=3,
+                            bounds=1)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 13
+    assert len(ops.KERNELS) == 15
 
 
 def test_reset_clears_range_gather_pack_tallies(monkeypatch):
