@@ -44,8 +44,17 @@ Phases, each printing one JSON line:
               single-step kernels and a counted loop, on the serving
               batch, unrouted and empty windows, terminal-tail patterns,
               the lower bound alone, NW at and past the register
-              templates, B = 1, B = 0 and 2^20 rows);
+              templates, B = 1, B = 0 and 2^20 rows; the two elastic-range
+              gathers also on every NW template and two nw outside them,
+              0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end,
+              without a mask, with a mixed one and with every row off, on
+              the 2-, 4- and 8-bit dense texts and the protein and byte
+              strings, and in one launch of more than 2^31 output words);
 3. build    — ``EraIndexer(alphabet, EraConfig()).build_device(s)``;
+   build_profile — one more warm build per dataset under
+              ``torch.profiler``: device ms and calls of every kernel of
+              the build, the two gathers' ms and share of ``t_prepare_s``,
+              the device's busy share of the build;
 4. check    — ``ell`` is a permutation of the suffixes, and ``find_batch``
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
@@ -89,9 +98,13 @@ Phases, each printing one JSON line:
               loop of single-step kernels they replace, with this run's
               trips per row against ``n_iter``; ``flash_attention`` beside
               SDPA's time as ``library_ms``, with its bf16 ``design``;
-              ``range_gather_pack`` with the rows and key words its
+              the two elastic-range gathers with the rows and words their
               counted launches gathered, the excess weighted by those
-              rows, and the gather on sorted positions beside the sort).
+              rows, their ms in the profiled builds, the gather on sorted
+              positions (beside the sort for ``range_gather_pack``), and
+              under a persisting L2 window, which no kernel sets: it
+              measured slower); every kernel a build launches with its ms
+              in the profiled builds.
 
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, each find_fetch and serving_stack
@@ -155,6 +168,15 @@ FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
     "terminal": ("probe_gather_words", "search_bounds_words"),
     "protein": ("probe_gather_words", "probe_gather_packed"),
 }
+# the kernels a build_device launches, per dataset (build_profile's rows)
+BUILD_KERNELS = {"genome": ("kmer_histogram", "range_gather_words"),
+                 "protein": ("kmer_histogram", "range_gather_pack",
+                             "lcp_pairs")}
+GATHERS = ("range_gather_words", "range_gather_pack")
+# the gathers' edge cases: every NW template, two nw outside them, and
+# launches of 0, 1, 4099 and 2^22 + 5 rows (ragged against rows a thread)
+GATHER_NW = (1, 2, 3, 4, 5, 8, 16, 32, 64)
+GATHER_ROWS = (0, 1, 4099, (1 << 22) + 5)
 BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
 SERVE_REQUESTS = 1 << 14
@@ -441,13 +463,25 @@ def search_batch_launches(search, kernel: str, what: str) -> None:
 
 
 def counts_now() -> dict:
-    """``ops.launch_counts()`` plus the rows and key words that
-    ``range_gather_pack``'s counted launches gathered (its time scales with
-    them, so ROADMAP queue B ranks it by them, not by launches alone)."""
+    """``ops.launch_counts()`` plus the rows and words that the two
+    elastic-range gathers' counted launches gathered (their time scales
+    with them, so ROADMAP queue B ranks them by them, not by launches
+    alone)."""
     from repro_torch.kernels import ops
     return {**ops.launch_counts(),
-            "range_gather_pack_rows": ops.range_gather_pack.rows,
-            "range_gather_pack_words": ops.range_gather_pack.words}
+            **{f"{k}_{t}": getattr(ops.KERNELS[k], t)
+               for k in GATHERS for t in ("rows", "words")}}
+
+
+def kernel_of(key: str) -> str | None:
+    """The port kernel (``ops.KERNELS`` name) a profiler event belongs to:
+    the longest kernel name that begins the event's function name."""
+    import re
+    from repro_torch.kernels import ops
+    m = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
+    base = m.group(1) if m else key
+    names = [k for k in ops.KERNELS if base.startswith(k)]
+    return max(names, key=len) if names else None
 
 
 def attention_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
@@ -622,22 +656,33 @@ def lm_serving(cuda):
     return runs
 
 
-def device_breakdown(prof, span_s: float) -> dict:
-    """Device milliseconds by kernel name (top 8) and the device's busy
-    share of ``span_s``, the prefill and decode seconds ``serve`` timed
-    (the device total also holds the few ms of parameter init)."""
+def device_events(prof) -> list[tuple[float, str, int]]:
+    """(ms, name, calls) of every device-side event (kernels, copies and
+    sets) a profile recorded.  A host op such as ``aten::sort`` also
+    reports the device time of the kernels it launched, so summing every
+    row of ``key_averages()`` would count those kernels twice."""
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us:
+        if us and getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CPU:
             rows.append((us / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+    return rows
+
+
+def device_breakdown(prof, span_s: float, top: int | None = 8) -> dict:
+    """Device milliseconds and calls by kernel name (the ``top`` largest;
+    every one for None) and the device's busy share of ``span_s``: for
+    ``serve`` the prefill and decode seconds it timed (the device total
+    also holds the few ms of parameter init), for a build its wall."""
+    rows = sorted(device_events(prof), reverse=True)
     total = sum(r[0] for r in rows)
     return {"device_ms": total,
             "device_busy_share": total / (span_s * 1e3) if total else None,
-            "top_kernels": [{"name": k[:80], "ms": ms, "calls": c}
-                            for ms, k, c in rows[:8]]}
+            "top_kernels": [{"name": k[:80], "ms": ms, "calls": c,
+                             "kernel": kernel_of(k)}
+                            for ms, k, c in rows[:top]]}
 
 
 def lm_check(cuda):
@@ -794,6 +839,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.analytics_serve import make_query, serve_engine
+    from repro_torch.launch.gather_bench import persisting_l2_window
     from repro_torch.launch.query_serve import make_workload, serve_index
     from repro_torch.launch.serving import (
         AsyncServer,
@@ -1035,10 +1081,8 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages())
-        return us / 1e3 if us else None
+        ms = sum(r[0] for r in device_events(prof))
+        return ms if ms else None
 
     def serving_stack(dev, sx: np.ndarray, ax, name: str) -> dict:
         """``run_closed_loop`` in sync, async and cached mode, with fetch 0
@@ -1254,6 +1298,159 @@ def main() -> int:
                           "trips_mean": float(trips_l.to(torch.float64)
                                               .mean())}}
 
+    def gather_call(kernel: str):
+        return getattr(ops, kernel), getattr(kref, f"{kernel}_ref")
+
+    def edge_offsets(f: int, hi: int) -> torch.Tensor:
+        """int32[f] offsets in [0, hi], the last 64 at the end."""
+        offs = torch.randint(0, hi + 1, (f,), device=cuda, dtype=torch.int32)
+        k = min(f, 64)
+        if k:
+            offs[-k:] = torch.arange(hi - k + 1, hi + 1, device=cuda,
+                                     dtype=torch.int32)
+        return offs
+
+    def gather_edges(kernel: str, text, hi: int, spw: int, name: str) -> None:
+        """A redesigned gather against its plain version on every NW
+        template and two nw outside them (as far as the text's read
+        contract reaches), launches of GATHER_ROWS rows, offsets up to
+        ``hi`` (the text's end), without a mask, with a mixed one and with
+        every row masked off (exact)."""
+        fn, plain = gather_call(kernel)
+        limit = 2 * cfg.w_max + 8 if kernel == "range_gather_words" else 1e9
+        ws = [nw * spw for nw in GATHER_NW if nw * spw <= limit]
+        cases = 0
+        for w in ws:
+            for f in GATHER_ROWS:
+                offs = edge_offsets(f, hi)
+                for mask in (None, torch.rand(f, device=cuda) < 0.5,
+                             torch.zeros(f, dtype=torch.bool, device=cuda)):
+                    assert_equal(fn(text, offs, w, mask=mask),
+                                 plain(text, offs, w, mask),
+                                 f"{kernel} {name} w={w} rows={f} "
+                                 f"mask={None if mask is None else 'on'}")
+                    cases += 1
+        emit({"phase": "parity", "kernel": kernel, "text": name,
+              "case": "edges", "w": ws, "rows": list(GATHER_ROWS),
+              "masks": ["none", "mixed", "all off"], "cases": cases,
+              "max_abs_err": 0})
+
+    def gather_past_2_31(kernel: str, text, hi: int, w: int, nw: int,
+                         name: str) -> None:
+        """One launch with more than 2^31 output words (nw = 16 rows, as
+        ``REPRO_COMPACT=off`` reaches at w = 256): the rows whose words lie
+        past 2^31 against the plain version on those rows alone, a mixed
+        mask on; the 8 GiB output is freed after."""
+        fn, plain = gather_call(kernel)
+        first = (1 << 31) // nw
+        f = first + (1 << 20)
+        offs = edge_offsets(f, hi)
+        mask = offs % 7 != 0
+        out = fn(text, offs, w, mask=mask)
+        assert_equal(out[first:], plain(text, offs[first:], w, mask[first:]),
+                     f"{kernel} {name} past 2^31 words")
+        emit({"phase": "parity", "kernel": kernel, "text": name,
+              "case": "past 2^31 words", "rows": f, "w": w,
+              "words": f * nw, "rows_checked": f - first, "max_abs_err": 0})
+        del out, offs, mask
+        torch.cuda.empty_cache()
+
+    def l2_window_row(fn, buf: torch.Tensor) -> dict:
+        """The kernel's time without and under a persisting L2 window over
+        its text (the measuring harness of ``gather_bench``; no kernel of
+        the port sets one), in turns off, on, on, off."""
+        off = [cuda_ms(fn)]
+        with persisting_l2_window(buf) as ratio:
+            on = [cuda_ms(fn), cuda_ms(fn)]
+        off.append(cuda_ms(fn))
+        return {"off_ms": float(np.median(off)), "on_ms": float(np.median(on)),
+                "hit_ratio": ratio}
+
+    def build_bounds(counts: dict, n_sym: int) -> dict:
+        """Least ms of the port kernels a counted build launched, from its
+        launches and the gathers' row and word tallies: a gather moves its
+        offsets, mask bytes and keys (its scattered text reads, which can
+        hit L2, left out), ``lcp_pairs`` both key rows and three outputs
+        per row, ``kmer_histogram`` the string once per launch."""
+        b = {k: ((5 * counts[f"{k}_rows"] + 4 * counts[f"{k}_words"])
+                 / HBM_BYTES_PER_S * 1e3) for k in GATHERS}
+        b["lcp_pairs"] = ((8 * counts["range_gather_pack_words"]
+                           + 12 * counts["range_gather_pack_rows"])
+                          / HBM_BYTES_PER_S * 1e3)
+        b["kmer_histogram"] = (counts["kmer_histogram"] * n_sym
+                               / HBM_BYTES_PER_S * 1e3)
+        return b
+
+    def build_profile(name: str, sx: np.ndarray, ax, t_prepare_s: float,
+                      counts: dict) -> dict:
+        """One more warm ``build_device`` of ``name`` (the counted build's
+        tallies and seconds stay as they were) under ``torch.profiler``:
+        device ms and calls per kernel name, the two gathers' ms and
+        their share of the counted build's ``t_prepare_s``, the device's
+        busy share of the build's wall, and each port kernel's ms beside
+        its bound for the counted build's work (``counts``).  CUDA events
+        around each launch of the build's port kernels give the same ms
+        where the profiler records none for a kernel loaded with ctypes."""
+        from torch.profiler import ProfilerActivity, profile
+        events = {k: [] for k in BUILD_KERNELS[name]}
+        saved = {k: getattr(ops, k) for k in events}
+
+        def timed(kname, fn):
+            def call(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                events[kname].append((e0, e1))
+                return out
+            return call
+
+        torch.cuda.synchronize()
+        report = BuildReport(VerticalStats(), PrepareStats())
+        try:
+            for k, fn in saved.items():
+                setattr(ops, k, timed(k, fn))
+            # device activity only: recording every host op of a build
+            # costs minutes of post-processing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                dev = EraIndexer(ax, cfg).build_device(sx, report)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for k, fn in saved.items():
+                setattr(ops, k, fn)
+        del dev
+        torch.cuda.empty_cache()
+        brk = device_breakdown(prof, wall, top=None)
+        per = {k: {"ms": 0.0, "calls": 0} for k in events}
+        for r in brk["top_kernels"]:
+            if r["kernel"] in per:
+                per[r["kernel"]]["ms"] += r["ms"]
+                per[r["kernel"]]["calls"] += r["calls"]
+        bounds = build_bounds(counts, len(sx))
+        for k, evs in events.items():
+            per[k]["event_ms"] = sum(a.elapsed_time(b) for a, b in evs)
+            per[k]["launches"] = len(evs)
+            per[k]["ms_in_build"] = (per[k]["ms"] if per[k]["calls"]
+                                     else per[k]["event_ms"])
+            per[k]["source"] = "profiler" if per[k]["calls"] else "events"
+            per[k]["bound_ms"] = bounds[k]
+            per[k]["excess_ms"] = per[k]["ms_in_build"] - bounds[k]
+        gathers = sum(v["ms_in_build"] for k, v in per.items()
+                      if k in GATHERS)
+        row = {"phase": "build_profile", "dataset": name, "n": len(sx) - 1,
+               "t_total_s": wall, "t_prepare_s": report.t_prepare,
+               "counted_t_prepare_s": t_prepare_s,
+               "device_ms": brk["device_ms"],
+               "device_busy_share": brk["device_busy_share"],
+               "port_kernels": per, "gathers_ms": gathers,
+               "gathers_share_of_t_prepare": gathers / (t_prepare_s * 1e3),
+               "kernels": brk["top_kernels"]}
+        emit(row)
+        return row
+
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -1302,6 +1499,9 @@ def main() -> int:
               "plain_ms": cuda_ms(
                   lambda: kref.range_gather_words_ref(pt, offs, w)),
               "bound_ms": b_ms, "bound_by": b_by})
+    gather_edges("range_gather_words", pt, n_real, pt.syms_per_word, "genome")
+    gather_past_2_31("range_gather_words", pt, n_real,
+                     16 * pt.syms_per_word, 16, "genome")
 
     b = 512
     m_pad = 64
@@ -1385,6 +1585,9 @@ def main() -> int:
         pc_alpha, extra=2 * cfg.w_max + 8, device=cuda)}
     for name, ptx in dense_texts.items():
         nr = ptx.n_real
+        if name == "protein_class":
+            gather_edges("range_gather_words", ptx, nr, ptx.syms_per_word,
+                         name)
         tail = np.arange(max(0, nr - 255), nr + 1)
         offs = torch.from_numpy(np.concatenate(
             [rng.integers(0, nr + 1, size=f - tail.size), tail]
@@ -1452,10 +1655,17 @@ def main() -> int:
                       lambda: kref.range_gather_pack_ref(sp, offs, w)),
                   "bound_ms": b_ms, "bound_by": b_by})
         del got, want
+        gather_edges("range_gather_pack", sp, sp.shape[0] - 1, 4, name)
+        if name == "protein":
+            gather_past_2_31("range_gather_pack", sp, sp.shape[0] - 1, 64, 16,
+                             name)
 
-    fused_parity("byte", packing.pack_text(s_byte, byte_alpha,
-                                           extra=2 * cfg.w_max + 8,
-                                           device=cuda), s_byte, byte_alpha)
+    pt_byte = packing.pack_text(s_byte, byte_alpha, extra=2 * cfg.w_max + 8,
+                                device=cuda)
+    gather_edges("range_gather_words", pt_byte, pt_byte.n_real,
+                 pt_byte.syms_per_word, "byte")
+    fused_parity("byte", pt_byte, s_byte, byte_alpha)
+    del pt_byte
 
     # lcp_pairs on sorted byte-key rows: a repeated eighth of the offsets
     # gives identical neighbours, the byte text bytes >= 128
@@ -1556,6 +1766,7 @@ def main() -> int:
           "k_route": dev.k_route, "n_iter": dev.n_iter,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": after_build})
+    t_prepare, build_counts = {"genome": report.t_prepare}, after_build
     s_dev = torch.from_numpy(s).to(cuda)
     qrng = np.random.default_rng(11)
     pats = make_workload(s, qrng, batch=64, min_len=4, max_len=24,
@@ -1662,14 +1873,19 @@ def main() -> int:
     assert_equal(got, want, "range_gather_words (main-path shape)")
     b_ms, b_by = bound(*gather_work(ell.shape[0], got.shape[1],
                                     pt.words.shape[0]))
+    ell_sorted = torch.sort(ell).values
     rows.append({"name": "range_gather_words",
                  "replaces": "src/repro/kernels/packed_gather.py:265",
-                 "shape": f"rows={ell.shape[0]} w=4",
+                 "shape": f"rows={ell.shape[0]} w=4", "rows": ell.shape[0],
                  "ms": cuda_ms(lambda: ops.range_gather_words(pt, ell, 4)),
                  "plain_ms": cuda_ms(
                      lambda: kref.range_gather_words_ref(pt, ell, 4), reps=3),
-                 "bound_ms": b_ms, "bound_by": b_by})
-    del got, want
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "sorted_offsets_ms": cuda_ms(
+                     lambda: ops.range_gather_words(pt, ell_sorted, 4)),
+                 "l2_window": l2_window_row(
+                     lambda: ops.range_gather_words(pt, ell, 4), pt.words)})
+    del got, want, ell_sorted
     # pattern_probe_words: one search step of a served batch (2B rows)
     pats = make_workload(s, qrng, batch=256, min_len=4, max_len=24,
                          planted_frac=0.7, n_symbols=len(alpha.symbols))
@@ -1731,6 +1947,8 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by})
     del dev, ell, pt, s_dev, s_pad, got, want, pos2, pat2, mask2, len2
     torch.cuda.empty_cache()
+    profiles = {"genome": build_profile("genome", s, alpha,
+                                        t_prepare["genome"], build_counts)}
 
     # ---- 3-5. the protein path (build, check, serving; counted) ------------
     s_dna = s
@@ -1757,6 +1975,7 @@ def main() -> int:
           "packed": dev.packed, "string_nbytes": dev.string_nbytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": after_build})
+    t_prepare["protein"] = report.t_prepare
     for name in ("kmer_histogram", "range_gather_pack", "lcp_pairs"):
         if after_build[name] <= 0:
             raise AssertionError(f"{name} was never launched by the "
@@ -1815,7 +2034,9 @@ def main() -> int:
                      lambda: kref.range_gather_pack_ref(sp, ell, 4), reps=3),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "aligned_offsets_ms": cuda_ms(
-                     lambda: ops.range_gather_pack(sp, ell_aligned, 4))})
+                     lambda: ops.range_gather_pack(sp, ell_aligned, 4)),
+                 "l2_window": l2_window_row(
+                     lambda: ops.range_gather_pack(sp, ell, 4), sp)})
     # the untried fix of ROADMAP queue B: sort the positions first (the
     # gather on sorted rows, and the sort itself with its permutation)
     ell_sorted = torch.sort(ell).values
@@ -1867,6 +2088,8 @@ def main() -> int:
 
     del dev, ell, got, want, pos2, pat2, mask2
     torch.cuda.empty_cache()
+    profiles["protein"] = build_profile("protein", s, protein,
+                                        t_prepare["protein"], after_build)
 
     # ---- 6. the tree + analytics path per dataset (counted) ----------------
     def tree_path(name: str, sx: np.ndarray, ax) -> dict:
@@ -2204,14 +2427,20 @@ def main() -> int:
              tree["genome"]["counts"], tree["protein"]["counts"],
              bl["counts"], lm_main]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
-    gathered = {k: sum(c.get(f"range_gather_pack_{k}", 0) for c in paths)
-                for k in ("rows", "words")}
-    for row in rows:  # its excess from the rows its launches read
-        if row["name"] == "range_gather_pack":
-            row.update(rows_gathered=gathered["rows"],
-                       words_gathered=gathered["words"],
-                       row_weighted_excess_ms=gathered["rows"] / row["rows"]
+    for row in rows:  # a gather's excess from the rows its launches read
+        if row["name"] in GATHERS:
+            got_rows, got_words = (sum(c.get(f"{row['name']}_{k}", 0)
+                                       for c in paths)
+                                   for k in ("rows", "words"))
+            row.update(rows_gathered=got_rows, words_gathered=got_words,
+                       row_weighted_excess_ms=got_rows / row["rows"]
                        * (row["ms"] - row["bound_ms"]))
+        in_build = {d: {k: p["port_kernels"][row["name"]][k]
+                        for k in ("ms_in_build", "bound_ms", "excess_ms")}
+                    for d, p in profiles.items()
+                    if row["name"] in p["port_kernels"]}
+        if in_build:
+            row["ms_in_build"] = in_build
     kernels = []
     for row in rows:
         kernels.append({"name": row["name"], "route": "cuda",
@@ -2233,7 +2462,8 @@ def main() -> int:
                                     "two_launch_ms", "large", "library",
                                     "design", "sorted_offsets_ms",
                                     "sort_ms", "rows_gathered",
-                                    "words_gathered",
+                                    "words_gathered", "ms_in_build",
+                                    "l2_window",
                                     "row_weighted_excess_ms", "loop_ms",
                                     "replaces_loop", "bound_note",
                                     "trips_max", "trips_mean", "n_iter",

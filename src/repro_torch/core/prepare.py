@@ -205,11 +205,15 @@ def _word_step(pt: PackedText, state: PrepareState, offs, major, active, *,
     """Steps 1-3 on dense word keys: (L, start, lcp, c1, c2) in sorted
     order."""
     g, f = state.L.shape
-    # 1. read the dense word keys (range_gather_words kernel on the card)
-    keys, tie = packing.word_sort_keys(pt, offs.reshape(-1), w,
-                                       gather_words=kops.range_gather_words)
+    # 1. read the dense word keys (range_gather_words kernel on the card);
+    #    inactive rows come back zero from the gather itself
+    flat_active = active.reshape(-1)
+    keys, tie = packing.word_sort_keys(
+        pt, offs.reshape(-1), w,
+        gather_words=lambda p, o, w_: kops.range_gather_words(
+            p, o, w_, mask=flat_active))
     nw = keys.shape[1]
-    keys = torch.where(active[..., None], keys.view(g, f, nw), 0)
+    keys = keys.view(g, f, nw)
     tie = torch.where(active, tie.view(g, f), 0)
 
     # 2. segmented stable sort; the tiebreak lane is the least significant
@@ -237,10 +241,12 @@ def _byte_step(text, state: PrepareState, offs, major, active, *, w: int):
     """Steps 1-3 on byte keys: (L, start, lcp, c1, c2) in sorted order."""
     g, f = state.L.shape
     # 1. read w symbols after every active leaf (range_gather_pack kernel on
-    #    the byte string, range_gather_packed on a dense text)
-    keys = kops.range_gather(text, offs.reshape(-1), w)
+    #    the byte string, range_gather_packed on a dense text); inactive
+    #    rows are zero
+    keys = kops.range_gather(text, offs.reshape(-1), w,
+                             mask=active.reshape(-1))
     nw = keys.shape[1]
-    keys = torch.where(active[..., None], keys.view(g, f, nw), 0)
+    keys = keys.view(g, f, nw)
 
     # 2. segmented stable sort on (major, key words compared unsigned):
     #    byte codes >= 128 set bit 31 of a key word (hazard C5)

@@ -26,7 +26,7 @@ SOURCES = ("range_gather_words", "pattern_probe_words", "kmer_histogram",
            "pattern_probe_packed", "range_gather_packed", "suffix_lcp_words",
            "suffix_lcp_pairs", "probe_gather_words", "probe_gather_packed",
            "flash_attention", "flash_attention_sm90", "search_bounds_words",
-           "search_bounds_bytes")
+           "search_bounds_bytes", "l2_window")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,15 +109,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, argtypes: list):
-    """The C entry point ``name`` of library ``name``, its signature set
-    once (``c_void_p`` pointers and stream, sized integers) and cached."""
-    fn = _ENTRIES.get(name)
+def entry(name: str, argtypes: list, symbol: str | None = None):
+    """The C entry point ``symbol`` (default ``name``) of library ``name``,
+    its signature set once (``c_void_p`` pointers and stream, sized
+    integers) and cached."""
+    symbol = symbol or name
+    fn = _ENTRIES.get(symbol)
     if fn is None:
-        fn = getattr(library(name), name)
+        fn = getattr(library(name), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _ENTRIES[name] = fn
+        _ENTRIES[symbol] = fn
     return fn
 
 

@@ -27,6 +27,22 @@ __device__ __forceinline__ uint32_t dense_read_word(
   return (aligned & keep) | (sub_word & ~keep);
 }
 
+// The row-wise form of dense_read_word for a kernel that has already read
+// the row's text words: `hi` and `lo` are the words that straddle output
+// word j, `sh` = BITS * (off % spw), and `rem` the real symbols the row
+// has left at output word 0 (n_real - off, clamped to [0, 2^30]).
+template <int BITS>
+__device__ __forceinline__ uint32_t dense_row_word(uint32_t hi, uint32_t lo,
+                                                   int sh, int rem, int j,
+                                                   uint32_t sub_word) {
+  constexpr int SPW = 32 / BITS;
+  uint32_t aligned = __funnelshift_l(lo, hi, sh);
+  int v = rem - SPW * j;
+  v = v < 0 ? 0 : (v > SPW ? SPW : v);
+  uint32_t keep = v > 0 ? (0xFFFFFFFFu << ((SPW - v) * BITS)) : 0u;
+  return (aligned & keep) | (sub_word & ~keep);
+}
+
 // 4 right-aligned bits-wide fields of c -> the 4 big-endian bytes of a word
 // (the bit interleave of repro_torch.core.packing._spread_to_bytes).
 __device__ __forceinline__ uint32_t spread_to_bytes(uint32_t c, int bits) {

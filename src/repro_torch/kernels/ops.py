@@ -93,10 +93,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count (and ``range_gather_pack``'s row tallies)."""
+    """Zero every launch count (and the two elastic-range gathers' row and
+    word tallies)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    range_gather_pack.rows = range_gather_pack.words = 0
+    for fn in (range_gather_words, range_gather_pack):
+        fn.rows = fn.words = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -112,14 +114,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def range_gather(s_text, offs: torch.Tensor, w: int) -> torch.Tensor:
+def range_gather(s_text, offs: torch.Tensor, w: int,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
     """(F, w//4) byte sort keys at each offset, dispatched on the text
     (``repro.kernels.ops.range_gather_impl``): ``range_gather_packed`` for
     a dense :class:`PackedText`, ``range_gather_pack`` for the
-    terminal-padded byte string — identical keys either way."""
+    terminal-padded byte string — identical keys either way.  Rows whose
+    ``mask`` is False are zero: in the ``range_gather_pack`` kernel, by a
+    ``torch.where`` after ``range_gather_packed``."""
     if isinstance(s_text, PackedText):
-        return range_gather_packed(s_text, offs, w)
-    return range_gather_pack(s_text, offs, w)
+        keys = range_gather_packed(s_text, offs, w)
+        return keys if mask is None else torch.where(mask[:, None], keys, 0)
+    return range_gather_pack(s_text, offs, w, mask)
 
 
 def probe_gather(s_text, pos: torch.Tensor, pat_words: torch.Tensor,

@@ -2,7 +2,8 @@
 
 * :func:`range_gather_words` — ``csrc/range_gather_words.cu``, the port of
   ``repro/kernels/packed_gather.py:range_gather_words``: ``ceil(w/spw)``
-  shift-aligned, terminal-substituted dense words per offset.
+  shift-aligned, terminal-substituted dense words per offset, rows under
+  an optional mask zeroed in the kernel.
 * :func:`pattern_probe_words` — ``csrc/pattern_probe_words.cu``, the port
   of ``repro/kernels/packed_gather.py:pattern_probe_words``: the −1/0/+1
   verdict of a masked dense pattern against the suffix at each position.
@@ -22,7 +23,8 @@
 Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
 counts its launches in its ``launches`` attribute, where it launches and
-nowhere else.
+nowhere else; ``range_gather_words`` also tallies the ``rows`` and
+``words`` its launches gathered.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raise on a device mix or on
-    a device that is neither the CPU nor CUDA."""
+def _on_cpu(*tensors: torch.Tensor | None) -> bool:
+    """True when every tensor (None: an optional one left out) lies on the
+    CPU; raise on a device mix or on a device that is neither the CPU nor
+    CUDA."""
+    tensors = [t for t in tensors if t is not None]
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
@@ -85,35 +89,54 @@ def _stream(device: torch.device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
 
-def range_gather_words(pt: PackedText, offs: torch.Tensor,
-                       w: int) -> torch.Tensor:
+def _check_mask(mask: torch.Tensor | None, f: int) -> None:
+    """A row mask is a contiguous bool vector with one entry per offset."""
+    if mask is not None:
+        _require(mask, "mask", torch.bool, 1)
+        if mask.shape[0] != f:
+            raise ValueError(f"mask has {mask.shape[0]} rows, offs {f}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def range_gather_words(pt: PackedText, offs: torch.Tensor, w: int,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
     """(F, ceil(w/spw)) int32 dense words (uint32 bit patterns) at each
     offset, bit-identical to :func:`repro_torch.core.packing.gather_words_dense`.
 
-    ``offs``: int32[F] offsets in ``[0, n_real]``.
+    ``offs``: int32[F] offsets in ``[0, n_real]``.  ``mask``: bool[F] or
+    None; a row whose mask is False is all zero words and reads no text
+    (``torch.where(mask[:, None], keys, 0)``, fused).
     """
-    if _on_cpu(pt.words, offs):
-        return _ref.range_gather_words_ref(pt, offs, w)
+    if _on_cpu(pt.words, offs, mask):
+        return _ref.range_gather_words_ref(pt, offs, w, mask)
     _require(pt.words, "words", torch.int32, 1)
     _require(offs, "offs", torch.int32, 1)
     _check_extra(pt, w)
     nw = -(-w // pt.syms_per_word)
     f = offs.shape[0]
+    _check_mask(mask, f)
     out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
     if f == 0:
         return out
     fn = _build.entry("range_gather_words",
-              [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P])
+              [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P, _P])
     with torch.cuda.device(offs.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
                 nw, pt.bits, pt.n_real, _sub_word(pt.bits, pt.terminal),
-                out.data_ptr(), _stream(offs.device))
+                _ptr(mask), out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_words")
     range_gather_words.launches += 1
+    range_gather_words.rows += f
+    range_gather_words.words += f * nw
     return out
 
 
 range_gather_words.launches = 0
+range_gather_words.rows = 0
+range_gather_words.words = 0
 
 
 def pattern_probe_words(pt: PackedText, pos: torch.Tensor,

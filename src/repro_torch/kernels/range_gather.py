@@ -3,7 +3,8 @@
 :func:`range_gather_pack` runs ``csrc/range_gather_pack.cu``, the port of
 ``repro/kernels/range_gather.py:range_gather_pack``, for CUDA tensors and
 the plain version (:func:`repro_torch.kernels.ref.range_gather_pack_ref`)
-for CPU tensors.  Launches are counted in ``range_gather_pack.launches``,
+for CPU tensors; an optional row mask zeroes rows in the kernel.
+Launches are counted in ``range_gather_pack.launches``,
 and the rows and key words they gathered in ``range_gather_pack.rows``
 and ``range_gather_pack.words`` (the kernel's time scales with them, so a
 launch count alone does not say what the launches cost).
@@ -17,7 +18,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.packed_gather import _on_cpu, _require, _stream
+from repro_torch.kernels.packed_gather import (
+    _check_mask,
+    _on_cpu,
+    _ptr,
+    _require,
+    _stream,
+)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -32,32 +39,34 @@ def require_byte_text(s: torch.Tensor) -> None:
                          "uint8 tensor (a fresh upload is)")
 
 
-def range_gather_pack(s_padded: torch.Tensor, offs: torch.Tensor,
-                      w: int) -> torch.Tensor:
+def range_gather_pack(s_padded: torch.Tensor, offs: torch.Tensor, w: int,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
     """(F, w//4) int32 big-endian byte keys (uint32 bit patterns) of the
     ``w`` symbols at each offset, every symbol index clamped to
     ``len(s_padded) - 1`` — bit-identical to
     :func:`repro_torch.core.packing.gather_pack`.
 
     ``s_padded``: the terminal-padded uint8 string; ``offs``: int32[F]
-    offsets ``>= 0``.
+    offsets ``>= 0``.  ``mask``: bool[F] or None; a row whose mask is
+    False is all zero words and reads no text.
     """
     if w % 4:
         raise ValueError(f"pack width must be a multiple of 4, got {w}")
-    if _on_cpu(s_padded, offs):
-        return _ref.range_gather_pack_ref(s_padded, offs, w)
+    if _on_cpu(s_padded, offs, mask):
+        return _ref.range_gather_pack_ref(s_padded, offs, w, mask)
     require_byte_text(s_padded)
     _require(offs, "offs", torch.int32, 1)
     nw = w // 4
     f = offs.shape[0]
+    _check_mask(mask, f)
     out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
     if f == 0:
         return out
     fn = _build.entry("range_gather_pack",
-                      [_P, _I64, _P, _I64, _I32, _P, _P])
+                      [_P, _I64, _P, _I64, _I32, _P, _P, _P])
     with torch.cuda.device(offs.device):
         rc = fn(s_padded.data_ptr(), s_padded.shape[0], offs.data_ptr(), f,
-                nw, out.data_ptr(), _stream(offs.device))
+                nw, _ptr(mask), out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_pack")
     range_gather_pack.launches += 1
     range_gather_pack.rows += f

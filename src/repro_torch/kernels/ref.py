@@ -20,13 +20,29 @@ from repro_torch.core.packing import (  # noqa: F401  (shared implementations)
     PackedText,
     extract_sym,
     flip_sign,
-    gather_pack as range_gather_pack_ref,
+    gather_pack,
     gather_pack_dense as range_gather_packed_ref,
-    gather_words_dense as range_gather_words_ref,
+    gather_words_dense,
     lcp_words,
     lcp_words_limited,
     word_limit,
 )
+
+
+def _masked(keys: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    return keys if mask is None else torch.where(mask[:, None], keys, 0)
+
+
+def range_gather_words_ref(pt: PackedText, offs: torch.Tensor, w: int,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gather_words_dense`, rows whose ``mask`` is False zeroed."""
+    return _masked(gather_words_dense(pt, offs, w), mask)
+
+
+def range_gather_pack_ref(s_padded: torch.Tensor, offs: torch.Tensor, w: int,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gather_pack`, rows whose ``mask`` is False zeroed."""
+    return _masked(gather_pack(s_padded, offs, w), mask)
 
 
 def probe_compare_ref(sw: torch.Tensor, pat_words: torch.Tensor) -> torch.Tensor:

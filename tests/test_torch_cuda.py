@@ -7,6 +7,7 @@ no JAX, so it also runs where only PyTorch is installed.  Tolerance:
 exact for the integer kernels; ``flash_attention`` states its own.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -50,6 +51,135 @@ def test_cuda_range_gather_words(cuda_device, alpha):
     for w in (4, 16, 64, 256):
         got = tpg.range_gather_words(pt, offs, w)
         assert torch.equal(got, tref.range_gather_words_ref(pt, offs, w))
+
+
+GATHER_NW = (1, 2, 3, 4, 5, 8, 16, 32, 64)  # the templates and two others
+GATHER_ROWS = (0, 1, 1023, 4099)  # not multiples of the rows per thread
+
+
+def _gather_offsets(f, hi, device, seed):
+    """int32[f] offsets in [0, hi], the last ones at and just below hi."""
+    g = torch.Generator().manual_seed(seed)
+    offs = torch.randint(0, hi + 1, (f,), generator=g, dtype=torch.int32)
+    k = min(f, 8)
+    if k:
+        offs[-k:] = torch.arange(hi - k + 1, hi + 1, dtype=torch.int32)
+    return offs.to(device)
+
+
+def _gather_masks(f, device):
+    g = torch.Generator().manual_seed(f)
+    return (None, (torch.rand(f, generator=g) < 0.5).to(device),
+            torch.zeros(f, dtype=torch.bool, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", GATHER_NW)
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_cuda_range_gather_words_buckets(cuda_device, alpha, nw):
+    """Every NW template (and nw outside them) at bits 2, 4 and 8: ragged
+    row counts, offsets up to n_real, with and without the row mask."""
+    a = ALPHABETS[alpha]
+    spw = 32 // a.dense_bits
+    w = nw * spw
+    s = a.random_string(20_000, seed=nw)
+    pt = tpk.pack_text(s, a, extra=w + 8, device=cuda_device)
+    for f in GATHER_ROWS:
+        offs = _gather_offsets(f, pt.n_real, cuda_device, seed=f + nw)
+        for mask in _gather_masks(f, cuda_device):
+            got = tpg.range_gather_words(pt, offs, w, mask=mask)
+            want = tref.range_gather_words_ref(pt, offs, w, mask)
+            assert got.shape == (f, nw) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", GATHER_NW)
+@pytest.mark.parametrize("alpha", ["protein", "byte"])
+def test_cuda_range_gather_pack_buckets(cuda_device, alpha, nw):
+    """Every NW template (and nw outside them) on a byte string: ragged
+    row counts, offsets to the end of the padding (the clamped tail),
+    with and without the row mask."""
+    s, sp = _byte_text(alpha, 20_000, cuda_device)
+    for f in GATHER_ROWS:
+        offs = _gather_offsets(f, sp.shape[0] - 1, cuda_device, seed=f + nw)
+        for mask in _gather_masks(f, cuda_device):
+            got = trg.range_gather_pack(sp, offs, 4 * nw, mask=mask)
+            want = tref.range_gather_pack_ref(sp, offs, 4 * nw, mask)
+            assert got.shape == (f, nw) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 2, 4, 64])
+def test_cuda_gathers_large_launches(cuda_device, nw):
+    """From 2^22 rows on, the gathers take several rows a thread (NW 1, 2)
+    or four words a lane (NW >= 4): both kernels, with and without the
+    row mask, 2^22 + 5 rows."""
+    f = (1 << 22) + 5
+    a = ALPHABETS["dna"]
+    pt = tpk.pack_text(a.random_string(300_000, seed=nw), a, extra=16 * nw + 8,
+                       device=cuda_device)
+    s, sp = _byte_text("protein", 300_000, cuda_device)
+    mask = torch.rand(f, device=cuda_device) < 0.7
+    offs_w = _gather_offsets(f, pt.n_real, cuda_device, seed=nw)
+    offs_p = _gather_offsets(f, sp.shape[0] - 1, cuda_device, seed=nw)
+    for m in (None, mask):
+        assert torch.equal(tpg.range_gather_words(pt, offs_w, 16 * nw, mask=m),
+                           tref.range_gather_words_ref(pt, offs_w, 16 * nw, m))
+        assert torch.equal(trg.range_gather_pack(sp, offs_p, 4 * nw, mask=m),
+                           tref.range_gather_pack_ref(sp, offs_p, 4 * nw, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_stream", [False, True])
+@pytest.mark.parametrize("kind", ["words", "pack"])
+def test_cuda_gather_l2_window(cuda_device, kind, side_stream):
+    """Under the measuring harness's persisting L2 window and without it
+    the keys are the same; after the window the stream holds the window
+    it held before and the device its persisting limit."""
+    from repro_torch.launch.gather_bench import (
+        l2_window_state,
+        persisting_l2_window,
+    )
+    stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+    with torch.cuda.stream(stream):
+        if kind == "words":
+            a = ALPHABETS["dna"]
+            text = tpk.pack_text(a.random_string(200_000, seed=3), a,
+                                 extra=72, device=cuda_device)
+            offs = _gather_offsets(65_537, text.n_real, cuda_device, seed=3)
+            call = lambda m: tpg.range_gather_words(text, offs, 64, mask=m)
+            want, buf = tref.range_gather_words_ref(text, offs, 64), text.words
+        else:
+            _, text = _byte_text("protein", 200_000, cuda_device)
+            offs = _gather_offsets(65_537, text.shape[0] - 1, cuda_device,
+                                   seed=3)
+            call = lambda m: trg.range_gather_pack(text, offs, 4, mask=m)
+            want, buf = tref.range_gather_pack_ref(text, offs, 4), text
+        mask = offs % 3 != 0
+        before = l2_window_state(stream)
+        for windowed in (False, True, True, False):
+            with (persisting_l2_window(buf) if windowed
+                  else contextlib.nullcontext()):
+                assert torch.equal(call(None), want)
+                assert torch.equal(call(mask),
+                                   torch.where(mask[:, None], want, 0))
+            torch.cuda.synchronize()
+            assert l2_window_state(stream) == before
+
+
+@pytest.mark.cuda
+def test_cuda_range_gather_words_tallies(cuda_device):
+    """The rows and words that range_gather_words' launches gathered."""
+    a = ALPHABETS["dna"]
+    pt = tpk.pack_text(a.random_string(5_000, seed=2), a, extra=264,
+                       device=cuda_device)
+    offs = _gather_offsets(300, pt.n_real, cuda_device, seed=2)
+    ops.reset_launch_counts()
+    for w in (4, 64, 256):
+        tpg.range_gather_words(pt, offs, w, mask=offs > 100)
+    assert tpg.range_gather_words.launches == 3
+    assert tpg.range_gather_words.rows == 3 * 300
+    assert tpg.range_gather_words.words == 300 * (1 + 4 + 16)
 
 
 @pytest.mark.cuda

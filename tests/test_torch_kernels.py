@@ -84,6 +84,92 @@ def test_range_gather_words_tile_straddle():
     np.testing.assert_array_equal(tpk.words_to_numpy(got), np.asarray(pallas))
 
 
+MASK_KINDS = ("all", "none", "mixed")
+
+
+def _row_mask(kind, f, rng):
+    if kind == "all":
+        return np.ones(f, bool)
+    if kind == "none":
+        return np.zeros(f, bool)
+    return rng.random(f) < 0.5
+
+
+@pytest.mark.parametrize("mask_kind", MASK_KINDS)
+@pytest.mark.parametrize("alpha,n,f,w", [
+    (DNA, 900, 41, 16), (DNA, 700, 1, 64), (DNA, 300, 0, 16),
+    (PROTEIN_CLASS, 800, 37, 32), (BYTE, 500, 29, 8), (BYTE, 400, 1, 256),
+], ids=lambda v: getattr(v, "name", v))
+def test_range_gather_words_masked_equal(alpha, n, f, w, mask_kind):
+    """The masked plain version == JAX's ``jnp.where(active, gather, 0)``
+    of the elastic step, the gather as Pallas (interpret) and as its jnp
+    reference; offsets at and just before ``n_real``."""
+    rng = np.random.default_rng(n + f + w)
+    s, jt, tt = _texts(alpha, n, w + 8, seed=n)
+    offs = rng.integers(0, n + 1, size=f).astype(np.int32)
+    offs[-2:] = [n - 1, n][-min(f, 2):] if f else []
+    mask = _row_mask(mask_kind, f, rng)
+    jm = jnp.asarray(mask)[:, None]
+    want = np.asarray(jnp.where(jm, jref.range_gather_words_ref(
+        jt, jnp.asarray(offs), w), jnp.uint32(0)))
+    if f:
+        pallas = j_gather(jt, jnp.asarray(offs), w, tile=128, interpret=True)
+        np.testing.assert_array_equal(
+            np.asarray(jnp.where(jm, pallas, jnp.uint32(0))), want)
+    got = tpg.range_gather_words(tt, torch.from_numpy(offs), w,
+                                 mask=torch.from_numpy(mask))
+    assert got.shape == (f, -(-w // tt.syms_per_word))
+    np.testing.assert_array_equal(tpk.words_to_numpy(got), want)
+
+
+@pytest.mark.parametrize("mask_kind", MASK_KINDS)
+@pytest.mark.parametrize("name,n,f,w", [
+    ("protein", 500, 37, 16), ("protein", 300, 1, 4), ("protein", 600, 45, 256),
+    ("byte", 400, 29, 32), ("byte", 200, 0, 8),
+])
+def test_range_gather_pack_masked_equal(name, n, f, w, mask_kind):
+    """The masked plain version == JAX's ``jnp.where(active, gather, 0)``
+    on the terminal-padded string (Pallas interpret and the jnp
+    reference); offsets at ``n_real`` and at the end of the padding."""
+    rng = np.random.default_rng(n + f + w)
+    a = ALPHABETS[name]
+    sp = a.pad_string(a.random_string(n, seed=n), extra=w + 8)
+    offs = rng.integers(0, n + 1, size=f).astype(np.int32)
+    edges = [n - 1, n, sp.size - 5, sp.size - 1]
+    offs[-min(f, 4):] = edges[-min(f, 4):] if f else []
+    mask = _row_mask(mask_kind, f, rng)
+    jm = jnp.asarray(mask)[:, None]
+    want = np.asarray(jnp.where(jm, jref.range_gather_pack_ref(
+        jnp.asarray(sp), jnp.asarray(offs), w), 0))
+    if f:
+        pallas = j_gather_pack(jnp.asarray(sp), jnp.asarray(offs), w,
+                               tile=512, interpret=True)
+        np.testing.assert_array_equal(np.asarray(jnp.where(jm, pallas, 0)),
+                                      want)
+    got = trg.range_gather_pack(torch.from_numpy(sp), torch.from_numpy(offs),
+                                w, mask=torch.from_numpy(mask))
+    assert got.shape == (f, w // 4) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # through the dispatcher, and on the dense text of a dense alphabet
+    assert ops.range_gather(torch.from_numpy(sp), torch.from_numpy(offs), w,
+                            mask=torch.from_numpy(mask)).equal(got)
+
+
+@pytest.mark.parametrize("mask_kind", MASK_KINDS)
+def test_range_gather_dispatch_masked_dense(mask_kind):
+    """``ops.range_gather`` with a mask on a dense text (the byte-key
+    oracle's read) equals the masked byte-string gather."""
+    rng = np.random.default_rng(5)
+    s, jt, tt = _texts(DNA, 600, 72, seed=6)
+    sp = DNA.pad_string(s, extra=72)
+    offs = np.append(rng.integers(0, 600, size=30), [599, 600]).astype(np.int32)
+    mask = torch.from_numpy(_row_mask(mask_kind, offs.size, rng))
+    got = ops.range_gather(tt, torch.from_numpy(offs), 16, mask=mask)
+    want = ops.range_gather(torch.from_numpy(sp), torch.from_numpy(offs), 16,
+                            mask=mask)
+    assert got.equal(want)
+
+
 def _probe_inputs(alpha, n, b, m, rng):
     s = alpha.random_string(n, seed=n)
     sp = alpha.pad_string(s, extra=32)
@@ -353,6 +439,12 @@ def _no_fallback_calls():
     words = torch.zeros((8, 2), dtype=torch.int32)
     return {
         "range_gather_pack": (trg, lambda: trg.range_gather_pack(s, pos, 8)),
+        "range_gather_pack:mask": (trg, lambda: trg.range_gather_pack(
+            s, pos, 8, mask=pos > 50)),
+        "range_gather_words": (tpg, lambda: tpg.range_gather_words(
+            pt, pos, 16)),
+        "range_gather_words:mask": (tpg, lambda: tpg.range_gather_words(
+            pt, pos, 16, mask=pos > 50)),
         "lcp_pairs": (tlcp, lambda: tlcp.lcp_pairs(words, words, 8)),
         "pattern_probe": (tprobe, lambda: tprobe.pattern_probe(
             s, pos, words, words)),
@@ -385,12 +477,17 @@ def _no_fallback_calls():
                                     "suffix_lcp_pairs", "probe_gather_words",
                                     "probe_gather_packed", "flash_attention",
                                     "search_bounds_words",
-                                    "search_bounds_bytes"])
+                                    "search_bounds_bytes",
+                                    "range_gather_pack:mask",
+                                    "range_gather_words",
+                                    "range_gather_words:mask"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
-    launch count is touched."""
+    launch count (nor a gather's row tally) is touched.  ``:mask`` cases
+    pass the elastic step's row mask."""
     module, call = _no_fallback_calls()[kernel]
+    kernel = kernel.split(":")[0]
     monkeypatch.setattr(module, "_on_cpu", lambda *tensors: False)
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "_ENTRIES", {})
@@ -406,12 +503,15 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
                  "pattern_probe_packed_ref", "range_gather_packed_ref",
                  "suffix_lcp_words_ref", "suffix_lcp_pairs_ref",
                  "probe_gather_words_ref", "probe_gather_packed_ref",
-                 "flash_attention_ref", "pattern_probe_words_ref"):
+                 "flash_attention_ref", "pattern_probe_words_ref",
+                 "range_gather_words_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
         call()
     assert ops.launch_counts()[kernel] == 0
+    if kernel in ("range_gather_words", "range_gather_pack"):
+        assert (ops.KERNELS[kernel].rows, ops.KERNELS[kernel].words) == (0, 0)
 
 
 def test_byte_wrappers_check_card_inputs(monkeypatch):
@@ -467,6 +567,37 @@ def test_reset_clears_range_gather_pack_tallies(monkeypatch):
     sp = torch.from_numpy(DNA.pad_string(DNA.random_string(100, seed=1), 24))
     ops.range_gather_pack(sp, torch.arange(0, 90, 3, dtype=torch.int32), 16)
     assert (trg.range_gather_pack.rows, trg.range_gather_pack.words) == (0, 0)
+
+
+def test_reset_clears_range_gather_words_tallies(monkeypatch):
+    """``reset_launch_counts`` zeroes the rows and words that
+    ``range_gather_words``' launches gathered; CPU calls, masked or not,
+    never add to them."""
+    monkeypatch.setattr(tpg.range_gather_words, "rows", 11)
+    monkeypatch.setattr(tpg.range_gather_words, "words", 44)
+    ops.reset_launch_counts()
+    assert (tpg.range_gather_words.rows, tpg.range_gather_words.words) == (0, 0)
+    s, jt, tt = _texts(DNA, 200, 72, seed=3)
+    offs = torch.arange(0, 190, 7, dtype=torch.int32)
+    ops.range_gather_words(tt, offs, 64)
+    ops.range_gather_words(tt, offs, 16, mask=offs > 40)
+    assert (tpg.range_gather_words.rows, tpg.range_gather_words.words) == (0, 0)
+    assert tpg.range_gather_words.launches == 0
+
+
+def test_gather_wrappers_check_masks(monkeypatch):
+    """A card call refuses a mask that is not one bool per row."""
+    s, jt, tt = _texts(DNA, 200, 72, seed=3)
+    sp = torch.from_numpy(DNA.pad_string(s, 72))
+    offs = torch.arange(0, 40, dtype=torch.int32)
+    monkeypatch.setattr(tpg, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(trg, "_on_cpu", lambda *tensors: False)
+    for bad, what in ((torch.ones(39, dtype=torch.bool), "rows"),
+                      (torch.ones(40, dtype=torch.uint8), "bool")):
+        with pytest.raises(ValueError, match=what):
+            tpg.range_gather_words(tt, offs, 16, mask=bad)
+        with pytest.raises(ValueError, match=what):
+            trg.range_gather_pack(sp, offs, 16, mask=bad)
 
 
 def test_other_devices_raise():

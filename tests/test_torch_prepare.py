@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.core import prepare as jprep
+from repro.kernels import ops as jops
 from repro.core.alphabet import ALPHABETS as J_ALPHABETS
 from repro.core.api import EraConfig as JConfig
 from repro.core.api import EraIndexer as JIndexer
@@ -22,6 +23,7 @@ from repro_torch.core import prepare as tprep
 from repro_torch.core.api import EraConfig, EraIndexer
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.core.packing import words_to_numpy
+from repro_torch.kernels import ops as tops
 
 FIELDS = ("L", "start", "area", "b_off", "b_c1", "b_c2")
 LEGS = {"default": {}, "lexsort": {"REPRO_SORT": "lexsort"},
@@ -231,3 +233,53 @@ def test_byte_knob_only_refused_on_dense_text(monkeypatch):
     _, tword, _ = _run(s, "dna", 2048)
     for field in FIELDS:
         assert torch.equal(getattr(tst, field), getattr(tword, field)), field
+
+
+@pytest.mark.parametrize("leg", sorted(DENSE_LEGS))
+@pytest.mark.parametrize("name,alpha,n,mem", [
+    ("genome", "dna", 5_000, 1 << 12),        # dense words
+    ("protein", "protein", 4_000, 1 << 13),   # the byte string
+])
+def test_steps_with_fused_mask_equal(monkeypatch, leg, name, alpha, n, mem):
+    """``prepare_step`` and ``compact_step_batch``, whose gathers now zero
+    the inactive rows themselves (the row mask), against JAX's
+    ``prepare_step`` (vmapped) and ``compact_step_batch`` array for array
+    after every elastic iteration, with each package's knobs choosing
+    the sort, the compaction and the key currency under the leg."""
+    for var, val in DENSE_LEGS[leg].items():
+        monkeypatch.setenv(var, val)
+    s, _ = j_dataset(name, n, seed=1)
+    jix, tix = _both(s, alpha, mem)
+    jg, tg = jix.partition(s), tix.partition(s)
+    cap = jix._capacity(jg)
+    jtext, ttext = jix._device_text(s), tix._device_text(s)
+    jst, tst = jprep.init_batch(jg, cap), tprep.init_batch(tg, cap, "cpu")
+    sort_fuse, compact = tops._use_sort_fuse(), tops._use_compaction()
+    word_keys = tops._use_word_compare()
+    assert (sort_fuse, compact, word_keys) == (
+        jops._use_sort_fuse(), jops._use_compaction(),
+        jops._use_word_compare())
+    ecfg = tix.config.elastic_config()
+    n_active = np.asarray((tst.area >= 0).sum(dim=1))
+    steps = {"prepare_step": 0, "compact_step_batch": 0}
+    while n_active.max() > 0:
+        w = tprep.elastic_range(ecfg, int(n_active.max()))
+        f_prime = (tprep.compaction_width(int(n_active.max()), cap)
+                   if compact else None)
+        kw = dict(w=w, sort_fuse=sort_fuse, word_keys=word_keys)
+        if f_prime is None:
+            jst, jn = jprep.prepare_step_batch(jtext, jst, use_pallas=False,
+                                               **kw)
+            tst, tn = tprep.prepare_step(ttext, tst, **kw)
+            steps["prepare_step"] += 1
+        else:
+            jst, jn = jprep.compact_step_batch(jtext, jst, f_prime=f_prime,
+                                               use_pallas=False, **kw)
+            tst, tn = tprep.compact_step_batch(ttext, tst, f_prime=f_prime,
+                                               **kw)
+            steps["compact_step_batch"] += 1
+        _assert_fields(jst, tst)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        n_active = tn.numpy()
+    assert steps["prepare_step"] >= 1
+    assert (steps["compact_step_batch"] >= 1) == compact
