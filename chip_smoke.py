@@ -49,7 +49,16 @@ Phases, each printing one JSON line:
               0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end,
               without a mask, with a mixed one and with every row off, on
               the 2-, 4- and 8-bit dense texts and the protein and byte
-              strings, and in one launch of more than 2^31 output words);
+              strings, and in one launch of more than 2^31 output words;
+              ``kmer_histogram`` at every k the partition counts with it on
+              the genome and protein strings and the BYTE string (k = 2:
+              2^16 bins, the cluster layout), each with a start off every
+              16-byte boundary, one window, ragged tails, a homopolymer
+              and a planted motif, beside ``torch.bincount`` of the codes;
+              ``suffix_lcp_words`` at bits 2, 4 and 8 on neighbour pairs
+              chained as adjacent leaves, partly chained and unchained,
+              with pairs at the text's end, at w = 4 … 256 and every NW
+              bucket the padding allows);
 3. build    — ``EraIndexer(alphabet, EraConfig()).build_device(s)``;
    build_profile — one more warm build per dataset under
               ``torch.profiler``: device ms and calls of every kernel of
@@ -74,6 +83,11 @@ Phases, each printing one JSON line:
 6. tree / analytics / analytics_serving — the tree path per dataset:
               build, engine, the serving loop (batch 512, window 64, 20
               batches), then its checks against brute force on the card;
+   tree_layers — the node build's layers timed alone, with CUDA events
+              around each launch of the text-LCP kernel in
+              ``boff_rows_from_text``: per ``lcp_from_text`` round its w,
+              pending rows, adjacency share and device ms, the kernel's
+              total beside ``t_rows_and_text_lcp_s`` (the rest is glue);
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
 8. LM       — ``parity`` of ``flash_attention`` against its plain version
@@ -104,7 +118,10 @@ Phases, each printing one JSON line:
               positions (beside the sort for ``range_gather_pack``), and
               under a persisting L2 window, which no kernel sets: it
               measured slower); every kernel a build launches with its ms
-              in the profiled builds.
+              in the profiled builds; ``kmer_histogram`` with its layout
+              and ms at every counted k beside ``bincount_ms``;
+              ``suffix_lcp_words`` with the adjacency share of its
+              main-path pairs, its w = 256 times and its ms in the tree.
 
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, each find_fetch and serving_stack
@@ -1451,6 +1468,107 @@ def main() -> int:
         emit(row)
         return row
 
+    kmer_rows: dict = {}  # (dataset, k) -> the kernel's ms, path, yardstick
+    lcp_w256: dict = {}  # text -> suffix_lcp_words ms at w = 256, by chain
+
+    def lcp_word_cases(name: str, ptx, offs: torch.Tensor) -> None:
+        """``suffix_lcp_words`` against its plain version on neighbour
+        pairs in the order of their 64-symbol keys (long shared prefixes;
+        ``pos_a[i + 1] == pos_b[i]`` on every row, as adjacent leaves),
+        the same pairs with 30 % of the chain cut and in a random order
+        (no adjacency), each with pairs at ``n_real - 1`` and ``n_real``;
+        at w = 4, 64, 128, 256 and at every NW bucket and two widths
+        outside them that the text's padding allows.  Timed at w = 4, 64
+        and 256 on the chained pairs, at 256 also unchained."""
+        nr, spw = ptx.n_real, ptx.syms_per_word
+        pa, pb = sorted_pairs(ops.range_gather_words(ptx, offs, 64), offs)
+        end_a = torch.tensor([nr - 1, nr, nr - 1, nr, 0], dtype=torch.int32,
+                             device=cuda)
+        end_b = torch.tensor([nr, nr - 1, nr - 2, 0, nr], dtype=torch.int32,
+                             device=cuda)
+        cut = torch.rand(pa.shape[0], device=cuda) < 0.3
+        perm = torch.randperm(pa.shape[0], device=cuda)
+        chains = {"full": (pa, pb),
+                  "partial": (torch.where(cut, pa.flip(0), pa), pb),
+                  "none": (pa[perm], pb[perm])}
+        chains = {c: (torch.cat([a, end_a]).contiguous(),
+                      torch.cat([b_, end_b]).contiguous())
+                  for c, (a, b_) in chains.items()}
+        room = (ptx.words.shape[0] - 1) * spw - nr  # symbols past n_real
+        widths = sorted({4, 64, 128, 256} | {
+            nw * spw for nw in (1, 2, 3, 4, 8, 16, 24, 32, 64)
+            if nw * spw + spw <= room})
+        for chain, (a, b_) in chains.items():
+            share = float((a[1:] == b_[:-1]).float().mean())
+            for w in widths:
+                got = ops.suffix_lcp_words(ptx, a, b_, w)
+                assert_equal(got, kref.suffix_lcp_words_ref(ptx, a, b_, w),
+                             f"suffix_lcp_words {name} {chain} w={w}")
+                if not ((chain == "full" and w in (4, 64, 256))
+                        or (chain == "none" and w == 256)):
+                    continue
+                b_ms, b_by = bound(*suffix_lcp_work(
+                    got, w, spw, ptx.nbytes, 8))
+                row = {"ms": cuda_ms(lambda: ops.suffix_lcp_words(
+                    ptx, a, b_, w))}
+                if w == 256:
+                    lcp_w256.setdefault(name, {})[chain] = row["ms"]
+                emit({"phase": "parity", "kernel": "suffix_lcp_words",
+                      "text": name, "bits": ptx.bits, "rows": a.shape[0],
+                      "w": w, "chain": chain, "adjacent_share": share,
+                      "max_abs_err": 0,
+                      "saturated_rows": int((got == w).sum()), **row,
+                      "plain_ms": cuda_ms(
+                          lambda: kref.suffix_lcp_words_ref(ptx, a, b_, w)),
+                      "bound_ms": b_ms, "bound_by": b_by})
+            emit({"phase": "parity", "kernel": "suffix_lcp_words",
+                  "text": name, "bits": ptx.bits, "chain": chain,
+                  "adjacent_share": share, "rows": a.shape[0],
+                  "widths_checked": widths, "max_abs_err": 0})
+
+    def kmer_parity(name: str, sp: torch.Tensor, n_win: int, k: int,
+                    base: int) -> None:
+        """``kmer_histogram`` against its plain version on the whole
+        string (timed, beside ``torch.bincount`` of the precomputed codes:
+        a yardstick for the counting step alone) and on its edge cases: a
+        start off every 16-byte boundary, one window, ragged tails, a
+        homopolymer and a densely planted 64-symbol motif."""
+        got = ops.kmer_histogram(sp, n_win, k, base)
+        path = ops.kmer_histogram.last_path
+        assert_equal(got, kref.kmer_histogram_ref(sp, n_win, k, base),
+                     f"kmer_histogram {name} k={k}")
+        assert int(got.sum()) == n_win
+        m = 1 << 20
+        head = sp[:m + 64]
+        motif = head[:64].clone()
+        planted = head.clone()
+        for o in range(0, m, 640):
+            planted[o:o + 64] = motif
+        homo = torch.full_like(head, int(head[0]))
+        cases = [(f"offset {o}", head[o:], m - 15) for o in range(1, 16)]
+        cases += [(f"ragged {r}", head, r) for r in (1, 15, 31, 33, 4097)]
+        cases += [("homopolymer", homo, m), ("motif", planted, m)]
+        for case, text, nc in cases:
+            assert_equal(ops.kmer_histogram(text, nc, k, base),
+                         kref.kmer_histogram_ref(text, nc, k, base),
+                         f"kmer_histogram {name} k={k} {case}")
+        codes = torch.zeros(n_win, dtype=torch.int64, device=cuda)
+        for d in range(k):
+            codes = codes * base + sp[d:d + n_win].to(torch.int64)
+        bincount_ms = cuda_ms(lambda: torch.bincount(codes,
+                                                     minlength=base**k))
+        del codes
+        b_ms, b_by = bound(*kmer_work(n_win, k, base))
+        row = {"ms": cuda_ms(lambda: ops.kmer_histogram(sp, n_win, k, base)),
+               "last_path": path, "bincount_ms": bincount_ms}
+        kmer_rows[(name, k)] = row
+        emit({"phase": "parity", "kernel": "kmer_histogram", "text": name,
+              "n": n_win, "k": k, "bins": base**k, "max_abs_err": 0,
+              "edge_cases": len(cases), **row,
+              "plain_ms": cuda_ms(lambda: kref.kmer_histogram_ref(
+                  sp, n_win, k, base)),
+              "bound_ms": b_ms, "bound_by": b_by})
+
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -1559,19 +1677,7 @@ def main() -> int:
         [s, np.full(8, alpha.terminal_code, np.uint8)])).to(cuda)
     n_win = len(s)
     for k in range(1, 7):
-        got = ops.kmer_histogram(s_pad, n_win, k, alpha.base)
-        want = kref.kmer_histogram_ref(s_pad, n_win, k, alpha.base)
-        assert_equal(got, want, f"kmer_histogram k={k}")
-        assert int(got.sum()) == n_win
-        b_ms, b_by = bound(*kmer_work(n_win, k, alpha.base))
-        emit({"phase": "parity", "kernel": "kmer_histogram", "n": n_win,
-              "k": k, "bins": alpha.base**k, "max_abs_err": 0,
-              "shared_memory": ops.kmer_histogram.last_used_smem,
-              "ms": cuda_ms(lambda: ops.kmer_histogram(
-                  s_pad, n_win, k, alpha.base)),
-              "plain_ms": cuda_ms(lambda: kref.kmer_histogram_ref(
-                  s_pad, n_win, k, alpha.base)),
-              "bound_ms": b_ms, "bound_by": b_by})
+        kmer_parity("genome", s_pad, n_win, k, alpha.base)
     del offs, got, want, pat_d, mask_d, pat_b, mask_b
     torch.cuda.empty_cache()
 
@@ -1582,9 +1688,18 @@ def main() -> int:
     pc_alpha = ALPHABETS["protein_class"]
     dense_texts = {"genome": pt, "protein_class": packing.pack_text(
         synthetic_string(pc_alpha, n, seed=0, repeat_fraction=0.15),
-        pc_alpha, extra=2 * cfg.w_max + 8, device=cuda)}
+        pc_alpha, extra=2 * cfg.w_max + 8, device=cuda),
+        "byte": packing.pack_text(
+            synthetic_string(ALPHABETS["byte"], min(n, 1 << 24), seed=0,
+                             repeat_fraction=0.10),
+            ALPHABETS["byte"], extra=2 * cfg.w_max + 8, device=cuda)}
     for name, ptx in dense_texts.items():
         nr = ptx.n_real
+        if name == "byte":  # the 8-bit words: suffix_lcp_words' bits 8 only
+            lcp_word_cases(name, ptx, torch.from_numpy(np.concatenate(
+                [rng.integers(0, nr + 1, size=f - 256),
+                 np.arange(nr - 255, nr + 1)]).astype(np.int32)).to(cuda))
+            continue
         if name == "protein_class":
             gather_edges("range_gather_words", ptx, nr, ptx.syms_per_word,
                          name)
@@ -1605,22 +1720,8 @@ def main() -> int:
                   "plain_ms": cuda_ms(
                       lambda: kref.range_gather_packed_ref(ptx, offs, w)),
                   "bound_ms": b_ms, "bound_by": b_by})
-        pa, pb = sorted_pairs(ops.range_gather_words(ptx, offs, 64), offs)
-        for w in (4, 64, 256):
-            got = ops.suffix_lcp_words(ptx, pa, pb, w)
-            want = kref.suffix_lcp_words_ref(ptx, pa, pb, w)
-            assert_equal(got, want, f"suffix_lcp_words {name} w={w}")
-            b_ms, b_by = bound(*suffix_lcp_work(
-                got, w, ptx.syms_per_word, ptx.nbytes, 8))
-            emit({"phase": "parity", "kernel": "suffix_lcp_words",
-                  "text": name, "bits": ptx.bits, "rows": pa.shape[0],
-                  "w": w, "max_abs_err": 0,
-                  "saturated_rows": int((got == w).sum()),
-                  "ms": cuda_ms(lambda: ops.suffix_lcp_words(ptx, pa, pb, w)),
-                  "plain_ms": cuda_ms(
-                      lambda: kref.suffix_lcp_words_ref(ptx, pa, pb, w)),
-                  "bound_ms": b_ms, "bound_by": b_by})
-    del dense_texts, ptx, offs, got, want, pa, pb
+        lcp_word_cases(name, ptx, offs)
+    del dense_texts, ptx, offs, got, want
     torch.cuda.empty_cache()
 
     # byte-key kernels over the protein text (the build's padding) and a
@@ -1636,6 +1737,9 @@ def main() -> int:
                            "byte": (s_byte, byte_alpha)}.items():
         texts[name] = (sx, ax, torch.from_numpy(
             ax.pad_string(sx, extra=2 * cfg.w_max + 8)).to(cuda))
+    for name, (sx, ax, sp) in texts.items():  # the partition's counts
+        for k in range(1, 4 if name == "protein" else 3):
+            kmer_parity(name, sp, len(sx), k, ax.base)
     for name, (sx, ax, sp) in texts.items():
         nr = len(sx) - 1
         tail = np.concatenate([np.arange(nr - 255, nr + 1),
@@ -1942,6 +2046,7 @@ def main() -> int:
                  "shape": f"n={n_win} k={k}",
                  "ms": cuda_ms(lambda: ops.kmer_histogram(
                      s_pad, n_win, k, alpha.base)),
+                 "last_path": ops.kmer_histogram.last_path,
                  "plain_ms": cuda_ms(lambda: kref.kmer_histogram_ref(
                      s_pad, n_win, k, alpha.base)),
                  "bound_ms": b_ms, "bound_by": b_by})
@@ -2241,34 +2346,86 @@ def main() -> int:
         cells, chunks = 0, 0
         ell_dev = torch.from_numpy(ell_all).to(cuda)
         first = np.cumsum(freqs) - freqs
-        for f_pad, bucket in tbuild.bucket_pad_widths(freqs):
-            t0 = time.perf_counter()
-            idx = np.zeros((len(bucket), f_pad), np.int64)
-            for r, e in enumerate(bucket):
-                idx[r, :freqs[e]] = first[e] + np.arange(freqs[e])
-            mask = torch.from_numpy(
-                np.arange(f_pad)[None, :] < freqs[bucket][:, None]).to(cuda)
-            ell_rows = torch.where(mask, ell_dev[torch.from_numpy(idx).to(
-                cuda)], len(sx))
-            boff_rows = tbuild.boff_rows_from_text(text, ell_rows, len(sx))
-            torch.cuda.synchronize()
-            t_rows += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            nodes = tbuild.build_parallel_batch(ell_rows, boff_rows, len(sx))
-            torch.cuda.synchronize()
-            t_cart += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            tbuild.unpad_nodes_rows(nodes, freqs[bucket])
-            t_host += time.perf_counter() - t0
-            cells += len(bucket) * f_pad
-            chunks += -(-len(bucket) // tbuild.rows_per_chunk(f_pad))
-            del idx, mask, ell_rows, boff_rows, nodes
+        # CUDA events around each launch of the text-LCP kernel inside
+        # boff_rows_from_text (as build_profile times the build's kernels):
+        # per launch its w, pending rows, adjacency share and device ms
+        lcp_attr = ("suffix_lcp_words" if isinstance(text, packing.PackedText)
+                    else "_suffix_lcp_bytes")
+        lcp_kernel = getattr(ops, lcp_attr)
+        launches = []
+
+        def timed_lcp(s_text, pa, pb, w):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = lcp_kernel(s_text, pa, pb, w)
+            e1.record()
+            adjacent = ((pa[1:] == pb[:-1]).sum() if pa.shape[0] > 1
+                        else torch.zeros((), device=cuda))
+            launches.append((w, pa.shape[0], adjacent, e0, e1))
+            return out
+
+        setattr(ops, lcp_attr, timed_lcp)
+        try:
+            for f_pad, bucket in tbuild.bucket_pad_widths(freqs):
+                t0 = time.perf_counter()
+                idx = np.zeros((len(bucket), f_pad), np.int64)
+                for r, e in enumerate(bucket):
+                    idx[r, :freqs[e]] = first[e] + np.arange(freqs[e])
+                mask = torch.from_numpy(
+                    np.arange(f_pad)[None, :] < freqs[bucket][:, None]
+                ).to(cuda)
+                ell_rows = torch.where(mask, ell_dev[torch.from_numpy(
+                    idx).to(cuda)], len(sx))
+                boff_rows = tbuild.boff_rows_from_text(text, ell_rows,
+                                                       len(sx))
+                torch.cuda.synchronize()
+                t_rows += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                nodes = tbuild.build_parallel_batch(ell_rows, boff_rows,
+                                                    len(sx))
+                torch.cuda.synchronize()
+                t_cart += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                tbuild.unpad_nodes_rows(nodes, freqs[bucket])
+                t_host += time.perf_counter() - t0
+                cells += len(bucket) * f_pad
+                chunks += -(-len(bucket) // tbuild.rows_per_chunk(f_pad))
+                del idx, mask, ell_rows, boff_rows, nodes
+        finally:
+            setattr(ops, lcp_attr, lcp_kernel)
         del ell_dev
         torch.cuda.empty_cache()
+        # one lcp_from_text call per bucket: its rounds run w = 64, 128,
+        # 256, 256, ...; a launch at the first w starts the next call
+        rounds: list[dict] = []
+        r = -1
+        for w_l, rows_l, adj, e0, e1 in launches:
+            r = 0 if w_l == launches[0][0] else r + 1
+            if r == len(rounds):
+                rounds.append({"round": r, "w": w_l, "launches": 0,
+                               "rows": 0, "adjacent": 0, "ms": 0.0})
+            rounds[r]["launches"] += 1
+            rounds[r]["rows"] += rows_l
+            rounds[r]["adjacent"] += int(adj)
+            rounds[r]["ms"] += e0.elapsed_time(e1)
+        for rd in rounds:
+            rd["adjacent_share"] = rd.pop("adjacent") / max(rd["rows"], 1)
+        lcp_ms = sum(rd["ms"] for rd in rounds)
+        lcp_rows = sum(rd["rows"] for rd in rounds)
+        tree_lcp = {"kernel": lcp_kernel.__name__,
+                    "ms_in_tree": lcp_ms, "rows": lcp_rows,
+                    "adjacent_share": (sum(rd["adjacent_share"] * rd["rows"]
+                                           for rd in rounds)
+                                       / max(lcp_rows, 1)),
+                    # positions in, LCP out, per tallied row
+                    "bound_ms": bound(lcp_rows * 12, 0)[0]}
         emit({"phase": "tree_layers", "dataset": name,
               "t_rows_and_text_lcp_s": t_rows, "t_cartesian_build_s": t_cart,
               "t_extract_to_host_s": t_host, "padded_cells": cells,
-              "chunks": chunks})
+              "chunks": chunks, "text_lcp": tree_lcp,
+              "text_lcp_glue_s": t_rows - lcp_ms / 1e3,
+              "text_lcp_rounds": rounds})
 
         # -- the layers of the engine, each timed alone
         t0 = time.perf_counter()
@@ -2317,6 +2474,10 @@ def main() -> int:
         b_ms, b_by = bound(*work(got))
         row = {"name": kname, "replaces": replaces,
                "shape": f"rows={pa.shape[0]} w={w}",
+               "adjacent_share": float((pa[1:] == pb[:-1]).float().mean()),
+               "ms_in_tree": {name: {"ms_in_tree": tree_lcp["ms_in_tree"],
+                                     "bound_ms": tree_lcp["bound_ms"],
+                                     "rows": tree_lcp["rows"]}},
                "ms": cuda_ms(lambda: kfn(text, pa, pb, w)),
                "plain_ms": cuda_ms(lambda: [
                    pfn(text, pa[c0:c0 + chunk], pb[c0:c0 + chunk], w)
@@ -2441,6 +2602,18 @@ def main() -> int:
                     if row["name"] in p["port_kernels"]}
         if in_build:
             row["ms_in_build"] = in_build
+    for row in rows:
+        if row["name"] == "kmer_histogram":  # every counted partition scan
+            row["per_k_ms"] = {f"{d} k={k}": v["ms"]
+                               for (d, k), v in kmer_rows.items()}
+            row["per_k_path"] = {f"{d} k={k}": v["last_path"]
+                                 for (d, k), v in kmer_rows.items()}
+            row["bincount_ms"] = kmer_rows[("genome", 6)]["bincount_ms"]
+            row["bincount_note"] = (
+                "torch.bincount of the precomputed codes at the row's shape: "
+                "a yardstick for the counting step alone, not the function")
+        if row["name"] == "suffix_lcp_words":
+            row["w256_ms"] = lcp_w256
     kernels = []
     for row in rows:
         kernels.append({"name": row["name"], "route": "cuda",
@@ -2467,7 +2640,11 @@ def main() -> int:
                                     "row_weighted_excess_ms", "loop_ms",
                                     "replaces_loop", "bound_note",
                                     "trips_max", "trips_mean", "n_iter",
-                                    "window_max", "window_mean")}})
+                                    "window_max", "window_mean",
+                                    "last_path", "per_k_ms", "per_k_path",
+                                    "bincount_ms", "bincount_note",
+                                    "adjacent_share", "w256_ms",
+                                    "ms_in_tree")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

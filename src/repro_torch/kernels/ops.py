@@ -93,12 +93,13 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count (and the two elastic-range gathers' row and
-    word tallies)."""
+    """Zero every launch count (and the row and word tallies of the two
+    elastic-range gathers and of ``suffix_lcp_words``)."""
     for fn in KERNELS.values():
         fn.launches = 0
     for fn in (range_gather_words, range_gather_pack):
         fn.rows = fn.words = 0
+    suffix_lcp_words.rows = suffix_lcp_words.words_read = 0
 
 
 def resolve_device(device) -> torch.device:

@@ -18,7 +18,9 @@
 * :func:`suffix_lcp_words` — ``csrc/suffix_lcp_words.cu``, the port of
   ``repro/kernels/packed_gather.py:suffix_lcp_words``: the LCP of suffix
   pairs by XOR + clz on dense words, capped at ``w`` and both terminal
-  limits (global-LCP boundaries, ``node_lcp="words"``).
+  limits (global-LCP boundaries, ``node_lcp="words"``); it tallies the
+  ``rows`` (pairs) and ``words_read`` (text words loaded, an upper bound
+  from ``w``) of its launches.
 
 Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
@@ -282,16 +284,26 @@ def suffix_lcp_words(pt: PackedText, pos_a: torch.Tensor, pos_b: torch.Tensor,
     if b == 0:
         return out
     fn = _build.entry("suffix_lcp_words",
-                      [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I64, _U32,
-                       _P, _P])
+                      [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I64, _P,
+                       _P])
     with torch.cuda.device(pos_a.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos_a.data_ptr(),
                 pos_b.data_ptr(), b, nw, w, pt.bits, pt.n_real,
-                _sub_word(pt.bits, pt.terminal), out.data_ptr(),
-                _stream(pos_a.device))
+                out.data_ptr(), _stream(pos_a.device))
     _build.check(rc, "suffix_lcp_words")
     suffix_lcp_words.launches += 1
+    suffix_lcp_words.rows += b
+    suffix_lcp_words.words_read += 2 * b * lcp_words_loaded(nw)
     return out
 
 
+def lcp_words_loaded(nw: int) -> int:
+    """Text words the ``suffix_lcp_words`` kernel loads for one suffix of
+    a pair at most: the aligned 16-byte pair of loads (8 words) for each
+    chunk of 4 words, or the ``nw + 1`` words of a narrower read."""
+    return 8 * -(-nw // 4) if nw >= 4 else nw + 1
+
+
 suffix_lcp_words.launches = 0
+suffix_lcp_words.rows = 0
+suffix_lcp_words.words_read = 0

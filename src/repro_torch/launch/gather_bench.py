@@ -109,10 +109,10 @@ def _ms(fn, reps: int = 5) -> list[float]:
     return out
 
 
-def _device_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds per call of the gather kernels ``fn`` launches,
-    from ``torch.profiler`` (kernel time only: a small launch's event
-    window also holds the host's time to launch it)."""
+def _device_ms(fn, reps: int = 20, key: str = "range_gather") -> float:
+    """Device milliseconds per call of the kernels named ``key`` that
+    ``fn`` launches, from ``torch.profiler`` (kernel time only: a small
+    launch's event window also holds the host's time to launch it)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -121,31 +121,34 @@ def _device_ms(fn, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if "range_gather" in e.key)
+             for e in prof.key_averages() if key in e.key)
     return us / 1e3 / reps
 
 
-def in_turns(calls: dict, reps: int = 5, device: bool = False) -> dict:
+def in_turns(calls: dict, reps: int = 5, device: bool = False,
+             key: str = "range_gather") -> dict:
     """Median ms of each call, timed in turns A, B, …, …, B, A: CUDA-event
-    windows, or with ``device`` the profiler's kernel time."""
+    windows, or with ``device`` the profiler's kernel time (of the
+    kernels named ``key``)."""
     order = list(calls) + list(reversed(calls))
     times = {k: [] for k in calls}
     for k in order:
-        times[k] += ([_device_ms(calls[k])] if device
+        times[k] += ([_device_ms(calls[k], key=key)] if device
                      else _ms(calls[k], reps))
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def build_baseline(src: Path) -> dict[str, ctypes.CDLL]:
-    """The two gathers compiled from ``src`` (headers found there first,
-    then in the package's csrc/), one ``nvcc`` each, loaded with ctypes."""
+def compile_baseline(src: Path, names) -> dict[str, ctypes.CDLL]:
+    """``src/<name>.cu`` for each name compiled (headers found in ``src``
+    first, then in the package's csrc/), one ``nvcc`` each, loaded with
+    ctypes."""
     h = hashlib.sha256()
     for p in sorted(src.iterdir()):
         h.update(p.name.encode() + p.read_bytes())
     out = _build.BUILD_ROOT.parent / "baseline" / h.hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("range_gather_words", "range_gather_pack"):
+    for name in names:
         lib = out / f"{name}.so"
         if not lib.exists():
             procs[name] = subprocess.Popen(
@@ -156,8 +159,12 @@ def build_baseline(src: Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"baseline {name}.cu failed to build:\n{log}")
-    libs = {n: ctypes.CDLL(str(out / f"{n}.so"))
-            for n in ("range_gather_words", "range_gather_pack")}
+    return {n: ctypes.CDLL(str(out / f"{n}.so")) for n in names}
+
+
+def build_baseline(src: Path) -> dict[str, ctypes.CDLL]:
+    """The two gathers compiled from ``src``, their C entry points typed."""
+    libs = compile_baseline(src, ("range_gather_words", "range_gather_pack"))
     libs["range_gather_words"].range_gather_words.argtypes = [
         _P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P]
     libs["range_gather_pack"].range_gather_pack.argtypes = [

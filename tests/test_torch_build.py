@@ -146,6 +146,28 @@ def test_lcp_from_text_equal(monkeypatch, alpha, packing, leg):
     assert want.max() > 256  # more than one saturated round
 
 
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_lcp_from_text_periodic_equal(alpha):
+    """A periodic text whose pairs stay saturated for at least three rounds
+    (w = 64, 128, 256, ...), with the pairs chained as the node build's
+    adjacent leaves are (``pos_a[i + 1] == pos_b[i]``), equals JAX's."""
+    a = J_ALPHABETS[alpha]
+    n = 1200
+    s = a.random_string(n, seed=5)
+    s[:n] = np.tile(s[:19], n // 19 + 1)[:n]  # period 19, then the terminal
+    s[n - 40] = (int(s[n - 40]) + 1) % (a.base - 1)
+    chain = np.arange(0, 19 * 12, 19)
+    pa = np.concatenate([chain[:-1], [3, 5, n - 1]])
+    pb = np.concatenate([chain[1:], [3 + 38, 600, n - 2]])
+    extra = 2 * 256 + 8
+    jt = jpk.pack_text(s, a, extra=extra)
+    tt = tpk.pack_text(s, ALPHABETS[alpha], extra=extra, device="cpu")
+    want = jb.lcp_from_text(jt, pa, pb)
+    got = tb.lcp_from_text(tt, torch.from_numpy(pa), torch.from_numpy(pb))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.max() > 64 + 128 + 256  # three saturated rounds at least
+
+
 @pytest.mark.parametrize("alpha", ["dna"])
 def test_boff_rows_from_text_equal(alpha):
     a = J_ALPHABETS[alpha]

@@ -8,6 +8,7 @@ exact for the integer kernels; ``flash_attention`` states its own.
 """
 
 import contextlib
+import dataclasses
 import functools
 
 import numpy as np
@@ -217,6 +218,74 @@ def test_cuda_kmer_histogram(cuda_device, k, base):
     assert torch.equal(got, tref.kmer_histogram_ref(s, 100_000, k, base))
 
 
+KMER_BASES = (5, 21, 11, 27, 256)  # DNA, protein, PROTEIN_CLASS, english, byte
+
+
+def _kmer_texts(base, k, device):
+    """(name, string, n) cases: random, an unaligned start view, one window,
+    ragged tails, a homopolymer and a planted 64-symbol motif."""
+    rng = np.random.default_rng(base * 17 + k)
+    rand = rng.integers(0, base, size=300_007 + k).astype(np.uint8)
+    motif = rng.integers(0, base - 1, size=64).astype(np.uint8)
+    planted = rand.copy()
+    for p in range(0, 290_000, 1000):  # 6.4 % planted copies
+        planted[p:p + 64] = motif
+    cases = [("random", rand, 300_000), ("one window", rand, 1),
+             ("homopolymer", np.full(70_000 + k, base - 1, np.uint8), 70_000),
+             ("motif", planted, 300_000)]
+    cases += [(f"ragged {n}", rand, n) for n in (15, 31, 33, 1023, 4097)]
+    cases += [(f"offset {o}", rand[o:], 200_001) for o in (1, 3, 7, 13, 15)]
+    return [(name, torch.from_numpy(sx).to(device), n)
+            for name, sx, n in cases]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", KMER_BASES)
+def test_cuda_kmer_histogram_layouts(cuda_device, base):
+    """Every k with base**k <= 2^16 on the layout the plan gives it, on
+    every text case; the layout that ran is the planned one."""
+    _, smem = tkmer.device_limits(cuda_device)
+    k = 1
+    while base**k <= tkmer.MAX_BINS:
+        for name, s, n in _kmer_texts(base, k, cuda_device):
+            if name.startswith("offset"):  # a view starting off 16 bytes
+                s = torch.empty(s.shape[0] + 16, dtype=torch.uint8,
+                                device=cuda_device)[3:3 + s.shape[0]].copy_(s)
+            got = tkmer.kmer_histogram(s, n, k, base)
+            want = tref.kmer_histogram_ref(s, n, k, base)
+            assert torch.equal(got, want), (base, k, name)
+            assert int(got.sum()) == n
+            assert tkmer.kmer_histogram.last_path == tkmer.plan(base**k,
+                                                                smem).path
+        k += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins_k_base", [(125, 3, 5), (25, 2, 5), (441, 2, 21),
+                                          (65536, 2, 256), (65536, 4, 16)])
+def test_cuda_kmer_histogram_every_layout(cuda_device, nbins_k_base):
+    """The same counts from every layout that holds the bins: warp copies,
+    one histogram per block, and clusters of 2 and 4 blocks."""
+    nbins, k, base = nbins_k_base
+    _, smem = tkmer.device_limits(cuda_device)
+    rng = np.random.default_rng(nbins)
+    s = torch.from_numpy(rng.integers(0, base, size=500_011 + k)
+                         .astype(np.uint8)).to(cuda_device)[1:]
+    n = 500_000
+    want = tref.kmer_histogram_ref(s, n, k, base)
+    if nbins * 4 * 32 <= tkmer.WARP_COPY_BYTES:
+        layouts = [tkmer.Plan("warp_copies", 32 * nbins * 4, 1, 0),
+                   tkmer.Plan("block", nbins * 4, 1, 0)]
+    else:
+        layouts = [tkmer.Plan("cluster", 4 << (15 - c // 4), c, 15 - c // 4)
+                   for c in (2, 4)]
+    for layout in layouts:
+        assert layout.smem <= smem
+        got = tkmer.kmer_histogram(s, n, k, base, layout=layout)
+        assert torch.equal(got, want), layout
+        assert tkmer.kmer_histogram.last_path == layout.path
+
+
 def _byte_text(name, n, device, extra=264):
     a = ALPHABETS[name]
     s = a.random_string(n, seed=n)
@@ -343,6 +412,84 @@ def test_cuda_suffix_lcp_words(cuda_device, alpha):
         got = tpg.suffix_lcp_words(pt, pa, pb, w)
         assert torch.equal(got, tref.suffix_lcp_words_ref(pt, pa, pb, w))
         assert (got == w).any()
+
+
+LCP_NW = (1, 2, 3, 4, 8, 16, 24, 32, 64)  # the buckets and two others
+
+
+def _chained_pairs(n, b, chain, device, seed):
+    """Distinct pairs in [0, n] chained as adjacent leaves are
+    (``pos_a[i + 1] == pos_b[i]``) everywhere, in runs, or nowhere; the
+    first 512 in the periodic head of :func:`_periodic` (long shared
+    prefixes), the last rows at the text's end."""
+    rng = np.random.default_rng(seed)
+    pos = rng.permutation(n + 1)[:b + 1]
+    pa, pb = pos[:-1].copy(), pos[1:].copy()
+    pa[:512] = 1000 + 37 * np.arange(512)
+    pb[:512] = pa[:512] + (74 if chain == "none" else 37)  # 74: no chain
+    if chain == "partial":
+        cut = rng.random(b) < 0.3
+        cut[:512] = False
+        pa[cut] = rng.integers(0, n + 1, size=int(cut.sum()))
+    elif chain == "none":
+        pa[512:] = rng.integers(0, n + 1, size=b - 512)
+    pa[-6:] = [n - 1, n, n - 1, n, n - 2, 0]
+    pb[-6:] = [n, n - 1, n - 2, 0, n - 1, n]
+    keep = pa != pb
+    t = lambda x: torch.from_numpy(x[keep].astype(np.int32)).to(device)
+    return t(pa), t(pb)
+
+
+def _periodic(a, n):
+    """A random string whose first 30,000 symbols repeat a 37-symbol
+    period."""
+    s = a.random_string(n, seed=n)
+    s[:30_000] = np.tile(s[:37], 30_000 // 37 + 1)[:30_000]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["full", "partial", "none"])
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_cuda_suffix_lcp_words_buckets(cuda_device, alpha, chain):
+    """Every NW template (and widths outside them) at bits 2, 4 and 8, the
+    node build's widths w = 64, 128, 256 and w = 4, on adjacency chains
+    (the shuffled shared suffix) full, partial and absent, with pairs at
+    the text's end; the tallies count the rows."""
+    a = ALPHABETS[alpha]
+    s = _periodic(a, 40_000)
+    pt = tpk.pack_text(s, a, extra=2 * 512 + 8, device=cuda_device)
+    spw = pt.syms_per_word
+    pa, pb = _chained_pairs(len(s) - 1, 8192, chain, cuda_device,
+                            seed=len(alpha) + len(chain))
+    ws = sorted({4, 64, 128, 256} | {nw * spw for nw in LCP_NW})
+    ops.reset_launch_counts()
+    shared = float((pa[1:] == pb[:-1]).float().mean())
+    assert {"full": shared > 0.99, "partial": 0.5 < shared < 0.95,
+            "none": shared < 0.01}[chain], shared
+    for w in ws:
+        got = tpg.suffix_lcp_words(pt, pa, pb, w)
+        assert torch.equal(got, tref.suffix_lcp_words_ref(pt, pa, pb, w)), w
+        assert (got[:512] == w).all()
+    assert tpg.suffix_lcp_words.rows == len(ws) * pa.shape[0]
+    assert tpg.suffix_lcp_words.words_read >= tpg.suffix_lcp_words.rows * 4
+
+
+@pytest.mark.cuda
+def test_cuda_suffix_lcp_words_unaligned_and_tail(cuda_device):
+    """Words that do not start on 16 bytes (scalar reads) and reads that
+    reach the array's last words equal the plain version."""
+    a = ALPHABETS["dna"]
+    s = _planted(a, 30_000)
+    pt = tpk.pack_text(s, a, extra=264, device=cuda_device)
+    words = torch.empty(pt.words.shape[0] + 1, dtype=torch.int32,
+                        device=cuda_device)[1:].copy_(pt.words)
+    shifted = dataclasses.replace(pt, words=words)
+    pa, pb = _lcp_pairs(len(s) - 1, cuda_device)
+    for text in (pt, shifted):
+        for w in (4, 64, 256):
+            got = tpg.suffix_lcp_words(text, pa, pb, w)
+            assert torch.equal(got, tref.suffix_lcp_words_ref(text, pa, pb, w))
 
 
 @pytest.mark.cuda

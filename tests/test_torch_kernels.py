@@ -240,21 +240,86 @@ def test_pattern_probe_words_lim_p_equal():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("n,k,base,tile", [
-    (100, 1, 5, 32), (1000, 2, 5, 64), (4000, 3, 5, 128),
-    (900, 2, 21, 64), (333, 1, 27, 32), (2048, 4, 5, 256),
-])
-def test_kmer_histogram_equal(n, k, base, tile):
+_KMER_CASES = [
+    (100, 1, 5, 32, "random"), (1000, 2, 5, 64, "random"),
+    (4000, 3, 5, 128, "random"), (900, 2, 21, 64, "random"),
+    (333, 1, 27, 32, "random"), (2048, 4, 5, 256, "random"),
+    # 2^16 bins (the card's cluster layout) and PROTEIN_CLASS k = 4
+    (700, 2, 256, 64, "random"), (1500, 4, 11, 128, "random"),
+    # one window; n not a multiple of 16 or 32
+    (1, 3, 5, 32, "random"), (1001, 3, 5, 64, "random"),
+    (77, 2, 21, 32, "random"),
+    # a view that starts inside a larger array (the card's unaligned
+    # head), and a homopolymer (one bin holds n)
+    (999, 3, 5, 64, "offset"), (517, 2, 256, 64, "offset"),
+    (1000, 6, 5, 128, "homopolymer"), (600, 2, 256, 64, "homopolymer"),
+]
+
+
+def _kmer_string(n, k, base, data):
+    """``n + k + 2`` symbols ``< base`` (the last ``k + 2`` the padding) and
+    the start of the windows in them."""
     rng = np.random.default_rng(n * k)
+    if data == "homopolymer":
+        return np.full(n + k + 2, base // 2, np.uint8), 0
     s = rng.integers(0, base - 1, size=n).astype(np.uint8)
     s[-1] = base - 1
     sp = np.concatenate([s, np.full(k + 2, base - 1, np.uint8)])
+    if data == "offset":
+        start = 13
+        return np.concatenate([rng.integers(0, base, start).astype(np.uint8),
+                               sp]), start
+    return sp, 0
+
+
+@pytest.mark.parametrize("n,k,base,tile,data", [
+    pytest.param(*c, id="-".join(map(str, c[:4] if c[4] == "random" else c)))
+    for c in _KMER_CASES])
+def test_kmer_histogram_equal(n, k, base, tile, data):
+    """Plain port version == JAX Pallas (interpret) == JAX ref."""
+    full, start = _kmer_string(n, k, base, data)
+    sp = full[start:]
     pallas = j_kmer(jnp.asarray(sp), n, k, base, tile=tile, interpret=True)
     want = jref.kmer_histogram_ref(jnp.asarray(sp), n, k, base)
-    got = tkmer.kmer_histogram(torch.from_numpy(sp), n, k, base)
+    got = tkmer.kmer_histogram(torch.from_numpy(full)[start:], n, k, base)
     np.testing.assert_array_equal(np.asarray(pallas), np.asarray(want))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.dtype == torch.int32 and int(got.sum()) == n
+    if data == "homopolymer":
+        assert int(got.max()) == n
+
+
+@pytest.mark.parametrize("smem_optin", [tkmer.H100_SMEM_OPTIN, 101_376])
+def test_kmer_histogram_plan(smem_optin):
+    """Every bin count up to 2^16 gets a shared-memory layout within the
+    opt-in limit: a copy per warp, one per block, or a cluster of 2 or 4
+    blocks whose shares cover the bins; more bins raise."""
+    counts = {base**k for base in range(2, 257) for k in range(1, 17)
+              if base**k <= tkmer.MAX_BINS}
+    paths = set()
+    for nbins in sorted(counts | {2, 3, 511, 512, 513, 58_112, 58_113,
+                                  tkmer.MAX_BINS}):
+        p = tkmer.plan(nbins, smem_optin)
+        paths.add(p.path)
+        assert p.path in tkmer.PATHS
+        assert 0 < p.smem <= smem_optin
+        assert (p.cluster == 1) == (p.path != "cluster")
+        assert p.cluster in (1, 2, 4)
+        if p.path == "warp_copies":
+            assert p.smem == tkmer.THREADS // 32 * nbins * 4
+        elif p.path == "block":
+            assert p.smem == nbins * 4
+        else:
+            assert p.smem == 4 << p.share_log2
+            assert p.cluster << p.share_log2 >= nbins
+            assert 4 << p.share_log2 < 2 * -(-nbins // p.cluster) * 4
+    assert paths == set(tkmer.PATHS)
+    assert tkmer.plan(256).path == "warp_copies"
+    assert tkmer.plan(5**6).path == "block"
+    assert tkmer.plan(256**2) == tkmer.Plan("cluster", 131072, 2, 15)
+    for nbins in (1, tkmer.MAX_BINS + 1, 5**7):
+        with pytest.raises(ValueError, match="bins"):
+            tkmer.plan(nbins, smem_optin)
 
 
 def test_kmer_histogram_contract():
@@ -468,6 +533,7 @@ def _no_fallback_calls():
             bounds=2)),
         "search_bounds_bytes": (tsearch, lambda: tsearch.search_bounds_bytes(
             s, pos, words, words, pos, pos + 3, n_iter=4, bounds=1)),
+        "kmer_histogram": (tkmer, lambda: tkmer.kmer_histogram(s, 100, 3, 5)),
     }
 
 
@@ -480,7 +546,8 @@ def _no_fallback_calls():
                                     "search_bounds_bytes",
                                     "range_gather_pack:mask",
                                     "range_gather_words",
-                                    "range_gather_words:mask"])
+                                    "range_gather_words:mask",
+                                    "kmer_histogram"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
     build fails the wrapper raises, and neither the plain version nor the
@@ -504,7 +571,7 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
                  "suffix_lcp_words_ref", "suffix_lcp_pairs_ref",
                  "probe_gather_words_ref", "probe_gather_packed_ref",
                  "flash_attention_ref", "pattern_probe_words_ref",
-                 "range_gather_words_ref"):
+                 "range_gather_words_ref", "kmer_histogram_ref"):
         monkeypatch.setattr(tref, name, plain)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="build failed"):
@@ -512,6 +579,11 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
     assert ops.launch_counts()[kernel] == 0
     if kernel in ("range_gather_words", "range_gather_pack"):
         assert (ops.KERNELS[kernel].rows, ops.KERNELS[kernel].words) == (0, 0)
+    if kernel == "suffix_lcp_words":
+        assert (tpg.suffix_lcp_words.rows,
+                tpg.suffix_lcp_words.words_read) == (0, 0)
+    if kernel == "kmer_histogram":
+        assert tkmer.kmer_histogram.last_path is None
 
 
 def test_byte_wrappers_check_card_inputs(monkeypatch):
@@ -703,6 +775,57 @@ def test_suffix_lcp_words_equal(alpha, n, b, w, tile):
         distinct = pa != pb
         np.testing.assert_array_equal(got[distinct], byte[distinct])
     assert (got == w).any() and (got < w).any()
+
+
+def _chain_pairs(n, b, chain, rng):
+    """Pairs of distinct positions in ``[0, n]`` where ``pos_a[i + 1] ==
+    pos_b[i]`` along the whole batch (``full``), along runs broken every
+    few rows (``partial``), or nowhere (``none``); the last rows sit at
+    ``n - 1`` and ``n`` (the text's end)."""
+    chainpos = rng.permutation(n + 1)[:b + 1].astype(np.int32)
+    pa, pb = chainpos[:-1].copy(), chainpos[1:].copy()
+    if chain == "partial":
+        for i in range(3, b, 5):  # break the chain before row i
+            pa[i] = (pb[i - 1] + 1 + rng.integers(0, n)) % (n + 1)
+    elif chain == "none":
+        pa = np.roll(pb, 7) + 1
+        pa[pa > n] = 0
+    pa[-4:] = [n - 1, n, n - 1, n]
+    pb[-4:] = [n, n - 1, n - 2, 3]
+    keep = pa != pb
+    return pa[keep], pb[keep]
+
+
+@pytest.mark.parametrize("chain", ["full", "partial", "none"])
+@pytest.mark.parametrize("w", [128, 256])
+@pytest.mark.parametrize("alpha", [DNA, PROTEIN_CLASS, BYTE],
+                         ids=lambda a: a.name)
+def test_suffix_lcp_words_chains(alpha, w, chain):
+    """Word LCP on adjacency chains (the card kernel takes a shared
+    suffix's words from its neighbour lane) and on pairs at the text's
+    end, on a periodic text whose pairs saturate: plain port version ==
+    JAX Pallas (interpret) == JAX ref, at bits 2, 4 and 8."""
+    rng = np.random.default_rng(w + len(chain) + alpha.base)
+    n = 700
+    s = alpha.random_string(n, seed=3)
+    s[:n] = np.tile(s[:23], n // 23 + 1)[:n]  # period 23, then the terminal
+    s[:n:97] = alpha.random_string(n, seed=4)[:n:97]  # a few mismatches
+    pa, pb = _chain_pairs(n, 96, chain, rng)
+    pa[:8] = np.arange(8) * 23 + 5  # long shared prefixes, chained
+    pb[:8] = pa[:8] + 23
+    jt = jpk.pack_text(s, alpha, extra=w + 8)
+    tt = tpk.pack_text(s, ALPHABETS[alpha.name], extra=w + 8, device="cpu")
+    ja, jb = jnp.asarray(pa), jnp.asarray(pb)
+    pallas = np.asarray(j_lcp_words(jt, ja, jb, w, tile=128, interpret=True))
+    want = np.asarray(jref.suffix_lcp_words_ref(jt, ja, jb, w))
+    got = tpg.suffix_lcp_words(tt, torch.from_numpy(pa), torch.from_numpy(pb),
+                               w).numpy()
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got, want)
+    shared = (pa[1:] == pb[:-1]).mean()
+    assert {"full": shared > 0.85, "partial": 0.5 < shared < 0.85,
+            "none": shared < 0.1}[chain]
+    assert (got > 64).any() and got[-2] <= 1 and not got[[-4, -3, -1]].any()
 
 
 @pytest.mark.parametrize("alpha,n,b,w,extra", [
