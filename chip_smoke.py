@@ -22,9 +22,10 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   (``range_gather_packed``, and ``probe_gather_packed`` for find-and-fetch),
   held equal to the word leg;
 * find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
-  (``probe_gather_words`` on DNA, ``probe_gather_packed`` for the DNA
-  terminal-bearing batch, ``pattern_probe`` + ``range_gather_pack`` on the
-  protein byte text) and the ``AsyncServer`` stack through
+  (one ``search_fetch_words`` launch a batch on DNA, one
+  ``search_fetch_bytes`` launch on the protein byte text, the loop of
+  ``pattern_probe_packed`` steps and ``probe_gather_packed`` for the DNA
+  terminal-bearing batch) and the ``AsyncServer`` stack through
   ``run_closed_loop`` in its sync, async and cached modes;
 * LM serving — ``repro_torch.launch.serve.serve("qwen3-1.7b",
   smoke=False)``: all 28 layers at full width (d_model 2048, 16 query and
@@ -37,6 +38,9 @@ Phases, each printing one JSON line:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch/CUDA
               versions, and the build of every CUDA kernel from ``csrc/``;
+   dram_round_trip — one dependent device-memory round trip
+              (``csrc/dram_latency.cu``), the unit of the search kernels'
+              latency bounds;
 2. parity   — each hand kernel against its plain PyTorch version on the
               card, exact equality (integer kernels), with its time (the
               search kernels at the 2^27 indexes, after their paths: each
@@ -44,7 +48,12 @@ Phases, each printing one JSON line:
               single-step kernels and a counted loop, on the serving
               batch, unrouted and empty windows, terminal-tail patterns,
               the lower bound alone, NW at and past the register
-              templates, B = 1, B = 0 and 2^20 rows; the two elastic-range
+              templates, B = 1, B = 0 and 2^20 rows; the fused
+              find-and-fetch kernels against their plain version and the
+              search + epilogue kernels they fuse, all four outputs, on
+              the find-and-fetch batch, end-of-text windows, empty
+              windows, fetch 4 and 64, NW past the templates, B = 1, 33
+              and 0 and 2^20 lanes; the two elastic-range
               gathers also on every NW template and two nw outside them,
               0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end,
               without a mask, with a mixed one and with every row off, on
@@ -73,13 +82,18 @@ Phases, each printing one JSON line:
               single-step probe, or the run fails;
    find_fetch — ``find_fetch_batch`` (fetch 32) on 256 planted and random
               patterns: ranges equal ``find_batch`` and the scan, windows
-              equal the text read on the card, ``verified`` 0 where found;
-              then its batch latency beside the search alone;
+              equal the text read on the card, ``verified`` 0 where found,
+              the find-and-fetch calls counted alone (one fused launch a
+              batch); then its batch latency beside the search alone and
+              beside the search + epilogue kernels it fuses
+              (``find_fetch_ranges_unfused_ms``, equal outputs);
    serving_stack — ``run_closed_loop`` in sync, async and cached mode with
               fetch 0 and 32 on a hot workload of 16,384 requests, each mode
               warmed once with every ``_dispatch`` under
-              ``torch.cuda.set_sync_debug_mode("error")``, every result equal
-              to ``find_batch`` / ``find_fetch_batch``;
+              ``torch.cuda.set_sync_debug_mode("error")`` and launching
+              exactly one kernel (the search, or the fused find-and-fetch)
+              when it has rows, every result equal to ``find_batch`` /
+              ``find_fetch_batch``;
 6. tree / analytics / analytics_serving — the tree path per dataset:
               build, engine, the serving loop (batch 512, window 64, 20
               batches), then its checks against brute force on the card;
@@ -108,7 +122,11 @@ Phases, each printing one JSON line:
               time, bound, and its launches on the paths above
               (``flash_attention``: the warm ``lm_serving`` run; the fused
               kernels also at 2^20 rows, beside the time of the two ported
-              kernels they fuse; the search kernels beside ``loop_ms``, the
+              kernels they fuse; the fused find-and-fetch kernels beside
+              ``unfused_ms`` (the search and epilogue kernels they replace)
+              and a latency bound (the longest lane's dependent round trips
+              times the measured one), at batch 256 and 2^20 lanes;
+              the search kernels beside ``loop_ms``, the
               loop of single-step kernels they replace, with this run's
               trips per row against ``n_iter``; ``flash_attention`` beside
               SDPA's time as ``library_ms``, with its bf16 ``design``;
@@ -124,8 +142,9 @@ Phases, each printing one JSON line:
               main-path pairs, its w = 256 times and its ms in the tree.
 
 Launch counts are set to 0 just before each path (build + check +
-serving, the terminal-bearing check, each find_fetch and serving_stack
-phase, each tree path from build to the end of its serving loop, each leg
+serving, the terminal-bearing check, the find-and-fetch calls of each
+find_fetch phase, the fetch 0 and the fetch 32 passes of each
+serving_stack phase, each tree path from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run and the LM check) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
@@ -142,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -175,15 +195,25 @@ BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed",
 WORD_ONLY_KERNELS = ("range_gather_words", "pattern_probe_words",
                      "suffix_lcp_words", "probe_gather_words",
                      "search_bounds_words")
+# a word or byte-string find-and-fetch batch is one fused launch; a
+# terminal-bearing batch keeps the loop and probe_gather_packed
 FETCH_KERNELS = {
-    "genome": ("search_bounds_words", "probe_gather_words"),
+    "genome": ("search_fetch_words",),
     "terminal": ("pattern_probe_packed", "probe_gather_packed"),
-    "protein": ("search_bounds_bytes", "pattern_probe", "range_gather_pack"),
+    "protein": ("search_fetch_bytes",),
 }
+SEARCH_KERNELS = {"genome": "search_bounds_words",
+                  "protein": "search_bounds_bytes"}
+# the search and epilogue kernels the fused ones replace
+UNFUSED = ("search_bounds_words", "search_bounds_bytes", "probe_gather_words",
+           "pattern_probe", "range_gather_pack")
 FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
-    "genome": ("probe_gather_packed", "pattern_probe_words"),
-    "terminal": ("probe_gather_words", "search_bounds_words"),
-    "protein": ("probe_gather_words", "probe_gather_packed"),
+    "genome": ("probe_gather_packed", "pattern_probe_words",
+               "search_fetch_bytes") + UNFUSED,
+    "terminal": ("probe_gather_words", "search_bounds_words",
+                 "search_fetch_words", "search_fetch_bytes"),
+    "protein": ("probe_gather_packed", "pattern_probe_words",
+                "search_fetch_words") + UNFUSED,
 }
 # the kernels a build_device launches, per dataset (build_profile's rows)
 BUILD_KERNELS = {"genome": ("kmer_histogram", "range_gather_words"),
@@ -867,6 +897,28 @@ def main() -> int:
 
     cuda = torch.device("cuda")
 
+    def dram_round_trip_ms() -> float:
+        """Milliseconds of one dependent device-memory round trip
+        (``csrc/dram_latency.cu``): a single thread's walk of a random
+        cycle over 2^23 nodes 128 B apart (1 GiB, 20x the L2), 2^17 links a
+        launch, each launch resuming where the last stopped (no line is
+        visited twice), per link, the median of 5 CUDA-event windows."""
+        nodes, stride, hops = 1 << 23, 32, 1 << 17
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        perm = torch.randperm(nodes, device=cuda, generator=gen)
+        nxt = torch.zeros(nodes * stride, dtype=torch.int32, device=cuda)
+        nxt[perm * stride] = (torch.roll(perm, -1) * stride).to(torch.int32)
+        node = (perm[:1] * stride).to(torch.int32)
+        fn = _build.entry("dram_latency", [ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_void_p, ctypes.c_void_p])
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = cuda_ms(lambda: _build.check(fn(
+            nxt.data_ptr(), hops, node.data_ptr(), stream),
+            "dram_latency")) / hops
+        del nxt, perm, node
+        torch.cuda.empty_cache()
+        return ms
+
     def fused_reads(kind: str, ptx, pos, pat, mask, nw_out: int) -> int:
         """Text words the fused kernel reads for these rows: each row reads
         until its window is written and its verdict is decided, plus the
@@ -956,19 +1008,23 @@ def main() -> int:
                       **fused_case(kind, ptx, pos, pat, mask, lens, fetch,
                                    inner=20)})
 
-    def check_find_fetch(dev, s_dev: torch.Tensor, pats, what: str) -> dict:
+    def check_find_fetch(dev, s_dev: torch.Tensor, pats, what: str):
         """``find_fetch_batch``: ranges equal ``find_batch`` and the scan,
         each window equals the text at its first match read on the card
         (the terminal past the end), −1 where nothing matched, and the
-        fused verdict is 0 wherever the pattern occurs."""
+        fused verdict is 0 wherever the pattern occurs.  Returns the
+        checks and the launch counts of the two find-and-fetch calls alone
+        (counted from 0)."""
         n1 = s_dev.shape[0]
+        found = dev.find_batch(pats)
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         ranges, wins = dev.find_fetch_batch(pats, fetch=FETCH)
         t_ff = time.perf_counter() - t0
         padded, lengths, route = dev.pad_batch(pats)
         start, count, win, verified = dev.find_fetch_ranges(
             padded, lengths, route, fetch=FETCH)
-        found = dev.find_batch(pats)
+        counts = counts_now()
         hits = 0
         for p, r, f in zip(pats, ranges, found):
             want = brute_force(s_dev, np.asarray(p))
@@ -994,7 +1050,7 @@ def main() -> int:
         return {"patterns": len(pats), "matched": int(has.sum()),
                 "occurrences": hits, "fetch": FETCH,
                 "windows_past_end": int(((pos0 + FETCH > n1 - 1) & has).sum()),
-                "t_find_fetch_batch_s": t_ff}
+                "t_find_fetch_batch_s": t_ff}, counts
 
     @contextlib.contextmanager
     def search_as_loop():
@@ -1015,28 +1071,62 @@ def main() -> int:
         finally:
             ops.search_bounds_words, ops.search_bounds_bytes = saved
 
+    @contextlib.contextmanager
+    def fetch_unfused():
+        """The fused find-and-fetch kernels swapped for what they replace:
+        the search kernel, then the epilogue kernels (``probe_gather_words``
+        on dense words, ``pattern_probe`` + ``range_gather_pack`` on the
+        byte string) and the torch ops of the decode
+        (``search.fetch_composition`` with the ported kernels)."""
+        from repro_torch.kernels.search import fetch_composition
+        saved = ops.search_fetch_words, ops.search_fetch_bytes
+        ops.search_fetch_words = (
+            lambda pt, ell, pat, mask, lengths, lo0, hi0, **kw:
+            fetch_composition(pt, ell, pat, mask, lengths, lo0, hi0,
+                              word=True, plain=False, **kw))
+        ops.search_fetch_bytes = (
+            lambda sp, ell, pat, mask, lo0, hi0, **kw: fetch_composition(
+                sp, ell, pat, mask, None, lo0, hi0, word=False, plain=False,
+                **kw))
+        try:
+            yield
+        finally:
+            ops.search_fetch_words, ops.search_fetch_bytes = saved
+
     def fetch_latency(dev, pats) -> dict:
         """Host milliseconds from dispatch to a synchronised result of the
         search alone (``find_batch_ranges``), of the same search through
-        the loop of single-step probes the search kernels replace, and of
-        find-and-fetch (``find_fetch_ranges``) on the same padded batch:
-        medians of 20 runs each, taken in turns after one warm-up of
-        each."""
+        the loop of single-step probes the search kernels replace, of
+        find-and-fetch (``find_fetch_ranges``, one fused launch) and of
+        find-and-fetch through the search and epilogue kernels it fuses,
+        on the same padded batch: medians of 20 runs each, taken in turns
+        after one warm-up of each."""
         padded, lengths, route = dev.pad_batch(pats)
 
         def loop_ranges():
             with search_as_loop():
                 return dev.find_batch_ranges(padded, lengths, route)
 
+        def unfused_fetch():
+            with fetch_unfused():
+                return dev.find_fetch_ranges(padded, lengths, route,
+                                             fetch=FETCH)
+
         calls = {"find_batch_ranges_ms": lambda: dev.find_batch_ranges(
                      padded, lengths, route),
                  "find_batch_ranges_loop_ms": loop_ranges,
                  "find_fetch_ranges_ms": lambda: dev.find_fetch_ranges(
-                     padded, lengths, route, fetch=FETCH)}
+                     padded, lengths, route, fetch=FETCH),
+                 "find_fetch_ranges_unfused_ms": unfused_fetch}
         for got, want, part in zip(calls["find_batch_ranges_ms"](),
                                    loop_ranges(), ("start", "count")):
             assert_equal(got, want, f"find_batch_ranges {part} against the "
                                     f"loop of single-step probes")
+        for got, want, part in zip(calls["find_fetch_ranges_ms"](),
+                                   unfused_fetch(),
+                                   ("start", "count", "window", "verified")):
+            assert_equal(got, want, f"find_fetch_ranges {part} against the "
+                                    f"search and epilogue kernels it fuses")
         times = {k: [] for k in calls}
         for _ in range(21):
             for k, fn in calls.items():
@@ -1055,15 +1145,19 @@ def main() -> int:
     class SyncFreeServer(AsyncServer):
         """An AsyncServer whose every ``_dispatch`` runs under
         ``torch.cuda.set_sync_debug_mode("error")`` (any call that
-        synchronises the host with the card raises), with the host seconds
-        of each dispatch, each wait for a batch's event and each consume
-        after it."""
+        synchronises the host with the card raises) and launches exactly
+        one kernel, ``kernel``, when its batch has rows to search (none
+        when the cache answered it all), with the host seconds of each
+        dispatch, each wait for a batch's event and each consume after
+        it."""
 
-        def __init__(self, *args, **kw):
+        def __init__(self, *args, kernel: str, **kw):
             super().__init__(*args, **kw)
+            self.kernel = kernel
             self.t_dispatch, self.t_wait, self.t_consume = [], [], []
 
         def _dispatch(self):
+            before = ops.launch_counts()
             t0 = time.perf_counter()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -1072,6 +1166,13 @@ def main() -> int:
                 torch.cuda.set_sync_debug_mode("default")
             if flight is not None:
                 self.t_dispatch.append(time.perf_counter() - t0)
+                got = {k: v - before[k]
+                       for k, v in ops.launch_counts().items()
+                       if v != before[k]}
+                if got != ({self.kernel: 1} if flight.n_rows else {}):
+                    raise AssertionError(f"a served batch of {flight.n_rows}"
+                                         f" rows launched {got}, not one "
+                                         f"{self.kernel}")
             return flight
 
         def _consume(self, flight):
@@ -1104,9 +1205,10 @@ def main() -> int:
     def serving_stack(dev, sx: np.ndarray, ax, name: str) -> dict:
         """``run_closed_loop`` in sync, async and cached mode, with fetch 0
         and FETCH, on a hot workload; each mode warmed once by a
-        sync-free-dispatch pass, then timed; every result of both passes
-        equal to ``find_batch`` / ``find_fetch_batch`` on the same
-        patterns.  Returns the launch counts of the twelve passes."""
+        sync-free-dispatch pass that checks each batch's one launch, then
+        timed; every result of both passes equal to ``find_batch`` /
+        ``find_fetch_batch`` on the same patterns.  Returns the launch
+        counts of the nine passes of each fetch, by fetch."""
         pats = make_hot_workload(sx, np.random.default_rng(29),
                                  n_requests=SERVE_REQUESTS, hot_pool=32,
                                  hot_frac=0.8, min_len=4, max_len=24,
@@ -1144,8 +1246,10 @@ def main() -> int:
                 if not fetch and win is not None:
                     raise AssertionError(f"{what}: a window without fetch")
 
-        ops.reset_launch_counts()
+        counts = {}
         for fetch in (0, FETCH):
+            ops.reset_launch_counts()
+            kernel = FETCH_KERNELS[name][0] if fetch else SEARCH_KERNELS[name]
             base = None
             for mode, kw in (("sync", dict(pipeline=False, cache_size=0)),
                              ("async", dict(pipeline=True, cache_size=0)),
@@ -1154,7 +1258,7 @@ def main() -> int:
                                   max_wait_ms=1.0, fetch=fetch, **kw)
                 what = f"{name} serving {mode} fetch={fetch}"
                 t0 = time.perf_counter()
-                warm = SyncFreeServer(dev, cfg)
+                warm = SyncFreeServer(dev, cfg, kernel=kernel)
                 check(warm.serve(pats), fetch, what + " (warm-up)")
                 t_warm = time.perf_counter() - t0
                 res, st = run_closed_loop(dev, pats, cfg)
@@ -1178,10 +1282,24 @@ def main() -> int:
                       "shapes": st["shapes"], "wall_s": st["wall_s"],
                       "warm_pass_s": t_warm, "warm_pass_host": warm.host_ms(),
                       **busy, "sync_free_dispatch": True,
+                      "per_batch_launches": {kernel: 1},
                       "equal_to_find_batch": True})
-        counts = counts_now()
-        emit({"phase": "serving_stack", "dataset": name, "launches": counts})
+            counts[fetch] = counts_now()
+            emit({"phase": "serving_stack", "dataset": name, "fetch": fetch,
+                  "launches": counts[fetch]})
         return counts
+    def search_rows(dev, pats, word: bool, m_pad=None):
+        """A batch's packed rows and routed windows on the card: (pat,
+        mask, lengths, lo0, hi0)."""
+        from repro_torch.core.query import _route_window
+        padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad)
+        t = lambda x: torch.from_numpy(x).to(cuda)
+        len_t = t(lengths)
+        pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t, word)
+        lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows, dev.spans,
+                                 len_t, t(route), dev.k_route)
+        return pat, mask, len_t, lo0.contiguous(), hi0.contiguous()
+
     def search_parity(kind: str, dev, sx: np.ndarray, ax, name: str) -> dict:
         """A search kernel against the loop with the plain probes, the loop
         of single-step kernels and the counted loop of ``search_work``
@@ -1191,7 +1309,6 @@ def main() -> int:
         pattern limit below the compare length), NW at and past the
         register-template edges, B = 1, B = 0 and 2^20 rows.  Returns the
         kernel's row at the serving shape."""
-        from repro_torch.core.query import _route_window
         kernel = f"search_bounds_{kind}"
         word = kind == "words"
         step = ops.pattern_probe_words if word else ops.pattern_probe
@@ -1201,14 +1318,8 @@ def main() -> int:
         n_real = len(sx) - 1
         total = dev.n_leaves
 
-        def batch_rows(pats, m_pad=None):
-            padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad)
-            t = lambda x: torch.from_numpy(x).to(cuda)
-            len_t = t(lengths)
-            pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t, word)
-            lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows,
-                                     dev.spans, len_t, t(route), dev.k_route)
-            return pat, mask, len_t, lo0.contiguous(), hi0.contiguous()
+        batch_rows = lambda pats, m_pad=None: search_rows(dev, pats, word,
+                                                          m_pad)
 
         def calls(pat, mask, lengths, lo0, hi0, bounds, lim_p=None):
             kw = dict(n_iter=dev.n_iter, bounds=bounds)
@@ -1303,6 +1414,9 @@ def main() -> int:
                 "bound_note": "this run's trips' bytes over 3.35 TB/s; the "
                               "kernel is bound by dependent DRAM latency "
                               "times trips, not bytes",
+                # the longest lane's dependent round trips: its window and
+                # pattern row, the first ell entry, one per trip
+                "latency_bound_ms": (int(trips.max()) + 2) * dram_rt_ms,
                 "trips_max": int(trips.max()),
                 "trips_mean": float(trips.to(torch.float64).mean()),
                 "n_iter": dev.n_iter, "window_max": int(win.max()),
@@ -1314,6 +1428,158 @@ def main() -> int:
                           "bound_ms": bl_ms, "bound_by": bl_by,
                           "trips_mean": float(trips_l.to(torch.float64)
                                               .mean())}}
+
+    def fetch_parity(kind: str, dev, sx: np.ndarray, ax, name: str) -> dict:
+        """A fused find-and-fetch kernel against its plain version
+        (``search.fetch_composition`` with the plain probes) and the search
+        and epilogue kernels it fuses (exact, all four outputs) on the
+        find-and-fetch batch (256 patterns of 4-24 symbols, routed windows,
+        fetch 32) and its edges: patterns at the text's end (windows past
+        n_real), empty windows, fetch narrower and wider than the pattern,
+        NW past the register templates, B = 1, B = 33, B = 0 and 2^20
+        lanes (2^19 patterns).  Returns the kernel's row."""
+        from repro_torch.kernels.search import fetch_composition
+        kernel = f"search_fetch_{kind}"
+        word = kind == "words"
+        frng = np.random.default_rng(31)
+        n_real = len(sx) - 1
+        total = dev.n_leaves
+
+        def calls(pat, mask, lengths, lo0, hi0, fetch):
+            kw = dict(n_iter=dev.n_iter, fetch=fetch)
+            if word:
+                fused = lambda: ops.search_fetch_words(
+                    dev.s_text, dev.ell, pat, mask, lengths, lo0, hi0, **kw)
+            else:
+                fused = lambda: ops.search_fetch_bytes(
+                    dev.s_text, dev.ell, pat, mask, lo0, hi0, **kw)
+            comp = lambda plain: fetch_composition(
+                dev.s_text, dev.ell, pat, mask, lengths if word else None,
+                lo0, hi0, word=word, plain=plain, **kw)
+            return fused, lambda: comp(True), lambda: comp(False)
+
+        def case(what, pat, mask, lengths, lo0, hi0, fetch=FETCH):
+            fused, plain, unfused = calls(pat, mask, lengths, lo0, hi0, fetch)
+            got = fused()
+            for g, p_, u, part in zip(got, plain(), unfused(),
+                                      ("start", "count", "window",
+                                       "verified")):
+                assert_equal(g, p_, f"{kernel} {name} {what} {part}")
+                assert_equal(g, u, f"{kernel} {name} {what} {part} against "
+                                   f"the kernels it fuses")
+            emit({"phase": "parity", "kernel": kernel, "text": name,
+                  "case": what, "patterns": pat.shape[0],
+                  "nw": pat.shape[1], "fetch": fetch, "max_abs_err": 0,
+                  "matched": int((got[1] > 0).sum())})
+
+        def work(pat, mask, lengths, lo0, hi0, fetch):
+            """(bytes, ops, longest trips) of the fused kernel on this run's
+            data: the search's (``search_work``) less its (2, B) result,
+            plus per pattern the ell entry at its lower bound, the text its
+            verdict and window read (each word once, and the word a shift
+            or byte pick straddles) and the four outputs."""
+            trips, nbytes, n_ops, bnd = search_work(
+                kind, dev.s_text, dev.ell, pat, mask, lengths, None, lo0,
+                hi0, dev.n_iter, 2)
+            b, nw = pat.shape
+            pos0 = dev.ell[torch.clamp(bnd[0], 0, total - 1)]
+            if word:
+                nw_out = -(-fetch // dev.s_text.syms_per_word)
+                text = 4 * fused_reads("words", dev.s_text, pos0, pat, mask,
+                                       nw_out)
+            else:
+                neq = (kref.range_gather_pack_ref(dev.s_text, pos0, 4 * nw)
+                       & mask) != pat
+                first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1),
+                                    nw).to(torch.int64)
+                verdict = torch.minimum(first + 1, (mask != 0).sum(1))
+                text = int(((torch.clamp(verdict, min=fetch // 4) + 1)
+                            * 4).sum())
+            nbytes += b * 4 + text + b * (fetch + 3) * 4 - 2 * b * 4
+            return (nbytes, n_ops + b * (nw * 30 + fetch * 6),
+                    int(trips.max()) if trips.numel() else 0)
+
+        serving = make_workload(sx, frng, batch=256, min_len=4, max_len=24,
+                                planted_frac=0.7, n_symbols=len(ax.symbols))
+        rows_b = search_rows(dev, serving, word)
+        pat, mask, lengths, lo0, hi0 = rows_b
+        case("fetch", *rows_b)
+        tail = [np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
+        if not word:  # the byte string: patterns running into the terminal
+            tail += [np.append(sx[n_real - k:n_real], ax.terminal_code)
+                     .astype(np.uint8) for k in range(24)]
+        case("terminal_tail", *search_rows(dev, tail, word))
+        empty = torch.randint(0, total + 1, lo0.shape, device=cuda,
+                              dtype=torch.int32)
+        case("empty", pat, mask, lengths, empty, empty.clone())
+        case("fetch=4", *rows_b, fetch=4)
+        case("fetch=64", *rows_b, fetch=64)
+        spw = dev.s_text.syms_per_word if word else 4
+        for nw in (3, 16, 17, 32 if word else 128):
+            pats = []
+            for i in range(256):  # lengths that need all nw words
+                m = int(frng.integers((nw - 1) * spw + 1, nw * spw + 1))
+                if i % 2:
+                    p0 = int(frng.integers(0, n_real - m))
+                    pats.append(np.asarray(sx[p0:p0 + m]))
+                else:
+                    pats.append(frng.integers(0, len(ax.symbols), m)
+                                .astype(np.uint8))
+            case(f"nw={nw}", *search_rows(dev, pats, word, nw * spw))
+        for b in (1, 33, 0):
+            case(f"B={b}", *(x[:b] for x in rows_b))
+        idx = torch.randint(0, pat.shape[0], (1 << 19,), device=cuda)
+        large = tuple(x[idx].contiguous() for x in rows_b)
+        case("2^20 lanes", *large)
+
+        # the row: the find-and-fetch batch, and 2^20 lanes
+        fused, plain, unfused = calls(*rows_b, FETCH)
+        nbytes, n_ops, trips_max = work(*rows_b, FETCH)
+        b_ms, b_by = bound(nbytes, n_ops)
+        fl, pl, ul = calls(*large, FETCH)
+        nbytes_l, n_ops_l, trips_l = work(*large, FETCH)
+        bl_ms, bl_by = bound(nbytes_l, n_ops_l)
+        # the longest lane's dependent round trips: its window and pattern
+        # row, the first ell entry, one per trip, then the ell entry at the
+        # lower bound and the text there
+        lat = lambda trips: (trips + 4) * dram_rt_ms
+        replaces = ("src/repro/kernels/probe_gather.py:80" if word
+                    else "src/repro/kernels/pattern_probe.py:57")
+        search = lambda: ops.search_bounds(
+            dev.s_text, dev.ell, pat, mask, lengths, None, lo0, hi0,
+            n_iter=dev.n_iter, bounds=2, word=word)
+        # profiler device time per call (event windows of back-to-back
+        # small launches hold the wrappers' host time)
+        def per_call(fn):
+            ms = device_ms(lambda: [fn() for _ in range(20)])
+            return None if ms is None else ms / 20
+        return {"name": kernel, "replaces": replaces,
+                "replaces_composition": "src/repro/core/query.py:207",
+                "shape": f"B={pat.shape[0]} lanes={2 * pat.shape[0]} "
+                         f"nw={pat.shape[1]} fetch={FETCH}",
+                "ms": cuda_ms(fused, inner=100),
+                "plain_ms": cuda_ms(plain, inner=2),
+                "unfused_ms": cuda_ms(unfused, inner=20),
+                "search_ms": cuda_ms(search, inner=100),
+                "device_ms": per_call(fused),
+                "unfused_device_ms": per_call(unfused),
+                "search_device_ms": per_call(search),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_note": "this run's trips' and epilogue's bytes over "
+                              "3.35 TB/s; latency_bound_ms: the longest "
+                              "lane's dependent round trips (trips + 4) "
+                              "times the measured DRAM round trip",
+                "latency_bound_ms": lat(trips_max), "trips_max": trips_max,
+                "dram_round_trip_ms": dram_rt_ms,
+                "large": {"shape": f"B={large[0].shape[0]} "
+                                   f"lanes={2 * large[0].shape[0]} "
+                                   f"nw={pat.shape[1]} fetch={FETCH}",
+                          "ms": cuda_ms(fl, inner=5),
+                          "plain_ms": cuda_ms(pl, reps=1),
+                          "unfused_ms": cuda_ms(ul, inner=2),
+                          "bound_ms": bl_ms, "bound_by": bl_by,
+                          "latency_bound_ms": lat(trips_l),
+                          "trips_max": trips_l}}
 
     def gather_call(kernel: str):
         return getattr(ops, kernel), getattr(kref, f"{kernel}_ref")
@@ -1587,6 +1853,11 @@ def main() -> int:
             lines = [l.strip() for l in log.read_text().splitlines()
                      if "registers" in l or "spill" in l]
             emit({"phase": "ptxas", "kernel": name, "report": lines})
+    dram_rt_ms = dram_round_trip_ms()
+    emit({"phase": "dram_round_trip", "ms": dram_rt_ms,
+          "note": "one thread's dependent __ldcg walk of a random cycle over "
+                  "1 GiB, no line visited twice (csrc/dram_latency.cu), ms "
+                  "per hop"})
 
     # ---- data -------------------------------------------------------------
     n = 1 << args.n_log2
@@ -1915,22 +2186,21 @@ def main() -> int:
     frng = np.random.default_rng(17)
     ff_pats = make_workload(s, frng, batch=256, min_len=4, max_len=24,
                             planted_frac=0.7, n_symbols=len(alpha.symbols))
-    ops.reset_launch_counts()
-    ff_check = check_find_fetch(dev, s_dev, ff_pats, "genome find_fetch")
-    ff_counts = counts_now()
+    ff_check, ff_counts = check_find_fetch(dev, s_dev, ff_pats,
+                                           "genome find_fetch")
     emit({"phase": "find_fetch", "dataset": "genome", **ff_check,
           "launches": ff_counts})
     require_fetch(ff_counts, "genome", "the genome find-and-fetch path")
     emit({"phase": "find_fetch_latency", "dataset": "genome",
           "batch": len(ff_pats), **fetch_latency(dev, ff_pats)})
-    ops.reset_launch_counts()
-    ff_check = check_find_fetch(dev, s_dev, tpats, "genome terminal fetch")
-    tff_counts = counts_now()
+    ff_check, tff_counts = check_find_fetch(dev, s_dev, tpats,
+                                            "genome terminal fetch")
     emit({"phase": "find_fetch", "dataset": "genome",
           "batch": "terminal-bearing", **ff_check, "launches": tff_counts})
     require_fetch(tff_counts, "terminal", "the terminal-bearing fetch")
     dna_serve_counts = serving_stack(dev, s, alpha, "genome")
-    require_fetch(dna_serve_counts, "genome", "the genome serving stack")
+    require_fetch(dna_serve_counts[FETCH], "genome",
+                  "the genome serving stack")
 
     # the fused kernels at the find-and-fetch shape (a served batch of 256,
     # fetch 32, at each pattern's lower-bound suffix) and at 2^20 rows
@@ -2038,6 +2308,7 @@ def main() -> int:
                      dev.s_text, pos2, pat2, mask2), inner=20),
                  "bound_ms": b_ms, "bound_by": b_by})
     rows.append(search_parity("words", dev, s, alpha, "genome"))
+    rows.append(fetch_parity("words", dev, s, alpha, "genome"))
     # kmer_histogram: the deepest kernel-counted DNA partition scan (t = 6)
     k = 6
     b_ms, b_by = bound(*kmer_work(n_win, k, alpha.base))
@@ -2107,16 +2378,16 @@ def main() -> int:
         *dev.pad_batch(pats)), "search_bounds_bytes", "protein find_batch")
     ff_pats = make_workload(s, frng, batch=256, min_len=4, max_len=24,
                             planted_frac=0.7, n_symbols=len(protein.symbols))
-    ops.reset_launch_counts()
-    ff_check = check_find_fetch(dev, s_dev, ff_pats, "protein find_fetch")
-    prot_ff_counts = counts_now()
+    ff_check, prot_ff_counts = check_find_fetch(dev, s_dev, ff_pats,
+                                                "protein find_fetch")
     emit({"phase": "find_fetch", "dataset": "protein", **ff_check,
           "launches": prot_ff_counts})
     require_fetch(prot_ff_counts, "protein", "the protein find-and-fetch path")
     emit({"phase": "find_fetch_latency", "dataset": "protein",
           "batch": len(ff_pats), **fetch_latency(dev, ff_pats)})
     prot_serve_counts = serving_stack(dev, s, protein, "protein")
-    require_fetch(prot_serve_counts, "protein", "the protein serving stack")
+    require_fetch(prot_serve_counts[FETCH], "protein",
+                  "the protein serving stack")
     del s_dev
 
     # ---- 6b. protein kernels at the main path's shapes ---------------------
@@ -2190,6 +2461,7 @@ def main() -> int:
                      dev.s_text, pos2, pat2, mask2), inner=20),
                  "bound_ms": b_ms, "bound_by": b_by})
     rows.append(search_parity("bytes", dev, s, protein, "protein"))
+    rows.append(fetch_parity("bytes", dev, s, protein, "protein"))
 
     del dev, ell, got, want, pos2, pat2, mask2
     torch.cuda.empty_cache()
@@ -2583,10 +2855,10 @@ def main() -> int:
     rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
     # the LM's main path is one serve call: the warm run, counted from 0
     lm_main = next(r["launches"] for r in lm_runs if r["run"] == "warm")
-    paths = [dna_counts, term_counts, ff_counts, tff_counts, dna_serve_counts,
-             prot_counts, prot_ff_counts, prot_serve_counts,
-             tree["genome"]["counts"], tree["protein"]["counts"],
-             bl["counts"], lm_main]
+    paths = [dna_counts, term_counts, ff_counts, tff_counts,
+             *dna_serve_counts.values(), prot_counts, prot_ff_counts,
+             *prot_serve_counts.values(), tree["genome"]["counts"],
+             tree["protein"]["counts"], bl["counts"], lm_main]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:
@@ -2644,7 +2916,11 @@ def main() -> int:
                                     "last_path", "per_k_ms", "per_k_path",
                                     "bincount_ms", "bincount_note",
                                     "adjacent_share", "w256_ms",
-                                    "ms_in_tree")}})
+                                    "ms_in_tree", "unfused_ms",
+                                    "latency_bound_ms", "dram_round_trip_ms",
+                                    "replaces_composition", "search_ms",
+                                    "device_ms", "unfused_device_ms",
+                                    "search_device_ms")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

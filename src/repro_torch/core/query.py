@@ -17,11 +17,11 @@ package:
 * the terminal-padded uint8 byte string (protein, english, byte, or
   ``packing="bytes"``) — ``search_bounds_bytes`` on byte keys.
 
-:meth:`DeviceIndex.find_fetch_ranges` adds the find-and-fetch epilogue:
-one fused probe + gather launch at each pattern's lower-bound suffix
-(``probe_gather_words`` on dense words; ``probe_gather_packed`` for byte
-keys on dense text; ``pattern_probe`` + ``range_gather_pack`` on the byte
-string) returns the text there.  :class:`RouteCache` memoizes results by
+:meth:`DeviceIndex.find_fetch_ranges` adds the find-and-fetch epilogue
+(the verdict and the text at each pattern's lower-bound suffix) to the
+same launch: ONE ``search_fetch_words`` / ``search_fetch_bytes`` launch
+per batch on dense words / the byte string; byte keys on dense text run
+their loop, then one ``probe_gather_packed`` launch and the decode.  :class:`RouteCache` memoizes results by
 :meth:`DeviceIndex.route_key` for :meth:`DeviceIndex.find_batch_cached` and
 the serving loop (:mod:`repro_torch.launch.serving`).
 
@@ -90,50 +90,6 @@ def _route_window(win_lo, win_hi, pows, spans, lengths, route_syms,
     lo0 = win_lo[c_lo]
     hi0 = torch.maximum(win_hi[c_hi], lo0)
     return lo0, hi0
-
-
-def _window_symbols(s_text, win: torch.Tensor, pos0: torch.Tensor,
-                    fetch: int, word: bool) -> torch.Tensor:
-    """Decode a fused-gather window to (B, fetch) int32 symbol codes
-    (``repro.core.query._window_symbols``).  Word rows hold ``bits``-wide
-    fields of int32 words (uint32 bit patterns: the arithmetic shift's
-    sign bits fall outside the field mask, C1), byte-key rows four
-    big-endian bytes.  A dense text substitutes ``sub_code`` past
-    ``n_real`` on the word path, so the true terminal is patched back in
-    by position: the window is the same for every storage and leg."""
-    b = win.shape[0]
-    dev = win.device
-    if word:
-        bits, spw = s_text.bits, s_text.syms_per_word
-        shifts = 32 - bits * (torch.arange(spw, device=dev) + 1)
-        sym = (win[:, :, None] >> shifts) & ((1 << bits) - 1)
-    else:
-        shifts = 24 - 8 * torch.arange(4, device=dev)
-        sym = (win[:, :, None] >> shifts) & 0xFF
-    sym = sym.reshape(b, -1)[:, :fetch].to(torch.int32)
-    if isinstance(s_text, packing_mod.PackedText):
-        past = (pos0.to(torch.int64)[:, None]
-                + torch.arange(fetch, device=dev)[None, :] >= s_text.n_real)
-        sym = torch.where(past, s_text.terminal, sym).to(torch.int32)
-    return sym
-
-
-def _fetch_windows(s_text, ell, start, count, pat_words, mask_words,
-                   lengths, *, word: bool, fetch: int):
-    """The find-and-fetch epilogue of ``repro.core.query._find_fetch_batch``:
-    one fused probe + gather launch at each lower-bound suffix
-    ``ell[start]`` re-verifies the match and reads ``fetch`` symbols there.
-    Returns ``(window, verified)``: window (B, fetch) int32 codes, −1 rows
-    where nothing matched; verified the fused verdict (0 where count > 0)."""
-    pos0 = ell[torch.clamp(start, 0, ell.shape[0] - 1)]
-    if word:
-        cmp, win = kops.probe_gather_words(s_text, pos0, pat_words,
-                                           mask_words, lengths, fetch)
-    else:
-        cmp, win = kops.probe_gather(s_text, pos0, pat_words, mask_words,
-                                     fetch)
-    sym = _window_symbols(s_text, win, pos0, fetch, word)
-    return torch.where((count > 0)[:, None], sym, -1).to(torch.int32), cmp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,11 +371,11 @@ class DeviceIndex:
                 pat_max = int(np.asarray(patterns).max(initial=0))
         return pat_max < self.s_text.terminal
 
-    def _search(self, patterns, lengths, route_syms, pat_max):
-        """Pack, route and search a padded batch on the device; returns
-        ``(word, lengths, pat_words, mask_words, start, count)``.  Inputs
-        already on the device as int32 (the serving loop's uploads) are
-        used as they are."""
+    def _pack_route(self, patterns, lengths, route_syms, pat_max):
+        """Pack and route a padded batch on the device; returns ``(word,
+        pat_words, mask_words, lengths, lo0, hi0)``.  Inputs already on the
+        device as int32 (the serving loop's uploads) are used as they
+        are."""
         word = self._word_gate(patterns, pat_max)
         patterns, lengths, route_syms = (
             torch.as_tensor(a, dtype=torch.int32, device=self.device)
@@ -428,11 +384,7 @@ class DeviceIndex:
                                                   lengths, word)
         lo0, hi0 = _route_window(self.win_lo, self.win_hi, self.pows,
                                  self.spans, lengths, route_syms, self.k_route)
-        llo, ulo = kops.search_bounds(self.s_text, self.ell, pat_words,
-                                      mask_words, lengths, None, lo0, hi0,
-                                      n_iter=self.n_iter, bounds=2, word=word)
-        return (word, lengths, pat_words, mask_words, llo,
-                torch.clamp(ulo - llo, min=0))
+        return word, pat_words, mask_words, lengths, lo0, hi0
 
     def find_batch_ranges(self, patterns, lengths, route_syms,
                           *, pat_max: int | None = None):
@@ -440,26 +392,32 @@ class DeviceIndex:
         ``ell`` on the device (matches are ``ell[start:start+count]``).
         Pass the batch's ``pat_max`` when it is known: the probe gate then
         needs no device reduce, and device inputs make the call sync-free."""
-        return self._search(patterns, lengths, route_syms, pat_max)[4:]
+        word, pat, mask, lengths, lo0, hi0 = self._pack_route(
+            patterns, lengths, route_syms, pat_max)
+        llo, ulo = kops.search_bounds(self.s_text, self.ell, pat, mask,
+                                      lengths, None, lo0, hi0,
+                                      n_iter=self.n_iter, bounds=2, word=word)
+        return llo, torch.clamp(ulo - llo, min=0)
 
     def find_fetch_ranges(self, patterns, lengths, route_syms, *, fetch: int,
                           pat_max: int | None = None):
         """Find-and-fetch: :meth:`find_batch_ranges` plus ``fetch`` symbols
-        of text at the first (suffix-array order) match, from one fused
-        probe + gather launch.  Returns device tensors ``(start, count,
-        window, verified)``; window is (B, fetch) int32 codes (−1 rows
-        where count == 0), verified the fused verdict (0 where count > 0)."""
+        of text at the first (suffix-array order) match, from the same
+        search launch (:func:`repro_torch.kernels.ops.search_fetch`).
+        Returns device tensors ``(start, count, window, verified)``;
+        window is (B, fetch) int32 codes (−1 rows where count == 0),
+        verified the fused verdict (0 where count > 0)."""
         if fetch % 4 or fetch <= 0:
             raise ValueError(f"fetch={fetch} must be a positive multiple of 4")
         if fetch > self.max_pattern_len:
             raise ValueError(
                 f"fetch={fetch} exceeds max_pattern_len={self.max_pattern_len}"
                 " (the gather-past-|S| padding guarantee)")
-        word, lengths, pat_words, mask_words, start, count = self._search(
+        word, pat, mask, lengths, lo0, hi0 = self._pack_route(
             patterns, lengths, route_syms, pat_max)
-        return (start, count) + _fetch_windows(
-            self.s_text, self.ell, start, count, pat_words, mask_words,
-            lengths, word=word, fetch=fetch)
+        return kops.search_fetch(self.s_text, self.ell, pat, mask, lengths,
+                                 lo0, hi0, n_iter=self.n_iter, fetch=fetch,
+                                 word=word)
 
     def positions(self, start: int, count: int) -> np.ndarray:
         """The sorted int64 occurrence positions ``ell[start:start+count]``

@@ -14,10 +14,11 @@
 // Bound on the H100: launch latency.  A search step is 2B rows (lower and
 // upper bound fused) of a few words each, a few KB.  The searches of the
 // main path no longer launch it once per step: search_bounds_bytes.cu runs
-// the whole binary search in one launch.  This kernel stays the exact
-// counterpart of the TPU function, the probe of the protein find-and-fetch
-// epilogue (with range_gather_pack), and the single-step yardstick the
-// search kernel is timed against.
+// the whole binary search in one launch, and search_fetch_bytes.cu the
+// search and the find-and-fetch epilogue.  This kernel stays the exact
+// counterpart of the TPU function and the single-step yardstick the
+// search kernels are timed against (with range_gather_pack, the unfused
+// epilogue).
 #include <cuda_runtime.h>
 #include <cstdint>
 

@@ -2,8 +2,9 @@
 // string: the -1/0/+1 verdict of the masked byte keys of the suffix at p0
 // against a packed pattern row, compared unsigned at the first differing
 // word (0: the suffix starts with the pattern).  pattern_probe.cu (one
-// search step) and search_bounds_bytes.cu (the whole search) decide with
-// this code.  Row types (GlobalRow, RegRow, SharedRow) are those of
+// search step), search_bounds_bytes.cu (the whole search) and
+// search_fetch_bytes.cu (search and find-and-fetch in one launch) decide
+// with this code.  Row types (GlobalRow, RegRow, SharedRow) are those of
 // probe_words.cuh.
 #pragma once
 #include <cstdint>

@@ -14,7 +14,11 @@
 // saturated at the compare length by probe_words.cuh's resolve, lim_p
 // defaulting to the lengths).  The
 // compare stops at its first difference; the read stops only once the
-// window is written as well.
+// window is written as well.  That per-row body is probe_gather_words.cuh,
+// shared with search_fetch_words.cu, which runs it after the search in the
+// same launch on the find-and-fetch path; this kernel stays the exact
+// counterpart of the TPU function and the yardstick the fused search is
+// timed against.
 //
 // Bound on the H100: launch latency at serving shapes.  A batch of B rows
 // moves B * (nw_rd + 1) text words, 2 * B * nw_pat pattern and mask words,
@@ -25,7 +29,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "probe_words.cuh"
+#include "probe_gather_words.cuh"
 
 __global__ void probe_gather_words_kernel(
     const uint32_t* __restrict__ words, long long n_words,
@@ -34,36 +38,13 @@ __global__ void probe_gather_words_kernel(
     const int32_t* __restrict__ lim_p, long long b, int nw_pat, int nw_out,
     int bits, long long n_real, uint32_t sub_word, int32_t* __restrict__ cmp,
     uint32_t* __restrict__ win) {
-  const int spw = 32 / bits;
-  const long long big = (long long)nw_pat * spw;
-  const int nw_rd = nw_pat > nw_out ? nw_pat : nw_out;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
-    long long p0 = pos[i];
-    long long p = big;
-    int sym = 0;
-    uint32_t aw = 0, bw = 0;
-    bool open = true;  // no differing word found yet
-    for (int j = 0; j < nw_rd; ++j) {
-      if (j >= nw_out && !open) break;  // window written, verdict decided
-      uint32_t w = dense_read_word(words, n_words, p0, j, bits, spw, n_real,
-                                   sub_word);
-      if (j < nw_out) win[i * nw_out + j] = w;
-      if (open && j < nw_pat) {
-        uint32_t sw = w & mask[i * nw_pat + j];
-        uint32_t pw = pat[i * nw_pat + j];
-        uint32_t x = sw ^ pw;
-        if (x != 0u) {
-          sym = __clz((int)x) / bits;
-          p = (long long)j * spw + sym;
-          aw = sw;
-          bw = pw;
-          open = false;
-        }
-      }
-    }
-    cmp[i] = probe_words_resolve(p, sym, aw, bw, bits, big, lengths[i],
-                                 n_real - p0, lim_p[i]);
+    uint32_t* out = win + i * nw_out;
+    cmp[i] = probe_gather_words_row<0>(
+        words, n_words, pos[i], GlobalRow{pat + i * nw_pat, mask + i * nw_pat},
+        nw_pat, nw_out, bits, n_real, sub_word, lengths[i], lim_p[i],
+        [&](int j, uint32_t w) { out[j] = w; });
   }
 }
 

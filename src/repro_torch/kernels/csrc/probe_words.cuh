@@ -2,8 +2,10 @@
 // one masked dense pattern row against the suffix at p0, by XOR, first
 // differing word, clz and the terminal-limit rules of
 // repro_torch.kernels.ref.probe_words_ref.  pattern_probe_words.cu (one
-// search step), search_bounds_words.cu (the whole search) and
-// probe_gather_words.cu (the fused find-and-fetch) decide with this code.
+// search step), search_bounds_words.cu (the whole search),
+// probe_gather_words.cu (the fused probe + gather) and
+// search_fetch_words.cu (search and find-and-fetch in one launch) decide
+// with this code.
 #pragma once
 #include <cstdint>
 

@@ -1,6 +1,7 @@
 // Shared device code of the search kernels (search_bounds_words.cu,
-// search_bounds_bytes.cu): the fixed-trip binary search of one row over
-// the suffix array, and the one-time read of its pattern row.
+// search_bounds_bytes.cu, search_fetch_words.cu, search_fetch_bytes.cu):
+// the fixed-trip binary search of one row over the suffix array, and the
+// one-time read of its pattern row.
 #pragma once
 #include <cstdint>
 

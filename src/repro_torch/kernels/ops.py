@@ -15,14 +15,15 @@ meanings, so one CI leg covers both packages:
   TEXT: construction reads byte keys from the dense words
   (``range_gather_packed``) and sorts and compares them as on byte text,
   searches run a loop of ``pattern_probe_packed`` steps (find-and-fetch
-  through ``probe_gather_packed``, not ``probe_gather_words``), and
+  through ``probe_gather_packed`` after the loop), and
   suffix-pair LCPs run ``range_gather_packed`` + ``lcp_pairs``.  A
   byte-per-symbol text (protein, english, byte, ``packing="bytes"``)
   always runs the byte-key currency (``range_gather_pack``,
-  ``lcp_pairs``, ``search_bounds_bytes``, ``pattern_probe``,
+  ``lcp_pairs``, ``search_bounds_bytes``, ``search_fetch_bytes``,
   ``suffix_lcp_pairs``), and a dense index answers a batch carrying the
   terminal code through ``pattern_probe_packed``, as the JAX package
-  does.  Searches on dense words run ``search_bounds_words``;
+  does.  Searches on dense words run ``search_bounds_words``,
+  find-and-fetch ``search_fetch_words``;
 * ``REPRO_SORT=fused|lexsort`` — fused single-lane sort keys or the
   multi-key oracle sort;
 * ``REPRO_COMPACT=tail|off`` — tail compaction of the elastic step.
@@ -52,8 +53,11 @@ from repro_torch.kernels.probe_gather import (
 )
 from repro_torch.kernels.range_gather import range_gather_pack
 from repro_torch.kernels.search import (
+    fetch_epilogue,
     search_bounds_bytes,
     search_bounds_words,
+    search_fetch_bytes,
+    search_fetch_words,
     search_loop,
 )
 from repro_torch.kernels.suffix_lcp import suffix_lcp_pairs as _suffix_lcp_bytes
@@ -74,6 +78,8 @@ KERNELS = {
     "flash_attention": flash_attention,
     "search_bounds_words": search_bounds_words,
     "search_bounds_bytes": search_bounds_bytes,
+    "search_fetch_words": search_fetch_words,
+    "search_fetch_bytes": search_fetch_bytes,
 }
 
 __all__ = ["KERNELS", "flash_attention", "kmer_histogram", "launch_counts",
@@ -83,6 +89,7 @@ __all__ = ["KERNELS", "flash_attention", "kmer_histogram", "launch_counts",
            "range_gather", "range_gather_pack", "range_gather_packed",
            "range_gather_words", "reset_launch_counts", "resolve_device",
            "search_bounds", "search_bounds_bytes", "search_bounds_words",
+           "search_fetch", "search_fetch_bytes", "search_fetch_words",
            "search_loop",
            "suffix_lcp_pairs", "suffix_lcp_words"]
 
@@ -134,10 +141,10 @@ def probe_gather(s_text, pos: torch.Tensor, pat_words: torch.Tensor,
     """Find-and-fetch in the byte-key currency, dispatched on the text as
     ``repro.kernels.ops.probe_gather_impl``: ``(cmp int32[B], keys
     int32[B, fetch//4])``.  A dense :class:`PackedText` runs the fused
-    ``probe_gather_packed`` kernel; the terminal-padded byte string has no
-    fused kernel and runs the two launches ``pattern_probe`` +
-    ``range_gather_pack`` (the fused kernels' definition, so the results
-    are the same for either storage)."""
+    ``probe_gather_packed`` kernel; the terminal-padded byte string runs
+    the two launches ``pattern_probe`` + ``range_gather_pack`` (the fused
+    kernels' definition, so the results are the same for either storage;
+    find-and-fetch runs both inside ``search_fetch_bytes``)."""
     if isinstance(s_text, PackedText):
         return probe_gather_packed(s_text, pos, pat_words, mask_words, fetch)
     return (pattern_probe(s_text, pos, pat_words, mask_words),
@@ -165,6 +172,31 @@ def search_bounds(s_text, ell: torch.Tensor, pat: torch.Tensor,
                            None, lo0, hi0, n_iter=n_iter, bounds=bounds)
     return search_bounds_bytes(s_text, ell, pat, mask, lo0, hi0,
                                n_iter=n_iter, bounds=bounds)
+
+
+def search_fetch(s_text, ell: torch.Tensor, pat: torch.Tensor,
+                 mask: torch.Tensor, lengths: torch.Tensor, lo0: torch.Tensor,
+                 hi0: torch.Tensor, *, n_iter: int, fetch: int, word: bool):
+    """Find-and-fetch of pattern rows in ``[lo0, hi0)`` of ``ell``
+    (``repro.core.query._find_fetch_batch`` after packing and routing):
+    ``(start, count, window, verified)``, dispatched as
+    :func:`search_bounds`: one ``search_fetch_words`` launch for dense word
+    rows, one ``search_fetch_bytes`` launch on the terminal-padded byte
+    string, and for byte keys on a dense :class:`PackedText` the loop of
+    ``n_iter`` ``pattern_probe_packed`` steps, one ``probe_gather_packed``
+    launch and the window decode.  ``lengths`` feed the word compare
+    only."""
+    if word:
+        return search_fetch_words(s_text, ell, pat, mask, lengths, lo0, hi0,
+                                  n_iter=n_iter, fetch=fetch)
+    if isinstance(s_text, PackedText):
+        bnd = search_loop(pattern_probe_packed, s_text, ell, pat, mask, None,
+                          None, lo0, hi0, n_iter=n_iter, bounds=2)
+        return fetch_epilogue(
+            s_text, ell, bnd, lambda pos: probe_gather(
+                s_text, pos, pat, mask, fetch), fetch=fetch, word=False)
+    return search_fetch_bytes(s_text, ell, pat, mask, lo0, hi0, n_iter=n_iter,
+                              fetch=fetch)
 
 
 def suffix_lcp_pairs(s_text, pos_a: torch.Tensor, pos_b: torch.Tensor,

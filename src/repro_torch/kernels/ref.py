@@ -168,6 +168,34 @@ def probe_gather_packed_ref(pt: PackedText, pos: torch.Tensor,
     return cmp, range_gather_packed_ref(pt, pos, fetch)
 
 
+def window_symbols_ref(s_text, win: torch.Tensor, pos0: torch.Tensor,
+                       fetch: int, word: bool) -> torch.Tensor:
+    """A fetched window decoded to (B, fetch) int32 symbol codes
+    (``repro.core.query._window_symbols``): word rows hold ``bits``-wide
+    fields of int32 words (uint32 bit patterns: the arithmetic shift's
+    sign bits fall outside the field mask, C1), byte-key rows four
+    big-endian bytes.  A dense text substitutes ``sub_code`` past
+    ``n_real``, so the true terminal is patched back in by position: the
+    window is the same for every storage and leg.  The fused search
+    kernels compute this decode in registers."""
+    b = win.shape[0]
+    dev = win.device
+    if word:
+        bits, spw = s_text.bits, s_text.syms_per_word
+        shifts = 32 - bits * (torch.arange(spw, device=dev) + 1)
+        sym = (win[:, :, None] >> shifts) & ((1 << bits) - 1)
+    else:
+        shifts = 24 - 8 * torch.arange(4, device=dev)
+        sym = (win[:, :, None] >> shifts) & 0xFF
+    sym = sym.reshape(b, sym.shape[1] * sym.shape[2])[:, :fetch]
+    sym = sym.to(torch.int32)
+    if isinstance(s_text, PackedText):
+        past = (pos0.to(torch.int64)[:, None]
+                + torch.arange(fetch, device=dev)[None, :] >= s_text.n_real)
+        sym = torch.where(past, s_text.terminal, sym).to(torch.int32)
+    return sym
+
+
 def suffix_lcp_words_ref(pt: PackedText, pos_a: torch.Tensor,
                          pos_b: torch.Tensor, w: int) -> torch.Tensor:
     """int32[B] LCP of dense suffix pairs: first differing word by XOR,

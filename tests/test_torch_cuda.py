@@ -856,3 +856,137 @@ def test_cuda_find_batch_is_one_search_launch(cuda_device, kind):
     for p, got in zip(pats, found):
         win = np.lib.stride_tricks.sliding_window_view(s[:-1], len(p))
         assert got.tolist() == np.nonzero((win == p).all(1))[0].tolist()
+
+
+# ---- the fused find-and-fetch: one launch per batch ----------------------
+
+def _fetches(kind, dev, pat, mask, lengths, lo0, hi0, fetch):
+    """(fused kernel, its plain version on the card, the ported kernels it
+    fuses launched one after the other), each (start, count, window,
+    verified)."""
+    word = kind == "words"
+    args = (dev.s_text, dev.ell, pat, mask)
+    kw = dict(n_iter=dev.n_iter, fetch=fetch)
+    if word:
+        fused = tsearch.search_fetch_words(*args, lengths, lo0, hi0, **kw)
+    else:
+        fused = tsearch.search_fetch_bytes(*args, lo0, hi0, **kw)
+    comp = functools.partial(tsearch.fetch_composition, *args,
+                             lengths if word else None, lo0, hi0, word=word,
+                             **kw)
+    return fused, comp(), comp(plain=False)
+
+
+def _assert_fetch_equal(got, *wants):
+    for want in wants:
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,fetch", [("routed", 32), ("routed", 4),
+                                          ("unrouted", 36), ("empty", 64)])
+@pytest.mark.parametrize("kind,m_pad", [(k, m) for k in SEARCH_M_PAD
+                                        for m in SEARCH_M_PAD[k]])
+def test_cuda_search_fetch(cuda_device, kind, m_pad, window, fetch):
+    """Each fused find-and-fetch kernel equals its plain version and the
+    search + epilogue kernels it fuses, in one launch: NW at and past the
+    register templates and on the shared-memory route, fetch narrower and
+    wider than the pattern, windows that run past the text's end, rows
+    that match nothing and empty windows."""
+    rng = np.random.default_rng(m_pad + fetch)
+    dev, pat, mask, lengths, lo0, hi0 = _search_rows(kind, m_pad, window,
+                                                     rng)
+    ops.reset_launch_counts()
+    got, plain, kernels = _fetches(kind, dev, pat, mask, lengths, lo0, hi0,
+                                   fetch)
+    assert ops.launch_counts()[f"search_fetch_{kind}"] == 1
+    assert got[2].shape == (pat.shape[0], fetch)
+    _assert_fetch_equal(got, plain, kernels)
+    if window == "empty":
+        assert (got[1] == 0).all() and (got[2] == -1).all()
+    else:
+        assert (got[1] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "bytes"])
+@pytest.mark.parametrize("b", [0, 1, 33, 1 << 20])
+def test_cuda_search_fetch_batch_sizes(cuda_device, kind, b):
+    """B = 0, 1 and 33 (a warp of lane pairs half filled), and 2^20
+    patterns (2^21 lanes: each thread of the capped grid strides)."""
+    rng = np.random.default_rng(b)
+    dev, pat, mask, lengths, lo0, hi0 = _search_rows(kind, 24, "routed", rng)
+    idx = torch.from_numpy(rng.integers(0, pat.shape[0], b)).cuda()
+    got, plain, kernels = _fetches(
+        kind, dev, pat[idx].contiguous(), mask[idx].contiguous(),
+        lengths[idx], lo0[idx], hi0[idx], 32)
+    assert got[2].shape == (b, 32)
+    _assert_fetch_equal(got, plain, kernels)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_index(alpha):
+    """A dense card index of 4-bit (protein_class) or 8-bit (protein,
+    packed dense) words."""
+    from repro_torch.core.api import EraConfig, EraIndexer
+    a = ALPHABETS[alpha]
+    s = a.random_string(30_000, seed=3)
+    s[20_000:20_300] = s[500:800]
+    dev = EraIndexer(a, EraConfig(memory_bytes=1 << 16), device="cuda"
+                     ).build_device(s, packing="dense")
+    return s, a, dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", [8, 36])
+@pytest.mark.parametrize("alpha", ["protein_class", "protein"])
+def test_cuda_search_fetch_word_widths(cuda_device, alpha, fetch):
+    """The word kernel on 4- and 8-bit dense words (decoded from 8 and 4
+    fields a word), patterns at the text's end included."""
+    s, a, dev = _dense_index(alpha)
+    assert dev.packed
+    rng = np.random.default_rng(7)
+    n = len(s) - 1
+    pats = [s[p:p + m] for p, m in zip(rng.integers(0, n - 40, 300),
+                                       rng.integers(1, 40, 300))]
+    pats += [s[n - k:n] for k in range(1, 40)]
+    pats += [rng.integers(0, len(a.symbols), 9).astype(np.uint8)
+             for _ in range(40)]
+    padded, lengths, route = dev.pad_batch(pats)
+    t = lambda x: torch.from_numpy(x).cuda()
+    len_t = t(lengths)
+    pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t)
+    lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows, dev.spans,
+                             len_t, t(route), dev.k_route)
+    got, plain, kernels = _fetches("words", dev, pat, mask, len_t, lo0, hi0,
+                                   fetch)
+    _assert_fetch_equal(got, plain, kernels)
+    assert (got[1] > 0).any() and (got[1] == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "bytes"])
+def test_cuda_find_fetch_is_one_launch(cuda_device, kind):
+    """A find-and-fetch batch launches its fused kernel once and none of
+    the search and epilogue kernels it replaces; each window is the text
+    at the pattern's first match, -1 where it does not occur."""
+    s, a, dev = _search_index(kind)
+    rng = np.random.default_rng(6)
+    n = len(s) - 1
+    pats = [s[p:p + m] for p, m in zip(rng.integers(0, n - 30, 40),
+                                       rng.integers(1, 24, 40))]
+    pats += [s[n - 5:n], rng.integers(0, len(a.symbols), 12).astype(np.uint8)]
+    ops.reset_launch_counts()
+    start, count, win, verified = dev.find_fetch_ranges(
+        *dev.pad_batch(pats), fetch=32)
+    counts = ops.launch_counts()
+    assert counts[f"search_fetch_{kind}"] == 1
+    assert sum(counts.values()) == 1
+    s_dev = torch.from_numpy(s).cuda()
+    pos0 = dev.ell[torch.clamp(start, 0, dev.n_leaves - 1)].long()
+    idx = torch.clamp(pos0[:, None] + torch.arange(32, device="cuda"),
+                      max=n)
+    has = count > 0
+    assert torch.equal(win, torch.where(has[:, None], s_dev[idx].int(), -1))
+    assert bool((verified[has] == 0).all()) and bool((~has).any())

@@ -624,8 +624,12 @@ def test_cpu_tensors_take_plain_versions_uncounted():
                             offs + 5, n_iter=3, bounds=2)
     ops.search_bounds_bytes(sp, offs, keys, keys, offs, offs + 5, n_iter=3,
                             bounds=1)
+    ops.search_fetch_words(tt, offs, dense, dense, offs, offs, offs + 5,
+                           n_iter=3, fetch=16)
+    ops.search_fetch_bytes(sp, offs, keys, keys, offs, offs + 5, n_iter=3,
+                           fetch=16)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 15
+    assert len(ops.KERNELS) == 17
 
 
 def test_reset_clears_range_gather_pack_tallies(monkeypatch):
