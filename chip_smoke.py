@@ -53,12 +53,13 @@ Phases, each printing one JSON line:
               search + epilogue kernels they fuse, all four outputs, on
               the find-and-fetch batch, end-of-text windows, empty
               windows, fetch 4 and 64, NW past the templates, B = 1, 33
-              and 0 and 2^20 lanes; the two elastic-range
+              and 0 and 2^20 lanes; the three elastic-range
               gathers also on every NW template and two nw outside them,
-              0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end,
-              without a mask, with a mixed one and with every row off, on
-              the 2-, 4- and 8-bit dense texts and the protein and byte
-              strings, and in one launch of more than 2^31 output words;
+              0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end
+              (past n_real for ``range_gather_packed``), without a mask,
+              with a mixed one and with every row off, on the 2-, 4- and
+              8-bit dense texts and the protein and byte strings, and in
+              one launch of more than 2^31 output words;
               ``kmer_histogram`` at every k the partition counts with it on
               the genome and protein strings and the BYTE string (k = 2:
               2^16 bins, the cluster layout), each with a start off every
@@ -70,9 +71,11 @@ Phases, each printing one JSON line:
               bucket the padding allows);
 3. build    — ``EraIndexer(alphabet, EraConfig()).build_device(s)``;
    build_profile — one more warm build per dataset under
-              ``torch.profiler``: device ms and calls of every kernel of
-              the build, the two gathers' ms and share of ``t_prepare_s``,
-              the device's busy share of the build;
+              ``torch.profiler`` (and one of the byte leg, phase 7):
+              device ms and calls of every kernel of the build, each port
+              kernel's ms beside its bound for the counted build's rows,
+              the gathers' ms and share of ``t_prepare_s``, the device's
+              busy share of the build;
 4. check    — ``ell`` is a permutation of the suffixes, and ``find_batch``
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
@@ -103,7 +106,9 @@ Phases, each printing one JSON line:
               pending rows, adjacency share and device ms, the kernel's
               total beside ``t_rows_and_text_lcp_s`` (the rest is glue);
 7. byte_leg — build_device, find_batch and the analytics LCP array under
-              ``REPRO_WORD_COMPARE=byte``, equal to the word leg;
+              ``REPRO_WORD_COMPARE=byte``, equal to the word leg; then a
+              profiled warm byte-leg build (``build_profile``,
+              ``range_gather_packed`` and ``lcp_pairs`` in the build);
 8. LM       — ``parity`` of ``flash_attention`` against its plain version
               (float32 rtol 1e-5 / atol 2e-5 with TF32 off, the
               ``cuda_cores`` design; bf16 one bf16 ulp of the output, rtol
@@ -139,7 +144,11 @@ Phases, each printing one JSON line:
               in the profiled builds; ``kmer_histogram`` with its layout
               and ms at every counted k beside ``bincount_ms``;
               ``suffix_lcp_words`` with the adjacency share of its
-              main-path pairs, its w = 256 times and its ms in the tree.
+              main-path pairs, its w = 256 times and its ms in the tree;
+              ``range_gather_packed`` and ``suffix_lcp_pairs`` beside
+              their earlier designs (``baseline_ms``, the sources in
+              ``src/repro_torch/kernels/baseline``, built beside the port's
+              and timed in turns on the same inputs, outputs held equal).
 
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, the find-and-fetch calls of each
@@ -160,11 +169,11 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import gc
 import json
-import os
 import subprocess
 import sys
 import time
@@ -215,11 +224,20 @@ FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
     "protein": ("probe_gather_packed", "pattern_probe_words",
                 "search_fetch_words") + UNFUSED,
 }
-# the kernels a build_device launches, per dataset (build_profile's rows)
+# the kernels a build_device launches, per dataset (build_profile's rows;
+# byte_leg: the genome build under REPRO_WORD_COMPARE=byte)
 BUILD_KERNELS = {"genome": ("kmer_histogram", "range_gather_words"),
                  "protein": ("kmer_histogram", "range_gather_pack",
-                             "lcp_pairs")}
-GATHERS = ("range_gather_words", "range_gather_pack")
+                             "lcp_pairs"),
+                 "byte_leg": ("kmer_histogram", "range_gather_packed",
+                              "lcp_pairs")}
+GATHERS = ("range_gather_words", "range_gather_pack", "range_gather_packed")
+# the earlier designs of the kernels this slice redesigned, timed beside
+# them in turns (the port never calls them): source directory and design
+YARDSTICK_DIR = ROOT / "src" / "repro_torch" / "kernels" / "baseline"
+DESIGNS = {"range_gather_packed": ("row_read", "thread_per_key_word"),
+           "suffix_lcp_pairs": ("chunked_shared_suffix",
+                                "thread_per_pair_word_loop")}
 # the gathers' edge cases: every NW template, two nw outside them, and
 # launches of 0, 1, 4099 and 2^22 + 5 rows (ragged against rows a thread)
 GATHER_NW = (1, 2, 3, 4, 5, 8, 16, 32, 64)
@@ -510,7 +528,7 @@ def search_batch_launches(search, kernel: str, what: str) -> None:
 
 
 def counts_now() -> dict:
-    """``ops.launch_counts()`` plus the rows and words that the two
+    """``ops.launch_counts()`` plus the rows and words that the three
     elastic-range gathers' counted launches gathered (their time scales
     with them, so ROADMAP queue B ranks them by them, not by launches
     alone)."""
@@ -886,6 +904,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.analytics_serve import make_query, serve_engine
+    from repro_torch.launch import gather_bench, hist_lcp_bench
     from repro_torch.launch.gather_bench import persisting_l2_window
     from repro_torch.launch.query_serve import make_workload, serve_index
     from repro_torch.launch.serving import (
@@ -1600,7 +1619,8 @@ def main() -> int:
         ``hi`` (the text's end), without a mask, with a mixed one and with
         every row masked off (exact)."""
         fn, plain = gather_call(kernel)
-        limit = 2 * cfg.w_max + 8 if kernel == "range_gather_words" else 1e9
+        # the dense texts' read contract: w up to their extra symbols
+        limit = 2 * cfg.w_max + 8 if kernel != "range_gather_pack" else 1e9
         ws = [nw * spw for nw in GATHER_NW if nw * spw <= limit]
         cases = 0
         for w in ws:
@@ -1654,11 +1674,14 @@ def main() -> int:
         launches and the gathers' row and word tallies: a gather moves its
         offsets, mask bytes and keys (its scattered text reads, which can
         hit L2, left out), ``lcp_pairs`` both key rows and three outputs
-        per row, ``kmer_histogram`` the string once per launch."""
+        per row (its rows are the byte gather's: ``range_gather_pack`` on
+        a byte string, ``range_gather_packed`` in the byte leg),
+        ``kmer_histogram`` the string once per launch."""
         b = {k: ((5 * counts[f"{k}_rows"] + 4 * counts[f"{k}_words"])
                  / HBM_BYTES_PER_S * 1e3) for k in GATHERS}
-        b["lcp_pairs"] = ((8 * counts["range_gather_pack_words"]
-                           + 12 * counts["range_gather_pack_rows"])
+        byte = ("range_gather_pack", "range_gather_packed")
+        b["lcp_pairs"] = ((8 * sum(counts[f"{k}_words"] for k in byte)
+                           + 12 * sum(counts[f"{k}_rows"] for k in byte))
                           / HBM_BYTES_PER_S * 1e3)
         b["kmer_histogram"] = (counts["kmer_histogram"] * n_sym
                                / HBM_BYTES_PER_S * 1e3)
@@ -1838,7 +1861,13 @@ def main() -> int:
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    compile_s = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the earlier designs' nvcc runs beside the port's
+        yard_future = pool.submit(lambda: {
+            **gather_bench.build_baseline(YARDSTICK_DIR),
+            **hist_lcp_bench.build_baseline(YARDSTICK_DIR)})
+        compile_s = _build.build_all()
+        yard = yard_future.result()
     t_build_kernels = time.perf_counter() - t0
     for name in _build.SOURCES:  # load every library once
         _build.library(name)
@@ -1846,7 +1875,8 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": t_build_kernels,
-          "nvcc_s": compile_s, "build_dir": str(_build.build_dir())})
+          "nvcc_s": compile_s, "build_dir": str(_build.build_dir()),
+          "yardsticks": sorted(yard)})
     for name in _build.SOURCES:  # registers / spills from -Xptxas -v
         log = (_build.build_dir() / f"{name}.log")
         if log.exists():
@@ -1966,6 +1996,10 @@ def main() -> int:
             ALPHABETS["byte"], extra=2 * cfg.w_max + 8, device=cuda)}
     for name, ptx in dense_texts.items():
         nr = ptx.n_real
+        # every BITS x NW template, offsets at and past n_real
+        gather_edges("range_gather_packed", ptx, nr + 32, 4, name)
+        if name == "genome":
+            gather_past_2_31("range_gather_packed", ptx, nr, 64, 16, name)
         if name == "byte":  # the 8-bit words: suffix_lcp_words' bits 8 only
             lcp_word_cases(name, ptx, torch.from_numpy(np.concatenate(
                 [rng.integers(0, nr + 1, size=f - 256),
@@ -2744,13 +2778,25 @@ def main() -> int:
                          pfn(text, pa[c0:c0 + chunk], pb[c0:c0 + chunk], w),
                          f"{kname} (main-path shape)")
         b_ms, b_by = bound(*work(got))
+        call = lambda: kfn(text, pa, pb, w)
+        earlier = {}
+        if kname in yard:  # the earlier design, in turns on the same pairs
+            old = lambda: hist_lcp_bench.baseline_slcp(yard[kname], text, pa,
+                                                       pb, w)
+            assert_equal(old(), got, f"{kname}'s earlier design")
+            ms, old_ms = gather_bench.in_turns(
+                {"ms": call, "baseline_ms": old}).values()
+            earlier = {"design": DESIGNS[kname][0], "baseline_ms": old_ms,
+                       "baseline_design": DESIGNS[kname][1]}
+        else:
+            ms = cuda_ms(call)
         row = {"name": kname, "replaces": replaces,
                "shape": f"rows={pa.shape[0]} w={w}",
                "adjacent_share": float((pa[1:] == pb[:-1]).float().mean()),
                "ms_in_tree": {name: {"ms_in_tree": tree_lcp["ms_in_tree"],
                                      "bound_ms": tree_lcp["bound_ms"],
                                      "rows": tree_lcp["rows"]}},
-               "ms": cuda_ms(lambda: kfn(text, pa, pb, w)),
+               "ms": ms, **earlier,
                "plain_ms": cuda_ms(lambda: [
                    pfn(text, pa[c0:c0 + chunk], pb[c0:c0 + chunk], w)
                    for c0 in range(0, pa.shape[0], chunk)], reps=1),
@@ -2775,15 +2821,15 @@ def main() -> int:
     leg_q = make_query(s_leg, qrng, batch=512, planted_frac=0.7,
                        n_symbols=len(alpha.symbols))
     legs = {}
-    saved = os.environ.get("REPRO_WORD_COMPARE")
-    try:
-        for leg in ("word", "byte"):
-            os.environ["REPRO_WORD_COMPARE"] = leg
+    for leg in ("word", "byte"):
+        with gather_bench.word_compare(leg):
             ops.reset_launch_counts()
+            report = BuildReport(VerticalStats(), PrepareStats())
             t0 = time.perf_counter()
-            dev = EraIndexer(alpha, cfg).build_device(s_leg)
+            dev = EraIndexer(alpha, cfg).build_device(s_leg, report)
             torch.cuda.synchronize()
             t_leg = time.perf_counter() - t0
+            leg_build = counts_now()
             found = dev.find_batch(leg_pats)
             fetched = dev.find_fetch_batch(leg_pats, fetch=FETCH)
             _, eng = EraIndexer(alpha, EraConfig(build_impl="none")
@@ -2792,16 +2838,19 @@ def main() -> int:
             legs[leg] = {"ell": dev.ell.cpu().numpy(), "found": found,
                          "fetched": fetched,
                          "lcp": eng.lcp_host, "ms": ms_leg,
-                         "counts": counts_now(), "t_build_s": t_leg}
+                         "counts": counts_now(), "t_build_s": t_leg,
+                         "t_prepare_s": report.t_prepare,
+                         "build_counts": leg_build}
             if leg == "byte":
                 leg_ell = dev.ell
             del dev, eng
             torch.cuda.empty_cache()
-    finally:
-        if saved is None:
-            os.environ.pop("REPRO_WORD_COMPARE", None)
-        else:
-            os.environ["REPRO_WORD_COMPARE"] = saved
+    # one more warm byte-leg build under the profiler: the byte-key
+    # kernels' device ms in the build beside their bounds
+    with gather_bench.word_compare("byte"):
+        profiles["byte_leg"] = build_profile(
+            "byte_leg", s_leg, alpha, legs["byte"]["t_prepare_s"],
+            legs["byte"]["build_counts"])
     wl, bl = legs["word"], legs["byte"]
     same = (np.array_equal(wl["ell"], bl["ell"])
             and all(np.array_equal(a, b)
@@ -2830,17 +2879,25 @@ def main() -> int:
     got = ops.range_gather_packed(pt_leg, leg_ell, 4)
     want = kref.range_gather_packed_ref(pt_leg, leg_ell, 4)
     assert_equal(got, want, "range_gather_packed (main-path shape)")
+    old = lambda: gather_bench.baseline_packed(yard["range_gather_packed"],
+                                               pt_leg, leg_ell, 4)
+    assert_equal(old(), want, "range_gather_packed's earlier design")
     b_ms, b_by = bound(*gather_packed_work(leg_ell.shape[0], 1, pt_leg.bits,
                                            pt_leg.words.shape[0]))
+    ms, old_ms = gather_bench.in_turns({
+        "ms": lambda: ops.range_gather_packed(pt_leg, leg_ell, 4),
+        "baseline_ms": old}).values()
     rows.append({"name": "range_gather_packed",
                  "replaces": "src/repro/kernels/packed_gather.py:93",
                  "shape": f"rows={leg_ell.shape[0]} w=4",
-                 "ms": cuda_ms(lambda: ops.range_gather_packed(
-                     pt_leg, leg_ell, 4)),
+                 "rows": leg_ell.shape[0], "ms": ms,
+                 "design": DESIGNS["range_gather_packed"][0],
+                 "baseline_ms": old_ms,
+                 "baseline_design": DESIGNS["range_gather_packed"][1],
                  "plain_ms": cuda_ms(lambda: kref.range_gather_packed_ref(
                      pt_leg, leg_ell, 4), reps=3),
                  "bound_ms": b_ms, "bound_by": b_by})
-    del got, want, pt_leg, leg_ell
+    del got, want, pt_leg, leg_ell, old
 
     # ---- 9. LM serving: qwen3-1.7b prefill -> decode (flash_attention) ----
     gc.collect()
@@ -2920,7 +2977,8 @@ def main() -> int:
                                     "latency_bound_ms", "dram_round_trip_ms",
                                     "replaces_composition", "search_ms",
                                     "device_ms", "unfused_device_ms",
-                                    "search_device_ms")}})
+                                    "search_device_ms", "baseline_ms",
+                                    "baseline_design")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

@@ -80,3 +80,26 @@ __device__ __forceinline__ uint32_t dense_key_word(uint32_t aligned, int j,
                               : 0xFFFFFFFFu << (8 * (4 - (int)real));
   return (key & keep) | (t_word & ~keep);
 }
+
+// The row-wise form of dense_key_word for a kernel that has already read
+// the row's text words: `hi` and `lo` straddle the shift-aligned dense
+// word that holds the key word (sh = BITS * (off % spw)), `c` is the key
+// word's chunk in it (key word index % (8 / BITS)), and `real` the real
+// symbols the row has left at the key word (clamped below 2^30; <= 0
+// past n_real).  Symbols from `real` on are the terminal (t_word holds it
+// in every byte), whatever the text words hold there.
+template <int BITS>
+__device__ __forceinline__ uint32_t dense_row_key(uint32_t hi, uint32_t lo,
+                                                  int sh, int c, int real,
+                                                  uint32_t t_word) {
+  constexpr int CBITS = 4 * BITS;
+  const uint32_t aligned = __funnelshift_l(lo, hi, sh);
+  uint32_t chunk = aligned;
+  if constexpr (BITS < 8)
+    chunk = (aligned >> (32 - CBITS * (c + 1))) & ((1u << CBITS) - 1u);
+  const uint32_t key = spread_to_bytes(chunk, BITS);
+  const uint32_t keep = real >= 4 ? 0xFFFFFFFFu
+                        : real <= 0 ? 0u
+                                    : 0xFFFFFFFFu << (8 * (4 - real));
+  return (key & keep) | (t_word & ~keep);
+}

@@ -100,11 +100,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count (and the row and word tallies of the two
+    """Zero every launch count (and the row and word tallies of the three
     elastic-range gathers and of ``suffix_lcp_words``)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in (range_gather_words, range_gather_pack):
+    for fn in (range_gather_words, range_gather_pack, range_gather_packed):
         fn.rows = fn.words = 0
     suffix_lcp_words.rows = suffix_lcp_words.words_read = 0
 
@@ -128,11 +128,9 @@ def range_gather(s_text, offs: torch.Tensor, w: int,
     (``repro.kernels.ops.range_gather_impl``): ``range_gather_packed`` for
     a dense :class:`PackedText`, ``range_gather_pack`` for the
     terminal-padded byte string — identical keys either way.  Rows whose
-    ``mask`` is False are zero: in the ``range_gather_pack`` kernel, by a
-    ``torch.where`` after ``range_gather_packed``."""
+    ``mask`` is False are zero, in either kernel."""
     if isinstance(s_text, PackedText):
-        keys = range_gather_packed(s_text, offs, w)
-        return keys if mask is None else torch.where(mask[:, None], keys, 0)
+        return range_gather_packed(s_text, offs, w, mask)
     return range_gather_pack(s_text, offs, w, mask)
 
 

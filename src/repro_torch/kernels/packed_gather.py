@@ -14,7 +14,8 @@
 * :func:`range_gather_packed` — ``csrc/range_gather_packed.cu``, the port
   of ``repro/kernels/packed_gather.py:range_gather_packed``: byte keys read
   from the dense text, equal to ``range_gather_pack`` on the byte string
-  (the ``REPRO_WORD_COMPARE=byte`` oracle's construction read).
+  (the ``REPRO_WORD_COMPARE=byte`` oracle's construction read), rows under
+  an optional mask zeroed in the kernel.
 * :func:`suffix_lcp_words` — ``csrc/suffix_lcp_words.cu``, the port of
   ``repro/kernels/packed_gather.py:suffix_lcp_words``: the LCP of suffix
   pairs by XOR + clz on dense words, capped at ``w`` and both terminal
@@ -25,8 +26,8 @@
 Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 (or raise), CPU tensors run the plain version in :mod:`.ref`.  Each wrapper
 counts its launches in its ``launches`` attribute, where it launches and
-nowhere else; ``range_gather_words`` also tallies the ``rows`` and
-``words`` its launches gathered.
+nowhere else; ``range_gather_words`` and ``range_gather_packed`` also
+tally the ``rows`` and ``words`` their launches gathered.
 """
 
 from __future__ import annotations
@@ -226,40 +227,47 @@ def pattern_probe_packed(pt: PackedText, pos: torch.Tensor,
 pattern_probe_packed.launches = 0
 
 
-def range_gather_packed(pt: PackedText, offs: torch.Tensor,
-                        w: int) -> torch.Tensor:
+def range_gather_packed(pt: PackedText, offs: torch.Tensor, w: int,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """(F, w//4) int32 big-endian byte keys of the ``w`` symbols at each
     offset, read from the dense text — bit-identical to
     :func:`repro_torch.core.packing.gather_pack_dense` (and so to
     ``range_gather_pack`` on the terminal-padded byte string).
 
     ``offs``: int32[F] offsets ``>= 0``; past ``n_real`` every symbol is
-    the terminal.
+    the terminal.  ``mask``: bool[F] or None; a row whose mask is False is
+    all zero words and reads no text.
     """
     if w % 4:
         raise ValueError(f"pack width must be a multiple of 4, got {w}")
-    if _on_cpu(pt.words, offs):
-        return _ref.range_gather_packed_ref(pt, offs, w)
+    if _on_cpu(pt.words, offs, mask):
+        return _ref.range_gather_packed_ref(pt, offs, w, mask)
     _require(pt.words, "words", torch.int32, 1)
     _require(offs, "offs", torch.int32, 1)
     _check_extra(pt, w)
     nw = w // 4
     f = offs.shape[0]
+    _check_mask(mask, f)
     out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
     if f == 0:
         return out
     fn = _build.entry("range_gather_packed",
-                      [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P])
+                      [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P,
+                       _P])
     with torch.cuda.device(offs.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
                 nw, pt.bits, pt.n_real, (pt.terminal & 0xFF) * 0x01010101,
-                out.data_ptr(), _stream(offs.device))
+                _ptr(mask), out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_packed")
     range_gather_packed.launches += 1
+    range_gather_packed.rows += f
+    range_gather_packed.words += f * nw
     return out
 
 
 range_gather_packed.launches = 0
+range_gather_packed.rows = 0
+range_gather_packed.words = 0
 
 
 def suffix_lcp_words(pt: PackedText, pos_a: torch.Tensor, pos_b: torch.Tensor,

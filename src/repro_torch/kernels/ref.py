@@ -21,7 +21,7 @@ from repro_torch.core.packing import (  # noqa: F401  (shared implementations)
     extract_sym,
     flip_sign,
     gather_pack,
-    gather_pack_dense as range_gather_packed_ref,
+    gather_pack_dense,
     gather_words_dense,
     lcp_words,
     lcp_words_limited,
@@ -43,6 +43,12 @@ def range_gather_pack_ref(s_padded: torch.Tensor, offs: torch.Tensor, w: int,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`gather_pack`, rows whose ``mask`` is False zeroed."""
     return _masked(gather_pack(s_padded, offs, w), mask)
+
+
+def range_gather_packed_ref(pt: PackedText, offs: torch.Tensor, w: int,
+                            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gather_pack_dense`, rows whose ``mask`` is False zeroed."""
+    return _masked(gather_pack_dense(pt, offs, w), mask)
 
 
 def probe_compare_ref(sw: torch.Tensor, pat_words: torch.Tensor) -> torch.Tensor:

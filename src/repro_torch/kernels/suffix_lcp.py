@@ -26,7 +26,8 @@ def suffix_lcp_pairs(s_padded: torch.Tensor, pos_a: torch.Tensor,
     ``pos_a`` and ``pos_b`` of a byte-per-symbol string within ``w``
     symbols, or ``w`` — every symbol index clamped to
     ``len(s_padded) - 1``, as :func:`repro_torch.core.packing.gather_pack`
-    clamps.  ``w`` must be a multiple of 4."""
+    clamps.  ``w`` must be a multiple of 4; on the card ``s_padded`` must
+    start on 16 bytes."""
     if w % 4 or w < 4:
         raise ValueError(f"suffix_lcp_pairs needs w a positive multiple of "
                          f"4, got {w}")
@@ -37,6 +38,10 @@ def suffix_lcp_pairs(s_padded: torch.Tensor, pos_a: torch.Tensor,
     if _on_cpu(s_padded, pos_a, pos_b):
         return _ref.suffix_lcp_pairs_ref(s_padded, pos_a, pos_b, w)
     require_byte_text(s_padded)
+    if s_padded.data_ptr() % 16:
+        raise ValueError("suffix_lcp_pairs reads the string in aligned "
+                         "16-byte blocks: s_padded must start on 16 bytes "
+                         "(a fresh upload does), not be an offset view")
     _require(pos_a, "pos_a", torch.int32, 1)
     _require(pos_b, "pos_b", torch.int32, 1)
     b = pos_a.shape[0]

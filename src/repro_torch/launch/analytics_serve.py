@@ -75,10 +75,10 @@ def serve_engine(eng: AnalyticsEngine, s: np.ndarray, alphabet,
         "batches": iters,
         "batch": batch,
         "positions": iters * batch,
-        "mean_match_len": matched / (iters * batch),
-        "positions_per_s": iters * batch / max(t_serve, 1e-9),
-        "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
-        "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "mean_match_len": round(matched / (iters * batch), 2),
+        "positions_per_s": round(iters * batch / max(t_serve, 1e-9), 1),
+        "batch_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+        "batch_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
     }
 
 
@@ -106,7 +106,7 @@ def serve_analytics(dataset_name: str = "dna", *, n: int = 100_000,
     rep = eng.longest_repeat()
     stats = serve_engine(eng, s, alphabet, rng, batch=batch, iters=iters,
                          window=window, planted_frac=planted_frac)
-    return {"dataset": dataset_name, "t_build_s": t_build,
+    return {"dataset": dataset_name, "t_build_s": round(t_build, 3),
             "longest_repeat": None if rep is None else rep["length"],
             "distinct_substrings": eng.distinct_substrings(), **stats}
 

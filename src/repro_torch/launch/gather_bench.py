@@ -1,4 +1,4 @@
-"""Time the two elastic-range gathers on the card, optionally beside an
+"""Time the three elastic-range gathers on the card, optionally beside an
 earlier version of their CUDA sources.
 
   python -m repro_torch.launch.gather_bench                 # n = 2**27
@@ -16,14 +16,22 @@ read at w = 4 (the first elastic step).  Then, with CUDA events:
   at the main-path shape also under a persisting L2 window over
   the text (:func:`persisting_l2_window`; no kernel of the port sets
   one);
+* ``range_gather_packed`` (the ``REPRO_WORD_COMPARE=byte`` leg's read) on
+  the dense DNA text at n = 2**min(N, 25), the byte leg's size: on its
+  ``ell`` (the leg's order), on ``ell`` sorted and on 2**20 random
+  offsets, at w = 4, 16, 64 and 256, without and with a row mask (half
+  the rows on), event and profiler time alike;
 * with ``--baseline DIR``: the same calls through the kernels built from
-  ``DIR/range_gather_words.cu`` and ``DIR/range_gather_pack.cu`` (C entry
-  points without the mask argument), in turns with the
-  current ones (current, baseline, baseline, current), their outputs held
-  equal; then one warm ``build_device`` per dataset under the profiler
-  with the current gathers and with the baseline ones (their rows masked
-  by a ``torch.where`` after the launch, as before the mask was fused),
-  in the same turns, their ``ell`` held equal.
+  whichever of ``DIR/range_gather_words.cu``, ``DIR/range_gather_pack.cu``
+  and ``DIR/range_gather_packed.cu`` it holds (C entry points without the
+  mask argument: the mask is a ``torch.where`` after the launch, as
+  before it was fused; ``src/repro_torch/kernels/baseline`` holds the
+  earlier ``range_gather_packed.cu``), in turns with the current ones
+  (current, baseline, baseline, current), their outputs held equal; then
+  one warm ``build_device`` per dataset under the profiler with the
+  current gathers and with the baseline ones, in the same turns, their
+  ``ell`` held equal (genome and protein for the first two, the byte leg
+  for the third).
 
 Each result is one JSON line; the card's ``nvidia-smi`` name and power
 limit come first.  Needs a CUDA card.
@@ -36,6 +44,7 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +65,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
+BYTE_LEG_LOG2 = 25  # the REPRO_WORD_COMPARE=byte leg's n, as in the smoke
 
 
 def l2_window_state(stream: torch.cuda.Stream | None = None) -> tuple[int, int]:
@@ -162,14 +172,25 @@ def compile_baseline(src: Path, names) -> dict[str, ctypes.CDLL]:
     return {n: ctypes.CDLL(str(out / f"{n}.so")) for n in names}
 
 
+BASELINE_ARGS = {  # the earlier C entry points: no mask argument
+    "range_gather_words": [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P,
+                           _P],
+    "range_gather_pack": [_P, _I64, _P, _I64, _I32, _P, _P],
+    "range_gather_packed": [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P,
+                            _P],
+}
+
+
 def build_baseline(src: Path) -> dict[str, ctypes.CDLL]:
-    """The two gathers compiled from ``src``, their C entry points typed."""
-    libs = compile_baseline(src, ("range_gather_words", "range_gather_pack"))
-    libs["range_gather_words"].range_gather_words.argtypes = [
-        _P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P]
-    libs["range_gather_pack"].range_gather_pack.argtypes = [
-        _P, _I64, _P, _I64, _I32, _P, _P]
+    """The gathers whose sources ``src`` holds, compiled, entry points
+    typed."""
+    names = [n for n in BASELINE_ARGS if (src / f"{n}.cu").exists()]
+    if not names:
+        raise FileNotFoundError(f"{src} holds none of "
+                                f"{', '.join(BASELINE_ARGS)} (.cu)")
+    libs = compile_baseline(src, names)
     for name, lib in libs.items():
+        getattr(lib, name).argtypes = BASELINE_ARGS[name]
         getattr(lib, name).restype = _I32
     return libs
 
@@ -197,24 +218,41 @@ def baseline_pack(lib, sp, offs, w):
     return out
 
 
+def baseline_packed(lib, pt, offs, w):
+    out = torch.empty((offs.shape[0], w // 4), dtype=torch.int32,
+                      device=offs.device)
+    rc = lib.range_gather_packed(
+        pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(),
+        offs.shape[0], w // 4, pt.bits, pt.n_real,
+        (pt.terminal & 0xFF) * 0x01010101, out.data_ptr(),
+        _P(torch.cuda.current_stream().cuda_stream))
+    _build.check(rc, "baseline range_gather_packed")
+    return out
+
+
+BASELINE_CALLS = {"range_gather_words": baseline_words,
+                  "range_gather_pack": baseline_pack,
+                  "range_gather_packed": baseline_packed}
+
+
+def masked(keys, mask):
+    """The row mask as a ``torch.where`` after an earlier kernel."""
+    return keys if mask is None else torch.where(mask[:, None], keys, 0)
+
+
 @contextlib.contextmanager
 def baseline_gathers(base: dict):
-    """``ops.range_gather_words`` / ``ops.range_gather_pack`` swapped for
-    the baseline kernels, the row mask applied by a ``torch.where`` after
-    the launch."""
-    saved = ops.range_gather_words, ops.range_gather_pack
-
-    def masked(keys, mask):
-        return keys if mask is None else torch.where(mask[:, None], keys, 0)
-
-    ops.range_gather_words = lambda pt, offs, w, mask=None: masked(
-        baseline_words(base["range_gather_words"], pt, offs, w), mask)
-    ops.range_gather_pack = lambda sp, offs, w, mask=None: masked(
-        baseline_pack(base["range_gather_pack"], sp, offs, w), mask)
+    """Each ``ops`` gather that ``base`` holds swapped for its baseline
+    kernel, the row mask applied by a ``torch.where`` after the launch."""
+    saved = {k: getattr(ops, k) for k in base}
+    for k, lib in base.items():
+        setattr(ops, k, lambda t, offs, w, mask=None, k=k, lib=lib: masked(
+            BASELINE_CALLS[k](lib, t, offs, w), mask))
     try:
         yield
     finally:
-        ops.range_gather_words, ops.range_gather_pack = saved
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
 
 
 def profiled_build(s, alpha) -> tuple[dict, np.ndarray]:
@@ -242,29 +280,57 @@ def profiled_build(s, alpha) -> tuple[dict, np.ndarray]:
             "device_ms": ms(dev_rows)}, ell
 
 
+@contextlib.contextmanager
+def word_compare(leg: str | None):
+    """``REPRO_WORD_COMPARE`` set to ``leg`` (None: left as it is) inside
+    the block."""
+    saved = os.environ.get("REPRO_WORD_COMPARE")
+    if leg is not None:
+        os.environ["REPRO_WORD_COMPARE"] = leg
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_WORD_COMPARE", None)
+        else:
+            os.environ["REPRO_WORD_COMPARE"] = saved
+
+
+# (dataset, REPRO_WORD_COMPARE leg, the gather its build runs)
+BUILDS = (("genome", None, "range_gather_words"),
+          ("protein", None, "range_gather_pack"),
+          ("genome", "byte", "range_gather_packed"))
+
+
 def build_ab(n_log2: int, base: dict) -> None:
     """Profiled warm builds with the current and the baseline gathers, in
-    turns current, baseline, baseline, current, per dataset."""
-    for name in ("genome", "protein"):
-        s, alpha = dataset(name, 1 << n_log2, seed=0)
-        EraIndexer(alpha, EraConfig()).build_device(s)  # warm-up
-        runs = {"current": [], "baseline": []}
-        ells = {}
-        for who in ("current", "baseline", "baseline", "current"):
-            with (baseline_gathers(base) if who == "baseline"
-                  else contextlib.nullcontext()):
-                row, ells[who] = profiled_build(s, alpha)
-            runs[who].append(row)
+    turns current, baseline, baseline, current, per dataset whose gather
+    ``base`` holds (the byte leg at its own n)."""
+    for name, leg, kernel in BUILDS:
+        if kernel not in base:
+            continue
+        n = 1 << (min(n_log2, BYTE_LEG_LOG2) if leg else n_log2)
+        s, alpha = dataset(name, n, seed=0)
+        with word_compare(leg):
+            EraIndexer(alpha, EraConfig()).build_device(s)  # warm-up
+            runs = {"current": [], "baseline": []}
+            ells = {}
+            for who in ("current", "baseline", "baseline", "current"):
+                with (baseline_gathers({kernel: base[kernel]})
+                      if who == "baseline" else contextlib.nullcontext()):
+                    row, ells[who] = profiled_build(s, alpha)
+                runs[who].append(row)
         if not np.array_equal(ells["current"], ells["baseline"]):
             raise AssertionError(f"{name}: the builds' ell disagree")
-        _emit({"phase": "build_ab", "dataset": name, "n": 1 << n_log2,
+        _emit({"phase": "build_ab", "dataset": name, "leg": leg or "word",
+               "kernel": kernel, "n": n,
                **{f"{who}_{k}": float(np.median([r[k] for r in rs]))
                   for who, rs in runs.items() for k in rs[0]},
                "runs": runs})
 
 
 def cases(n_log2: int, rng) -> list[tuple]:
-    """(kernel, text kind, shape name, text, offsets, w) of every timing."""
+    """(kernel, shape name, text, offsets, w, mask) of every timing."""
     cfg = EraConfig()
     n = 1 << n_log2
     out = []
@@ -280,13 +346,31 @@ def cases(n_log2: int, rng) -> list[tuple]:
         else:
             text = EraIndexer(alpha, cfg)._pad(s)
             hi = len(s) - 1
-        out.append((kernel, text, f"main rows={ell.shape[0]} w=4", ell, 4))
-        out.append((kernel, text, f"sorted rows={ell.shape[0]} w=4",
-                    torch.sort(ell).values, 4))
+        out.append((kernel, f"main rows={ell.shape[0]} w=4", text, ell, 4,
+                    None))
+        out.append((kernel, f"sorted rows={ell.shape[0]} w=4", text,
+                    torch.sort(ell).values, 4, None))
         rand = torch.from_numpy(rng.integers(0, hi + 1, size=1 << 20)
                                 .astype(np.int32)).cuda()
         for w in (4, 8, 16, 32, 64, 128, 256):
-            out.append((kernel, text, f"parity rows={1 << 20} w={w}", rand, w))
+            out.append((kernel, f"parity rows={1 << 20} w={w}", text, rand, w,
+                        None))
+    # range_gather_packed: the byte leg's text and ell (the same suffix
+    # array as the word leg's build)
+    s, alpha = dataset("genome", 1 << min(n_log2, BYTE_LEG_LOG2), seed=0)
+    ell = EraIndexer(alpha, cfg).build_device(s).ell
+    text = pack_text(s, alpha, extra=2 * cfg.w_max + 8, device="cuda")
+    rand = torch.from_numpy(rng.integers(0, text.n_real + 1, size=1 << 20)
+                            .astype(np.int32)).cuda()
+    for order, offs in (("main", ell), ("sorted", torch.sort(ell).values),
+                        ("random", rand)):
+        half = torch.from_numpy(rng.random(offs.shape[0]) < 0.5).cuda()
+        for w in (4, 16, 64, 256):
+            for mask in (None, half):
+                out.append(("range_gather_packed",
+                            f"{order} rows={offs.shape[0]} w={w} mask="
+                            f"{'off' if mask is None else 'half'}",
+                            text, offs, w, mask))
     return out
 
 
@@ -294,8 +378,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-log2", type=int, default=27)
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="directory of earlier range_gather_words.cu and "
-                         "range_gather_pack.cu to time beside these")
+                    help="directory of earlier range_gather_words.cu, "
+                         "range_gather_pack.cu or range_gather_packed.cu to "
+                         "time beside these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gather_bench: no CUDA device available", file=sys.stderr)
@@ -308,25 +393,26 @@ def main(argv=None) -> int:
     _build.build_all()
     base = build_baseline(args.baseline) if args.baseline else None
     rng = np.random.default_rng(3)
-    for kernel, text, shape, offs, w in cases(args.n_log2, rng):
+    for kernel, shape, text, offs, w, mask in cases(args.n_log2, rng):
         fn = getattr(ops, kernel)
-        calls = {"ms": lambda: fn(text, offs, w)}
+        calls = {"ms": lambda: fn(text, offs, w, mask=mask)}
         extra = {}
-        if shape.startswith("main"):
+        if shape.startswith("main") and kernel != "range_gather_packed":
             words = text.words if kernel == "range_gather_words" else text
             with persisting_l2_window(words) as ratio:
                 extra = {"l2_window_ms": in_turns(calls)["ms"],
                          "l2_window_hit_ratio": ratio}
-        if base is not None:
-            b_fn = baseline_words if kernel == "range_gather_words" \
-                else baseline_pack
-            lib = base[kernel]
-            calls["baseline_ms"] = lambda: b_fn(lib, text, offs, w)
+        if base is not None and kernel in base:
+            b_fn, lib = BASELINE_CALLS[kernel], base[kernel]
+            calls["baseline_ms"] = lambda: masked(b_fn(lib, text, offs, w),
+                                                  mask)
             if not torch.equal(calls["ms"](), calls["baseline_ms"]()):
                 raise AssertionError(f"{kernel} {shape}: the kernel and the "
                                      f"baseline disagree")
+        # the profiler's time of the gather kernels alone (a baseline's
+        # torch.where is in its event time only)
         device = {f"device_{k}": v for k, v in
-                  in_turns(calls, device=True).items()}
+                  in_turns(calls, device=True, key=kernel).items()}
         _emit({"phase": "gather_bench", "kernel": kernel, "shape": shape,
                **in_turns(calls), **device, **extra})
     if base is not None:

@@ -1,5 +1,5 @@
-"""Time ``kmer_histogram`` and ``suffix_lcp_words`` on the card, optionally
-beside an earlier version of their CUDA sources.
+"""Time ``kmer_histogram``, ``suffix_lcp_words`` and ``suffix_lcp_pairs``
+on the card, optionally beside an earlier version of their CUDA sources.
 
   python -m repro_torch.launch.hist_lcp_bench                 # n = 2**27
   python -m repro_torch.launch.hist_lcp_bench --baseline DIR  # A/B
@@ -21,15 +21,22 @@ adjacency to share), then the pairs still saturated at w = 128 and 256,
 and 2**20 random offsets paired as neighbours in the order of their
 64-symbol keys (the smoke's parity pairs) at w = 4, 64 and 256; then
 ``lcp_from_text`` over all adjacent pairs, the node build's loop, with
-CUDA events around each launch.
+CUDA events around each launch.  ``suffix_lcp_pairs`` (the same phases,
+``kernel`` naming it): the same pairs of the protein index's ``ell`` on
+its terminal-padded byte string (the protein tree's main path), the
+pending w = 128 round, the parity pairs, and the analytics' boundary
+pairs (the last leaf of each sub-tree against the first of the next, at
+the width that covers the longest prefix, no adjacency).
 
 With ``--baseline DIR``: the same calls through the kernels built from
-``DIR/kmer_histogram.cu`` and ``DIR/suffix_lcp_words.cu`` (the earlier C
-entry points: no layout arguments, and the terminal's substitution word),
-in turns (current, baseline, baseline, current), their outputs held
-equal; ``lcp_from_text`` with each kernel in the same turns; then one
-profiled warm ``build_device`` per dataset with each ``kmer_histogram``
-(phase ``kmer_build_ab``).
+whichever of ``DIR/kmer_histogram.cu``, ``DIR/suffix_lcp_words.cu`` and
+``DIR/suffix_lcp_pairs.cu`` it holds (the earlier C entry points of the
+first two: no layout arguments, and the terminal's substitution word;
+``src/repro_torch/kernels/baseline`` holds the earlier
+``suffix_lcp_pairs.cu``), in turns (current, baseline, baseline,
+current), their outputs held equal; ``lcp_from_text`` with each kernel in
+the same turns; then, with an earlier ``kmer_histogram``, one profiled
+warm ``build_device`` per dataset with each (phase ``kmer_build_ab``).
 
 Each result is one JSON line; the card's ``nvidia-smi`` name and power
 limit come first.  Needs a CUDA card.
@@ -66,14 +73,24 @@ _U32 = ctypes.c_uint
 KMER_KS = {"genome": range(1, 7), "protein": range(1, 4), "byte": (1, 2)}
 
 
+BASELINE_ARGS = {  # the earlier C entry points
+    "kmer_histogram": [_P, _I64, _I32, _I32, _I32, _P, _P, _P],
+    "suffix_lcp_words": [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I64,
+                         _U32, _P, _P],
+    "suffix_lcp_pairs": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
+}
+
+
 def build_baseline(src: Path) -> dict[str, ctypes.CDLL]:
-    """The two earlier kernels compiled from ``src``, entry points typed."""
-    libs = compile_baseline(src, ("kmer_histogram", "suffix_lcp_words"))
-    libs["kmer_histogram"].kmer_histogram.argtypes = [
-        _P, _I64, _I32, _I32, _I32, _P, _P, _P]
-    libs["suffix_lcp_words"].suffix_lcp_words.argtypes = [
-        _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I64, _U32, _P, _P]
+    """The earlier kernels whose sources ``src`` holds, compiled, entry
+    points typed."""
+    names = [n for n in BASELINE_ARGS if (src / f"{n}.cu").exists()]
+    if not names:
+        raise FileNotFoundError(f"{src} holds none of "
+                                f"{', '.join(BASELINE_ARGS)} (.cu)")
+    libs = compile_baseline(src, names)
     for name, lib in libs.items():
+        getattr(lib, name).argtypes = BASELINE_ARGS[name]
         getattr(lib, name).restype = _I32
     return libs
 
@@ -100,6 +117,31 @@ def baseline_lcp(lib, pt, pa, pb, w):
             pt.n_real, _sub_word(pt.bits, pt.terminal), out.data_ptr(),
             _stream()), "baseline suffix_lcp_words")
     return out
+
+
+def baseline_slcp(lib, sp, pa, pb, w):
+    out = torch.empty(pa.shape[0], dtype=torch.int32, device=pa.device)
+    if pa.shape[0]:
+        _build.check(lib.suffix_lcp_pairs(
+            sp.data_ptr(), sp.shape[0], pa.data_ptr(), pb.data_ptr(),
+            pa.shape[0], w, out.data_ptr(), _stream()),
+            "baseline suffix_lcp_pairs")
+    return out
+
+
+# per text-LCP kernel: the ops attribute lcp_from_text reaches, the
+# kernel as a function of (text, pa, pb, w), its earlier C call, and the
+# 64-symbol key read that orders the parity pairs
+LCP = {
+    "suffix_lcp_words": ("suffix_lcp_words",
+                         lambda t, a, b, w: ops.suffix_lcp_words(t, a, b, w),
+                         baseline_lcp,
+                         lambda t, o: ops.range_gather_words(t, o, 64)),
+    "suffix_lcp_pairs": ("_suffix_lcp_bytes",
+                         lambda t, a, b, w: ops._suffix_lcp_bytes(t, a, b, w),
+                         baseline_slcp,
+                         lambda t, o: ops.range_gather_pack(t, o, 64)),
+}
 
 
 def _layouts(nbins: int, smem_optin: int) -> dict[str, tkmer.Plan]:
@@ -141,7 +183,17 @@ def _events_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def kmer_bench(texts: dict, base_libs) -> None:
+def boundary_pairs(dev) -> tuple:
+    """The analytics' boundary pairs of a built index: the last leaf of
+    each sub-tree against the first of the next, at the width that covers
+    the longest prefix (``AnalyticsEngine.from_index``)."""
+    bnd = dev.sub_off[1:].to(torch.int64)
+    w = -(-(int(dev.sub_plen.max()) + 1) // 4) * 4
+    return (f"boundary w={w}", dev.ell[bnd - 1].contiguous(),
+            dev.ell[bnd].contiguous(), w)
+
+
+def kmer_bench(texts: dict, base_lib) -> None:
     _, smem_optin = tkmer.device_limits(torch.device("cuda"))
     for name, (s_pad, n, base) in texts.items():
         for k in KMER_KS[name]:
@@ -152,9 +204,9 @@ def kmer_bench(texts: dict, base_libs) -> None:
             for label, lay in _layouts(nbins, smem_optin).items():
                 calls[f"{label}_ms"] = (lambda lay=lay: tkmer.kmer_histogram(
                     s_pad, n, k, base, layout=lay))
-            if base_libs is not None:
+            if base_lib is not None:
                 calls["baseline_ms"] = lambda: baseline_kmer(
-                    base_libs["kmer_histogram"], s_pad, n, k, base)
+                    base_lib, s_pad, n, k, base)
             for label, fn in calls.items():
                 if not torch.equal(fn(), want):
                     raise AssertionError(f"kmer {name} k={k} {label} differs")
@@ -169,9 +221,8 @@ def kmer_bench(texts: dict, base_libs) -> None:
                    "bincount_ms": bincount_ms})
 
 
-def sorted_pairs(pt, offs):
-    """Offsets ordered by their 64-symbol key rows, as neighbour pairs."""
-    keys = ops.range_gather_words(pt, offs, 64)
+def sorted_pairs(keys, offs):
+    """Offsets ordered by their key rows, as neighbour pairs."""
     order = _stable_order(_pair_lanes(
         [to_u64(keys[None, :, j]) for j in range(keys.shape[1])]))[0]
     o = offs[order]
@@ -186,70 +237,78 @@ def _share(pa, pb) -> float:
 
 
 @contextlib.contextmanager
-def timed_lcp(rounds: list, base_lib=None):
-    """``ops.suffix_lcp_words`` (or the baseline kernel) with CUDA events
-    around each launch; each launch appends (w, rows, share, events)."""
-    saved = ops.suffix_lcp_words
+def timed_lcp(kernel: str, rounds: list, base_lib=None):
+    """The ``ops`` text-LCP kernel that ``lcp_from_text`` reaches (or the
+    baseline kernel) with CUDA events around each launch; each launch
+    appends (w, rows, share, events)."""
+    attr, _, base_fn, _ = LCP[kernel]
+    saved = getattr(ops, attr)
 
-    def call(pt, pa, pb, w):
+    def call(text, pa, pb, w):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = (baseline_lcp(base_lib, pt, pa, pb, w) if base_lib is not None
-               else saved(pt, pa, pb, w))
+        out = (base_fn(base_lib, text, pa, pb, w) if base_lib is not None
+               else saved(text, pa, pb, w))
         e1.record()
         rounds.append((w, pa.shape[0], _share(pa, pb), e0, e1))
         return out
 
-    ops.suffix_lcp_words = call
+    setattr(ops, attr, call)
     try:
         yield
     finally:
-        ops.suffix_lcp_words = saved
+        setattr(ops, attr, saved)
 
 
-def lcp_bench(pt, ell, rng, base_libs) -> None:
+def lcp_bench(kernel: str, text, ell, n_real: int, rng, base_lib,
+              extra_cases=()) -> None:
+    """The text-LCP ``kernel`` on ``text`` (a dense text for
+    ``suffix_lcp_words``, the padded byte string for ``suffix_lcp_pairs``)
+    at the main-path, pending and parity pairs of ``ell`` and
+    ``extra_cases``, then ``lcp_from_text`` over ``ell``'s adjacent pairs,
+    beside ``base_lib``'s kernel when given."""
+    _, fn, base_fn, keys64 = LCP[kernel]
     a, b = ell[:-1].contiguous(), ell[1:].contiguous()
     perm = torch.from_numpy(rng.permutation(a.shape[0])).cuda()
     cases = [("main adjacent", a, b, 64), ("main shuffled", a[perm], b[perm],
                                            64)]
-    lcp = ops.suffix_lcp_words(pt, a, b, 64)
+    lcp = fn(text, a, b, 64)
     for w in (128, 256):  # the pairs an lcp_from_text round still holds
         sat = lcp == w // 2
         a, b = a[sat] + w // 2, b[sat] + w // 2
         cases.append((f"pending w={w}", a, b, w))
-        lcp = ops.suffix_lcp_words(pt, a, b, w)
-    offs = torch.from_numpy(rng.integers(0, pt.n_real + 1, size=1 << 20)
+        lcp = fn(text, a, b, w)
+    offs = torch.from_numpy(rng.integers(0, n_real + 1, size=1 << 20)
                             .astype(np.int32)).cuda()
-    pa, pb = sorted_pairs(pt, offs)
+    pa, pb = sorted_pairs(keys64(text, offs), offs)
     cases += [(f"parity w={w}", pa, pb, w) for w in (4, 64, 256)]
-    for shape, pa, pb, w in cases:
-        calls = {"ms": lambda: ops.suffix_lcp_words(pt, pa, pb, w)}
-        if base_libs is not None:
-            calls["baseline_ms"] = lambda: baseline_lcp(
-                base_libs["suffix_lcp_words"], pt, pa, pb, w)
+    for shape, pa, pb, w in [*cases, *extra_cases]:
+        calls = {"ms": lambda: fn(text, pa, pb, w)}
+        if base_lib is not None:
+            calls["baseline_ms"] = lambda: base_fn(base_lib, text, pa, pb, w)
         want = calls["ms"]()
-        for label, fn in calls.items():
-            if not torch.equal(fn(), want):
-                raise AssertionError(f"lcp {shape}: {label} differs")
+        for label, call in calls.items():
+            if not torch.equal(call(), want):
+                raise AssertionError(f"{kernel} {shape}: {label} differs")
         device = {f"device_{key}": v for key, v in in_turns(
-            calls, device=True, key="suffix_lcp_words").items()}
-        _emit({"phase": "lcp", "shape": shape, "rows": pa.shape[0], "w": w,
-               "adjacent_share": _share(pa, pb), **in_turns(calls),
-               **device})
+            calls, device=True, key=kernel).items()}
+        _emit({"phase": "lcp", "kernel": kernel, "shape": shape,
+               "rows": pa.shape[0], "w": w, "adjacent_share": _share(pa, pb),
+               **in_turns(calls), **device})
     # the node build's loop over every adjacent pair, each kernel in turns
     a, b = ell[:-1].contiguous(), ell[1:].contiguous()
     who_order = (["current", "baseline", "baseline", "current"]
-                 if base_libs is not None else ["current", "current"])
+                 if base_lib is not None else ["current", "current"])
     runs = {}
     accs = {}
     for who in who_order:
         rounds = []
-        lib = base_libs["suffix_lcp_words"] if who == "baseline" else None
+        lib = base_lib if who == "baseline" else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with timed_lcp(rounds, lib):
-            accs[who] = tbuild.lcp_from_text(pt, a, b)
+        with timed_lcp(kernel, rounds, lib):
+            accs[who] = tbuild.lcp_from_text(text, a, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs.setdefault(who, []).append({
@@ -258,10 +317,10 @@ def lcp_bench(pt, ell, rng, base_libs) -> None:
             "rounds": [{"w": w, "rows": r, "adjacent_share": sh,
                         "ms": e0.elapsed_time(e1)}
                        for w, r, sh, e0, e1 in rounds]})
-    if base_libs is not None and not torch.equal(accs["current"],
-                                                 accs["baseline"]):
+    if base_lib is not None and not torch.equal(accs["current"],
+                                                accs["baseline"]):
         raise AssertionError("lcp_from_text: kernel and baseline differ")
-    _emit({"phase": "lcp_rounds", "pairs": a.shape[0],
+    _emit({"phase": "lcp_rounds", "kernel": kernel, "pairs": a.shape[0],
            **{f"{who}_{k}": float(np.median([r[k] for r in rs]))
               for who, rs in runs.items() for k in ("wall_s", "kernel_ms")},
            "runs": runs})
@@ -290,11 +349,10 @@ def _profiled_build(s, alpha) -> dict:
             "device_ms": ms(rows)}
 
 
-def kmer_build_ab(strings: dict, base_libs) -> None:
+def kmer_build_ab(strings: dict, lib) -> None:
     """Profiled warm builds with the current and the baseline
     ``kmer_histogram``, in turns, per dataset."""
     saved = ops.kmer_histogram
-    lib = base_libs["kmer_histogram"]
     for name, (s, alpha) in strings.items():
         EraIndexer(alpha, EraConfig()).build_device(s)  # warm-up
         runs = {"current": [], "baseline": []}
@@ -316,8 +374,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-log2", type=int, default=27)
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="directory of earlier kmer_histogram.cu and "
-                         "suffix_lcp_words.cu to time beside these")
+                    help="directory of earlier kmer_histogram.cu, "
+                         "suffix_lcp_words.cu or suffix_lcp_pairs.cu to time "
+                         "beside these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("hist_lcp_bench: no CUDA device available", file=sys.stderr)
@@ -328,7 +387,7 @@ def main(argv=None) -> int:
     _emit({"phase": "device", "nvidia_smi": smi,
            "name": torch.cuda.get_device_name(0)})
     _build.build_all()
-    base_libs = build_baseline(args.baseline) if args.baseline else None
+    base_libs = build_baseline(args.baseline) if args.baseline else {}
     n = 1 << args.n_log2
     rng = np.random.default_rng(5)
     strings = {name: dataset(name, n, seed=0) for name in ("genome",
@@ -340,17 +399,26 @@ def main(argv=None) -> int:
                        len(s), alpha.base)
     texts["byte"] = (torch.from_numpy(rng.integers(0, 256, size=n + 8)
                                       .astype(np.uint8)).cuda(), n, 256)
-    kmer_bench(texts, base_libs)
+    kmer_bench(texts, base_libs.get("kmer_histogram"))
     del texts
-    s, alpha = strings["genome"]
     cfg = EraConfig()
+    s, alpha = strings["genome"]
     ell = EraIndexer(alpha, cfg).build_device(s).ell
     pt = pack_text(s, alpha, extra=2 * cfg.w_max + 8, device="cuda")
-    lcp_bench(pt, ell, rng, base_libs)
+    lcp_bench("suffix_lcp_words", pt, ell, pt.n_real, rng,
+              base_libs.get("suffix_lcp_words"))
     del ell, pt
     torch.cuda.empty_cache()
-    if base_libs is not None:
-        kmer_build_ab(strings, base_libs)
+    s, alpha = strings["protein"]
+    dev = EraIndexer(alpha, cfg).build_device(s)
+    sp = torch.from_numpy(alpha.pad_string(s, extra=2 * cfg.w_max + 8)).cuda()
+    lcp_bench("suffix_lcp_pairs", sp, dev.ell, len(s) - 1, rng,
+              base_libs.get("suffix_lcp_pairs"),
+              extra_cases=[boundary_pairs(dev)])
+    del dev, sp
+    torch.cuda.empty_cache()
+    if "kmer_histogram" in base_libs:
+        kmer_build_ab(strings, base_libs["kmer_histogram"])
     print(smi, flush=True)
     return 0
 

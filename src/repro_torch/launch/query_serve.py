@@ -95,9 +95,9 @@ def serve_index(dev, s: np.ndarray, alphabet, rng: np.random.Generator, *,
         "batch": batch,
         "queries": iters * batch,
         "hits": hits,
-        "qps": iters * batch / max(t_serve, 1e-9),
-        "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
-        "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "qps": round(iters * batch / max(t_serve, 1e-9), 1),
+        "batch_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+        "batch_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
     }
 
 
@@ -137,7 +137,8 @@ def serve_queries(dataset_name: str = "dna", *, n: int = 100_000,
     stats = serve_index(dev, s, alphabet, rng, batch=batch, iters=iters,
                         min_len=min_len, max_len=max_len,
                         planted_frac=planted_frac)
-    return {"dataset": dataset_name, "t_build_s": t_build, **stats}
+    return {"dataset": dataset_name, "t_build_s": round(t_build, 3),
+            **stats}
 
 
 def main():

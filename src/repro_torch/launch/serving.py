@@ -385,8 +385,8 @@ class AsyncServer:
             "batches": self.n_batches,
             "rows_padded": self.n_rows_padded,
             "shapes": sorted(self.shapes),
-            "lat_p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "lat_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "lat_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+            "lat_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
             "cache": self.cache.stats(),
         }
 
@@ -428,8 +428,8 @@ def run_closed_loop(dev: DeviceIndex, patterns, config: ServeConfig,
     results = server.serve(patterns)
     wall = time.perf_counter() - t0
     stats = server.stats()
-    stats["wall_s"] = wall
-    stats["qps"] = len(patterns) / max(wall, 1e-9)
+    stats["wall_s"] = round(wall, 4)
+    stats["qps"] = round(len(patterns) / max(wall, 1e-9), 1)
     return results, stats
 
 
@@ -469,7 +469,8 @@ def serve_stream(dataset_name: str = "dna", *, n: int = 100_000,
     }
     wanted = modes if mode == "all" else {mode: modes[mode]}
     report = {"dataset": dataset_name, "device": str(dev.device),
-              "n_symbols": len(s), "requests": requests, "t_build_s": t_build}
+              "n_symbols": len(s), "requests": requests,
+              "t_build_s": round(t_build, 3)}
     baseline = None
     for name, cfg in wanted.items():
         run_closed_loop(dev, pats, cfg)  # warm-up pass, then the timed one
@@ -477,7 +478,7 @@ def serve_stream(dataset_name: str = "dna", *, n: int = 100_000,
         if name == "sync":
             baseline = stats["qps"]
         if baseline:
-            stats["vs_sync"] = stats["qps"] / baseline
+            stats["vs_sync"] = round(stats["qps"] / baseline, 2)
         report[name] = stats
     return report
 

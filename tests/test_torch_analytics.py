@@ -197,9 +197,8 @@ def test_analytics_serve_on_cpu_matches_jax(tmp_path):
         got = t_serve.serve_analytics("dna", index_path=path, device="cpu",
                                       **kw)
         for key in ("n_symbols", "n_subtrees", "longest_repeat",
-                    "distinct_substrings", "positions"):
+                    "distinct_substrings", "positions", "mean_match_len"):
             assert got[key] == want[key], key
-        assert round(got["mean_match_len"], 2) == want["mean_match_len"]
         assert got["device"] == "cpu" and got["batch_p99_ms"] > 0
     with pytest.raises(ValueError, match="base"):
         t_serve.serve_analytics("protein", index_path=path, device="cpu",

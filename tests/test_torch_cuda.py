@@ -113,8 +113,8 @@ def test_cuda_range_gather_pack_buckets(cuda_device, alpha, nw):
 @pytest.mark.parametrize("nw", [1, 2, 4, 64])
 def test_cuda_gathers_large_launches(cuda_device, nw):
     """From 2^22 rows on, the gathers take several rows a thread (NW 1, 2)
-    or four words a lane (NW >= 4): both kernels, with and without the
-    row mask, 2^22 + 5 rows."""
+    or four words a lane (NW >= 4): all three kernels, with and without
+    the row mask, 2^22 + 5 rows."""
     f = (1 << 22) + 5
     a = ALPHABETS["dna"]
     pt = tpk.pack_text(a.random_string(300_000, seed=nw), a, extra=16 * nw + 8,
@@ -128,6 +128,9 @@ def test_cuda_gathers_large_launches(cuda_device, nw):
                            tref.range_gather_words_ref(pt, offs_w, 16 * nw, m))
         assert torch.equal(trg.range_gather_pack(sp, offs_p, 4 * nw, mask=m),
                            tref.range_gather_pack_ref(sp, offs_p, 4 * nw, m))
+        assert torch.equal(
+            tpg.range_gather_packed(pt, offs_w, 4 * nw, mask=m),
+            tref.range_gather_packed_ref(pt, offs_w, 4 * nw, m))
 
 
 @pytest.mark.cuda
@@ -402,6 +405,48 @@ def test_cuda_range_gather_packed(cuda_device, alpha):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nw", GATHER_NW)
+@pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
+def test_cuda_range_gather_packed_buckets(cuda_device, alpha, nw):
+    """Every BITS x NW template (and nw outside them): ragged row counts,
+    offsets at and past n_real (the terminal patched in), with and without
+    the row mask; the tallies count every launch's rows and words."""
+    a = ALPHABETS[alpha]
+    s = a.random_string(20_000, seed=nw)
+    pt = tpk.pack_text(s, a, extra=4 * nw + 8, device=cuda_device)
+    ops.reset_launch_counts()
+    for f in GATHER_ROWS:
+        offs = _gather_offsets(f, pt.n_real + 40, cuda_device, seed=f + nw)
+        for mask in _gather_masks(f, cuda_device):
+            got = tpg.range_gather_packed(pt, offs, 4 * nw, mask=mask)
+            want = tref.range_gather_packed_ref(pt, offs, 4 * nw, mask)
+            assert got.shape == (f, nw) and torch.equal(got, want)
+    rows = 3 * sum(GATHER_ROWS)
+    assert tpg.range_gather_packed.launches == 3 * sum(map(bool, GATHER_ROWS))
+    assert (tpg.range_gather_packed.rows,
+            tpg.range_gather_packed.words) == (rows, rows * nw)
+
+
+@pytest.mark.cuda
+def test_cuda_range_gather_packed_past_2_31_words(cuda_device):
+    """One launch of more than 2^31 output words (nw = 16, the byte leg's
+    w = 64 step without compaction): the rows past 2^31 words against the
+    plain version, a mixed mask on."""
+    nw = 16
+    first = (1 << 31) // nw
+    f = first + (1 << 20)
+    a = ALPHABETS["dna"]
+    pt = tpk.pack_text(a.random_string(1 << 20, seed=9), a, extra=72,
+                       device=cuda_device)
+    offs = torch.randint(0, pt.n_real + 1, (f,), dtype=torch.int32,
+                         device=cuda_device)
+    mask = offs % 7 != 0
+    out = tpg.range_gather_packed(pt, offs, 4 * nw, mask=mask)
+    assert torch.equal(out[first:], tref.range_gather_packed_ref(
+        pt, offs[first:], 4 * nw, mask[first:]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("alpha", ["dna", "protein_class", "byte"])
 def test_cuda_suffix_lcp_words(cuda_device, alpha):
     a = ALPHABETS[alpha]
@@ -504,6 +549,52 @@ def test_cuda_suffix_lcp_pairs(cuda_device, alpha, extra):
         got = tslcp.suffix_lcp_pairs(sp, pa, pb, w)
         assert torch.equal(got, tref.suffix_lcp_pairs_ref(sp, pa, pb, w))
         assert (got == w).any()
+
+
+SLCP_W = (4, 8, 12, 16, 20, 32, 64, 128, 256)  # every NW bucket and two others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["full", "partial", "none"])
+@pytest.mark.parametrize("alpha,extra", [("protein", 264), ("byte", 8)])
+def test_cuda_suffix_lcp_pairs_buckets(cuda_device, alpha, extra, chain):
+    """Every NW bucket (and widths outside them) on adjacency chains full
+    (the node build's adjacent leaves), partial, and absent (shuffled and
+    boundary pairs), byte codes >= 128, and with the short padding chunks
+    that cross n_s (the clamped tail)."""
+    a = ALPHABETS[alpha]
+    s = _periodic(a, 40_000)
+    sp = torch.from_numpy(a.pad_string(s, extra)).to(cuda_device)
+    pa, pb = _chained_pairs(len(s) - 1, 8192, chain, cuda_device,
+                            seed=len(alpha) + len(chain) + extra)
+    shared = float((pa[1:] == pb[:-1]).float().mean())
+    assert {"full": shared > 0.99, "partial": 0.5 < shared < 0.95,
+            "none": shared < 0.01}[chain], shared
+    if alpha == "byte":
+        assert (sp >= 128).any()
+    for w in SLCP_W:
+        got = tslcp.suffix_lcp_pairs(sp, pa, pb, w)
+        assert torch.equal(got, tref.suffix_lcp_pairs_ref(sp, pa, pb, w)), w
+        assert (got[:512] == w).all()
+
+
+@pytest.mark.cuda
+def test_cuda_suffix_lcp_pairs_refuses_misaligned_view(cuda_device):
+    """The 16-byte reads need a 16-byte aligned string: an offset view is
+    refused, the same string uploaded fresh is read."""
+    a = ALPHABETS["protein"]
+    s = _planted(a, 5_000)
+    sp = torch.from_numpy(a.pad_string(s, 264)).to(cuda_device)
+    view = torch.empty(sp.shape[0] + 4, dtype=torch.uint8,
+                       device=cuda_device)[4:]
+    view.copy_(sp)
+    pa, pb = _lcp_pairs(len(s) - 1, cuda_device)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        tslcp.suffix_lcp_pairs(view, pa, pb, 64)
+    assert tslcp.suffix_lcp_pairs.launches == 0
+    assert torch.equal(tslcp.suffix_lcp_pairs(sp, pa, pb, 64),
+                       tref.suffix_lcp_pairs_ref(sp, pa, pb, 64))
 
 
 @pytest.mark.cuda

@@ -170,6 +170,32 @@ def test_range_gather_dispatch_masked_dense(mask_kind):
     assert got.equal(want)
 
 
+@pytest.mark.parametrize("mask_kind", MASK_KINDS)
+@pytest.mark.parametrize("alpha,n,f,w", [
+    (DNA, 700, 41, 4), (DNA, 500, 1, 64), (PROTEIN_CLASS, 600, 37, 16),
+    (BYTE, 400, 29, 256), (DNA, 300, 0, 8),
+], ids=lambda v: getattr(v, "name", v))
+def test_range_gather_packed_masked_equal(alpha, n, f, w, mask_kind):
+    """``ops.range_gather`` on a dense text with the elastic step's mask
+    (the mask passed into ``range_gather_packed``, no ``torch.where``
+    after it) == JAX's ``range_gather_packed_ref`` with the masked rows
+    zeroed; offsets at and past ``n_real``."""
+    rng = np.random.default_rng(n + f + w)
+    s, jt, tt = _texts(alpha, n, w + 8, seed=n)
+    offs = rng.integers(0, n + 1, size=f).astype(np.int32)
+    offs[-3:] = [n - 1, n, n + 3][-min(f, 3):] if f else []
+    mask = _row_mask(mask_kind, f, rng)
+    want = np.asarray(jnp.where(jnp.asarray(mask)[:, None],
+                                jref.range_gather_packed_ref(
+                                    jt, jnp.asarray(offs), w), 0))
+    got = ops.range_gather(tt, torch.from_numpy(offs), w,
+                           mask=torch.from_numpy(mask))
+    assert got.shape == (f, w // 4) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tpg.range_gather_packed(tt, torch.from_numpy(offs), w,
+                                   mask=torch.from_numpy(mask)).equal(got)
+
+
 def _probe_inputs(alpha, n, b, m, rng):
     s = alpha.random_string(n, seed=n)
     sp = alpha.pad_string(s, extra=32)
@@ -517,6 +543,8 @@ def _no_fallback_calls():
             pt, pos, words, words)),
         "range_gather_packed": (tpg, lambda: tpg.range_gather_packed(
             pt, pos, 8)),
+        "range_gather_packed:mask": (tpg, lambda: tpg.range_gather_packed(
+            pt, pos, 8, mask=pos > 50)),
         "suffix_lcp_words": (tpg, lambda: tpg.suffix_lcp_words(
             pt, pos, pos, 8)),
         "suffix_lcp_pairs": (tslcp, lambda: tslcp.suffix_lcp_pairs(
@@ -547,6 +575,7 @@ def _no_fallback_calls():
                                     "range_gather_pack:mask",
                                     "range_gather_words",
                                     "range_gather_words:mask",
+                                    "range_gather_packed:mask",
                                     "kmer_histogram"])
 def test_card_tensors_never_fall_back(monkeypatch, kernel):
     """A tensor that is not on the CPU goes to the hand kernel: when the
@@ -577,7 +606,8 @@ def test_card_tensors_never_fall_back(monkeypatch, kernel):
     with pytest.raises(RuntimeError, match="build failed"):
         call()
     assert ops.launch_counts()[kernel] == 0
-    if kernel in ("range_gather_words", "range_gather_pack"):
+    if kernel in ("range_gather_words", "range_gather_pack",
+                  "range_gather_packed"):
         assert (ops.KERNELS[kernel].rows, ops.KERNELS[kernel].words) == (0, 0)
     if kernel == "suffix_lcp_words":
         assert (tpg.suffix_lcp_words.rows,
@@ -598,6 +628,13 @@ def test_byte_wrappers_check_card_inputs(monkeypatch):
     with pytest.raises(ValueError, match="rows"):
         ops.lcp_pairs(torch.zeros((3, 2), dtype=torch.int32),
                       torch.zeros((3, 1), dtype=torch.int32), 8)
+    # the LCP kernel's aligned 16-byte reads: an offset view is refused,
+    # not read through another path
+    monkeypatch.setattr(tslcp, "_on_cpu", lambda *tensors: False)
+    pos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tslcp.suffix_lcp_pairs(torch.zeros(68, dtype=torch.uint8)[4:], pos,
+                               pos, 8)
 
 
 def test_cpu_tensors_take_plain_versions_uncounted():
