@@ -7,7 +7,8 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
 * the DNA path — the ``genome`` dataset, dense 2-bit words
   (``range_gather_words``, ``kmer_histogram``, and ``search_bounds_words``:
   each search batch one launch), plus a batch carrying the terminal code
-  (a loop of ``pattern_probe_packed`` steps);
+  (byte keys over the dense words: ``search_bounds_packed``, one launch a
+  batch);
 * the protein path — the ``protein`` dataset, byte-per-symbol text, the
   byte-key currency (``range_gather_pack``, ``lcp_pairs``,
   ``search_bounds_bytes``, and ``kmer_histogram`` for the partition);
@@ -19,13 +20,14 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   statistics lower-bound through ``search_bounds_words`` /
   ``search_bounds_bytes``, one launch a batch);
 * the ``REPRO_WORD_COMPARE=byte`` oracle leg on ``genome`` at n = 2**25
-  (``range_gather_packed``, and ``probe_gather_packed`` for find-and-fetch),
-  held equal to the word leg;
+  (``range_gather_packed``, ``search_bounds_packed`` and, for
+  find-and-fetch, ``search_fetch_packed``: one launch a batch), held equal
+  to the word leg;
 * find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
   (one ``search_fetch_words`` launch a batch on DNA, one
-  ``search_fetch_bytes`` launch on the protein byte text, the loop of
-  ``pattern_probe_packed`` steps and ``probe_gather_packed`` for the DNA
-  terminal-bearing batch) and the ``AsyncServer`` stack through
+  ``search_fetch_bytes`` launch on the protein byte text, one
+  ``search_fetch_packed`` launch for the DNA terminal-bearing batch) and
+  the ``AsyncServer`` stack through
   ``run_closed_loop`` in its sync, async and cached modes;
 * LM serving — ``repro_torch.launch.serve.serve("qwen3-1.7b",
   smoke=False)``: all 28 layers at full width (d_model 2048, 16 query and
@@ -48,12 +50,16 @@ Phases, each printing one JSON line:
               single-step kernels and a counted loop, on the serving
               batch, unrouted and empty windows, terminal-tail patterns,
               the lower bound alone, NW at and past the register
-              templates, B = 1, B = 0 and 2^20 rows; the fused
+              templates, B = 1, 33, 0 and 2^20 rows; byte keys on
+              dense text (``search_bounds_packed``) also on the
+              terminal-bearing batch, ``[c, terminal]`` pairs and 4- and
+              8-bit dense indexes at 2^20; the fused
               find-and-fetch kernels against their plain version and the
               search + epilogue kernels they fuse, all four outputs, on
               the find-and-fetch batch, end-of-text windows, empty
               windows, fetch 4 and 64, NW past the templates, B = 1, 33
-              and 0 and 2^20 lanes; the three elastic-range
+              and 0 and 2^20 lanes, ``search_fetch_packed`` as the
+              search; the three elastic-range
               gathers also on every NW template and two nw outside them,
               0, 1, 4099 and 2^22 + 5 rows, offsets at the text's end
               (past n_real for ``range_gather_packed``), without a mask,
@@ -80,16 +86,18 @@ Phases, each printing one JSON line:
               equals a brute-force occurrence scan on the device (for DNA
               also on a batch of patterns ending in the terminal code);
 5. serving  — the ``query_serve`` loop (batch 256, lengths 4–24);
-   search_launches — one search batch per counted DNA, protein and tree
-              path, counted from 0: its search kernel launched once and no
-              single-step probe, or the run fails;
+   search_launches — one search batch per counted DNA, protein, tree,
+              terminal-bearing and byte-leg path (and one byte-leg
+              find-and-fetch batch), counted from 0: its search kernel
+              launched once and no single-step probe, or the run fails;
    find_fetch — ``find_fetch_batch`` (fetch 32) on 256 planted and random
               patterns: ranges equal ``find_batch`` and the scan, windows
               equal the text read on the card, ``verified`` 0 where found,
               the find-and-fetch calls counted alone (one fused launch a
               batch); then its batch latency beside the search alone and
               beside the search + epilogue kernels it fuses
-              (``find_fetch_ranges_unfused_ms``, equal outputs);
+              (``find_fetch_ranges_unfused_ms``, equal outputs), on the
+              served batch and on 256 terminal-bearing patterns;
    serving_stack — ``run_closed_loop`` in sync, async and cached mode with
               fetch 0 and 32 on a hot workload of 16,384 requests, each mode
               warmed once with every ``_dispatch`` under
@@ -133,7 +141,12 @@ Phases, each printing one JSON line:
               times the measured one), at batch 256 and 2^20 lanes;
               the search kernels beside ``loop_ms``, the
               loop of single-step kernels they replace, with this run's
-              trips per row against ``n_iter``; ``flash_attention`` beside
+              trips per row against ``n_iter``, profiler ``device_ms`` and
+              a latency bound (``pattern_probe_packed`` and
+              ``probe_gather_packed`` keep their single-step rows and
+              name the kernel that took their search in ``fused_into``;
+              the two that took it are timed again on 256 distinct
+              patterns, ``distinct``); ``flash_attention`` beside
               SDPA's time as ``library_ms``, with its bf16 ``design``;
               the two elastic-range gathers with the rows and words their
               counted launches gathered, the excess weighted by those
@@ -186,7 +199,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak (data sheet)
 DNA_KERNELS = ("range_gather_words", "search_bounds_words", "kmer_histogram")
-TERMINAL_KERNELS = ("pattern_probe_packed",)
+TERMINAL_KERNELS = ("search_bounds_packed",)
 PROTEIN_KERNELS = ("kmer_histogram", "range_gather_pack", "lcp_pairs",
                    "search_bounds_bytes")
 TREE_KERNELS = {
@@ -195,20 +208,21 @@ TREE_KERNELS = {
     "protein": ("kmer_histogram", "range_gather_pack", "lcp_pairs",
                 "suffix_lcp_pairs", "search_bounds_bytes"),
 }
-# the single-step probes a search no longer launches (the terminal-bearing
-# batch and the byte leg keep their loop of pattern_probe_packed steps)
+# the single-step probes a search no longer launches
 SEARCH_STEPS = {"search_bounds_words": "pattern_probe_words",
                 "search_bounds_bytes": "pattern_probe"}
-BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "pattern_probe_packed",
-                    "probe_gather_packed")
+# the single-step kernels of byte keys on dense text, which no path of a
+# terminal-bearing batch or of the byte leg launches any more
+PACKED_STEPS = ("pattern_probe_packed", "probe_gather_packed")
+BYTE_LEG_KERNELS = ("range_gather_packed", "lcp_pairs", "search_bounds_packed",
+                    "search_fetch_packed")
 WORD_ONLY_KERNELS = ("range_gather_words", "pattern_probe_words",
                      "suffix_lcp_words", "probe_gather_words",
                      "search_bounds_words")
-# a word or byte-string find-and-fetch batch is one fused launch; a
-# terminal-bearing batch keeps the loop and probe_gather_packed
+# every find-and-fetch batch is one fused launch
 FETCH_KERNELS = {
     "genome": ("search_fetch_words",),
-    "terminal": ("pattern_probe_packed", "probe_gather_packed"),
+    "terminal": ("search_fetch_packed",),
     "protein": ("search_fetch_bytes",),
 }
 SEARCH_KERNELS = {"genome": "search_bounds_words",
@@ -220,7 +234,8 @@ FETCH_ABSENT = {  # kernels a find-and-fetch path must not launch
     "genome": ("probe_gather_packed", "pattern_probe_words",
                "search_fetch_bytes") + UNFUSED,
     "terminal": ("probe_gather_words", "search_bounds_words",
-                 "search_fetch_words", "search_fetch_bytes"),
+                 "search_fetch_words", "search_fetch_bytes",
+                 "search_bounds_packed") + PACKED_STEPS,
     "protein": ("probe_gather_packed", "pattern_probe_words",
                 "search_fetch_words") + UNFUSED,
 }
@@ -367,14 +382,22 @@ def fused_work(b: int, nw_pat: int, nw_out: int, text_words: int,
             text_words * 30)
 
 
+def span_words(pos: torch.Tensor, keys: torch.Tensor, spw: int):
+    """Dense words that the 4 * ``keys`` symbols from ``pos`` lie in (none
+    for no keys)."""
+    last = pos.to(torch.int64) % spw + 4 * keys - 1
+    return torch.where(keys > 0, last // spw + 1, 0)
+
+
 def search_work(kind: str, text, ell, pat, mask, lengths, lim_p, lo0, hi0,
                 n_iter: int, bounds: int):
     """What a search needs on this run's data, from the loop run with the
     plain verdicts: (trips per row, bytes, 32-bit ops, bounds).  Bytes:
     each row's pattern and mask once, its window, limits and result, and
-    per trip 4 B of ``ell`` plus the text words read up to the compare's
-    first difference (and the word a funnel shift or byte pick
-    straddles)."""
+    per trip 4 B of ``ell`` plus the text words the compare needs up to
+    its first difference (words: and the word a funnel shift straddles;
+    the byte string: and the word a byte pick straddles; dense words: those
+    the key words' symbols span)."""
     from repro_torch.core import packing
     from repro_torch.kernels import ref as kref
     b, nw = pat.shape
@@ -383,9 +406,13 @@ def search_work(kind: str, text, ell, pat, mask, lengths, lim_p, lo0, hi0,
     if kind == "words":
         l2, lp2 = rep(lengths), rep(lengths if lim_p is None else lim_p)
         per_row_in = 2 * nw * 4 + 4 * 4  # pattern, mask, lo, hi, len, lim
-    else:
+    else:  # byte keys: on the byte string, or over dense words ("packed")
         live = (m2 != 0).sum(1)  # zero mask words skip their load
         per_row_in = 2 * nw * 4 + 2 * 4
+        probe, gather = ((kref.pattern_probe_packed_ref,
+                          kref.range_gather_packed_ref) if kind == "packed"
+                         else (kref.pattern_probe_ref,
+                               kref.range_gather_pack_ref))
     upper = torch.arange(bounds * b, device=lo.device) >= b
     trips = torch.zeros(bounds * b, dtype=torch.int64, device=lo.device)
     text_bytes = 0
@@ -403,11 +430,15 @@ def search_work(kind: str, text, ell, pat, mask, lengths, lim_p, lo0, hi0,
             first = packing.lcp_words(sw, p2, text.bits).to(torch.int64) // spw
             read = torch.clamp(first + 1, max=nw) + 1
         else:
-            cmp = kref.pattern_probe_ref(text, pos, p2, m2)
-            neq = (kref.range_gather_pack_ref(text, pos, 4 * nw) & m2) != p2
+            cmp = probe(text, pos, p2, m2)
+            neq = (gather(text, pos, 4 * nw) & m2) != p2
             first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1),
                                 nw).to(torch.int64)
-            read = torch.minimum(first + 1, live) + 1
+            keys = torch.minimum(first + 1, live)
+            # the key words and the word a byte pick straddles, or the
+            # dense words the keys' symbols span
+            read = (span_words(pos, keys, text.syms_per_word)
+                    if kind == "packed" else keys + 1)
         text_bytes += int((read * 4)[act].sum())
         trips += act
         right = torch.where(upper, cmp <= 0, cmp < 0)
@@ -509,15 +540,18 @@ def require_launches(counts: dict, kernels, what: str) -> None:
 
 
 def search_batch_launches(search, kernel: str, what: str) -> None:
-    """One search batch launches its search kernel once and no
-    single-step probe: counted from 0 around one call."""
+    """One search (or find-and-fetch) batch launches its kernel once and
+    no single-step probe or epilogue kernel: counted from 0 around one
+    call."""
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     search()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     steps = {k: counts[k] for k in ("pattern_probe_words", "pattern_probe",
-                                    "pattern_probe_packed")}
+                                    "pattern_probe_packed",
+                                    "probe_gather_words",
+                                    "probe_gather_packed")}
     emit({"phase": "search_launches", "path": what, "kernel": kernel,
           "search_launches_per_batch": counts[kernel],
           "single_step_probe_launches": steps})
@@ -1076,7 +1110,8 @@ def main() -> int:
         """The search kernels swapped for the loop they replace (n_iter
         single-step probe launches and the small ops around each), the
         yardstick of an end-to-end search."""
-        saved = ops.search_bounds_words, ops.search_bounds_bytes
+        saved = (ops.search_bounds_words, ops.search_bounds_bytes,
+                 ops.search_bounds_packed)
         ops.search_bounds_words = (
             lambda pt, ell, pat, mask, lengths, lim_p, lo0, hi0, **kw:
             ops.search_loop(ops.pattern_probe_words, pt, ell, pat, mask,
@@ -1085,32 +1120,41 @@ def main() -> int:
             lambda sp, ell, pat, mask, lo0, hi0, **kw: ops.search_loop(
                 ops.pattern_probe, sp, ell, pat, mask, None, None, lo0, hi0,
                 **kw))
+        ops.search_bounds_packed = (
+            lambda pt, ell, pat, mask, lo0, hi0, **kw: ops.search_loop(
+                ops.pattern_probe_packed, pt, ell, pat, mask, None, None, lo0,
+                hi0, **kw))
         try:
             yield
         finally:
-            ops.search_bounds_words, ops.search_bounds_bytes = saved
+            (ops.search_bounds_words, ops.search_bounds_bytes,
+             ops.search_bounds_packed) = saved
 
     @contextlib.contextmanager
     def fetch_unfused():
         """The fused find-and-fetch kernels swapped for what they replace:
         the search kernel, then the epilogue kernels (``probe_gather_words``
         on dense words, ``pattern_probe`` + ``range_gather_pack`` on the
-        byte string) and the torch ops of the decode
-        (``search.fetch_composition`` with the ported kernels)."""
+        byte string; byte keys on dense text: the loop of
+        ``pattern_probe_packed`` steps, then ``probe_gather_packed``) and
+        the torch ops of the decode (``search.fetch_composition`` with the
+        ported kernels)."""
         from repro_torch.kernels.search import fetch_composition
-        saved = ops.search_fetch_words, ops.search_fetch_bytes
+        saved = (ops.search_fetch_words, ops.search_fetch_bytes,
+                 ops.search_fetch_packed)
         ops.search_fetch_words = (
             lambda pt, ell, pat, mask, lengths, lo0, hi0, **kw:
             fetch_composition(pt, ell, pat, mask, lengths, lo0, hi0,
                               word=True, plain=False, **kw))
-        ops.search_fetch_bytes = (
-            lambda sp, ell, pat, mask, lo0, hi0, **kw: fetch_composition(
-                sp, ell, pat, mask, None, lo0, hi0, word=False, plain=False,
+        ops.search_fetch_bytes = ops.search_fetch_packed = (
+            lambda st, ell, pat, mask, lo0, hi0, **kw: fetch_composition(
+                st, ell, pat, mask, None, lo0, hi0, word=False, plain=False,
                 **kw))
         try:
             yield
         finally:
-            ops.search_fetch_words, ops.search_fetch_bytes = saved
+            (ops.search_fetch_words, ops.search_fetch_bytes,
+             ops.search_fetch_packed) = saved
 
     def fetch_latency(dev, pats) -> dict:
         """Host milliseconds from dispatch to a synchronised result of the
@@ -1319,20 +1363,50 @@ def main() -> int:
                                  len_t, t(route), dev.k_route)
         return pat, mask, len_t, lo0.contiguous(), hi0.contiguous()
 
-    def search_parity(kind: str, dev, sx: np.ndarray, ax, name: str) -> dict:
+    def terminal_cases(sx: np.ndarray, ax) -> list:
+        """Byte-key patterns that end at the text's last symbols, run into
+        the terminal, and every ``[c, terminal]``."""
+        n_real = len(sx) - 1
+        tail = [np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
+        tail += [np.append(sx[n_real - k:n_real], ax.terminal_code)
+                 .astype(np.uint8) for k in range(24)]
+        return tail + [np.array([c, ax.terminal_code], np.uint8)
+                       for c in range(len(ax.symbols))]
+
+    def distinct_cases(sx: np.ndarray, ax, rng) -> list:
+        """256 distinct byte-key patterns, the byte leg's traffic: the
+        terminal cases and planted or random patterns of 4-24 symbols."""
+        tail = terminal_cases(sx, ax)
+        return tail + make_workload(sx, rng, batch=256 - len(tail),
+                                    min_len=4, max_len=24, planted_frac=0.7,
+                                    n_symbols=len(ax.symbols))
+
+    def per_call(fn, calls: int = 20):
+        """Profiler device ms per call (event windows of back-to-back small
+        launches hold the wrappers' host time)."""
+        ms = device_ms(lambda: [fn() for _ in range(calls)])
+        return None if ms is None else ms / calls
+
+    def search_parity(kind: str, dev, sx: np.ndarray, ax, name: str,
+                      serving=None, timed: bool = True) -> dict | None:
         """A search kernel against the loop with the plain probes, the loop
         of single-step kernels and the counted loop of ``search_work``
-        (exact) on the serving batch (256 patterns of 4-24 symbols, routed
-        windows) and its edges: unrouted and empty windows, patterns that
-        end at the terminal tail, the lower bound alone (words: with a
-        pattern limit below the compare length), NW at and past the
-        register-template edges, B = 1, B = 0 and 2^20 rows.  Returns the
-        kernel's row at the serving shape."""
+        (exact) on the serving batch (``serving``, else 256 patterns of
+        4-24 symbols; routed windows) and its edges: unrouted and empty
+        windows, patterns that end at the terminal tail (byte keys: also
+        running into the terminal, and every ``[c, terminal]``), the lower
+        bound alone (words: with a pattern limit below the compare
+        length), NW at and past the register-template edges, B = 1, 33, 0
+        and 2^20 rows.  ``kind``: "words", "bytes" (the byte string) or
+        "packed" (byte keys over dense words).  Returns the kernel's row at
+        the serving shape when ``timed``."""
         kernel = f"search_bounds_{kind}"
         word = kind == "words"
-        step = ops.pattern_probe_words if word else ops.pattern_probe
-        plain_probe = (kref.pattern_probe_words_ref if word
-                       else kref.pattern_probe_ref)
+        step, plain_probe = {
+            "words": (ops.pattern_probe_words, kref.pattern_probe_words_ref),
+            "bytes": (ops.pattern_probe, kref.pattern_probe_ref),
+            "packed": (ops.pattern_probe_packed,
+                       kref.pattern_probe_packed_ref)}[kind]
         srng = np.random.default_rng(23)
         n_real = len(sx) - 1
         total = dev.n_leaves
@@ -1348,7 +1422,7 @@ def main() -> int:
                 fused = lambda: ops.search_bounds_words(*args, **kw)
             else:
                 args = (dev.s_text, dev.ell, pat, mask, None, None, lo0, hi0)
-                fused = lambda: ops.search_bounds_bytes(
+                fused = lambda: getattr(ops, kernel)(
                     dev.s_text, dev.ell, pat, mask, lo0, hi0, **kw)
             return (fused, lambda: ops.search_loop(plain_probe, *args, **kw),
                     lambda: ops.search_loop(step, *args, **kw))
@@ -1371,8 +1445,10 @@ def main() -> int:
                   "trips_max": int(trips.max()) if trips.numel() else 0,
                   "n_iter": dev.n_iter})
 
-        serving = make_workload(sx, srng, batch=256, min_len=4, max_len=24,
-                                planted_frac=0.7, n_symbols=len(ax.symbols))
+        if serving is None:
+            serving = make_workload(sx, srng, batch=256, min_len=4,
+                                    max_len=24, planted_frac=0.7,
+                                    n_symbols=len(ax.symbols))
         pat, mask, lengths, lo0, hi0 = batch_rows(serving)
         case("serving", pat, mask, lengths, lo0, hi0)
         case("unrouted", pat, mask, lengths, torch.zeros_like(lo0),
@@ -1380,10 +1456,13 @@ def main() -> int:
         empty = torch.randint(0, total + 1, lo0.shape, device=cuda,
                               dtype=torch.int32)
         case("empty", pat, mask, lengths, empty, empty.clone())
-        tail = [np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
-        if not word:  # the byte string: patterns running into the terminal
-            tail += [np.append(sx[n_real - k:n_real], ax.terminal_code)
-                     .astype(np.uint8) for k in range(24)]
+        pick = torch.randint(0, 3, lo0.shape, device=cuda)
+        case("mixed", pat, mask, lengths,
+             torch.where(pick == 0, lo0, torch.where(pick == 1, 0, empty)),
+             torch.where(pick == 0, hi0, torch.where(pick == 1, total,
+                                                     empty)))
+        tail = ([np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
+                if word else terminal_cases(sx, ax))
         case("terminal_tail", *batch_rows(tail))
         lim_p = (torch.clamp(lengths - torch.randint_like(lengths, 0, 8),
                              min=0) if word else None)
@@ -1401,43 +1480,53 @@ def main() -> int:
                     pats.append(srng.integers(0, len(ax.symbols), m)
                                 .astype(np.uint8))
             case(f"nw={nw}", *batch_rows(pats, m_pad=nw * spw))
-        case("B=1", pat[:1], mask[:1], lengths[:1], lo0[:1], hi0[:1])
-        case("B=0", pat[:0], mask[:0], lengths[:0], lo0[:0], hi0[:0])
+        for b in (1, 33, 0):
+            case(f"B={b}", pat[:b], mask[:b], lengths[:b], lo0[:b], hi0[:b])
         idx = torch.randint(0, pat.shape[0], (1 << 19,), device=cuda)
         large = (pat[idx].contiguous(), mask[idx].contiguous(), lengths[idx],
                  lo0[idx], hi0[idx])
         case("2^20 rows", *large)
+        if not timed:
+            return None
+
+        def timing(pat, mask, lengths, lo0, hi0):
+            """Times and bounds of both bounds in one launch."""
+            fused, plain, loop = calls(pat, mask, lengths, lo0, hi0, 2)
+            trips, nbytes, n_ops, _ = search_work(
+                kind, dev.s_text, dev.ell, pat, mask, lengths, None, lo0,
+                hi0, dev.n_iter, 2)
+            b_ms, b_by = bound(nbytes, n_ops)
+            return {"ms": cuda_ms(fused, inner=100),
+                    "device_ms": per_call(fused),
+                    "loop_ms": cuda_ms(loop, inner=10),
+                    "loop_device_ms": per_call(loop, calls=2),
+                    "plain_ms": cuda_ms(plain, inner=2),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    # the longest lane's dependent round trips: its window
+                    # and pattern row, the first ell entry, one per trip
+                    "latency_bound_ms": (int(trips.max()) + 2) * dram_rt_ms,
+                    "trips_max": int(trips.max()),
+                    "trips_mean": float(trips.to(torch.float64).mean())}
 
         # the row: the serving batch, both bounds in one launch
-        fused, plain, loop = calls(pat, mask, lengths, lo0, hi0, 2)
-        trips, nbytes, n_ops, _ = search_work(kind, dev.s_text, dev.ell, pat,
-                                              mask, lengths, None, lo0, hi0,
-                                              dev.n_iter, 2)
-        b_ms, b_by = bound(nbytes, n_ops)
         fl, _, ll = calls(*large, 2)
         trips_l, nbytes_l, n_ops_l, _ = search_work(
             kind, dev.s_text, dev.ell, *large[:3], None, *large[3:],
             dev.n_iter, 2)
         bl_ms, bl_by = bound(nbytes_l, n_ops_l)
         win = (hi0 - lo0).to(torch.float64)
-        replaces = ("src/repro/kernels/packed_gather.py:335" if word
-                    else "src/repro/kernels/pattern_probe.py:57")
+        replaces = {"words": "src/repro/kernels/packed_gather.py:335",
+                    "bytes": "src/repro/kernels/pattern_probe.py:57",
+                    "packed": "src/repro/kernels/packed_gather.py:159"}[kind]
         return {"name": kernel, "replaces": replaces,
                 "replaces_loop": "src/repro/core/query.py:114",
                 "shape": f"rows={2 * pat.shape[0]} nw={pat.shape[1]} "
                          f"bounds=2 (B={pat.shape[0]})",
-                "ms": cuda_ms(fused, inner=100),
-                "loop_ms": cuda_ms(loop, inner=10),
-                "plain_ms": cuda_ms(plain, inner=2),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "patterns_distinct": n_distinct(pat, mask),
+                **timing(pat, mask, lengths, lo0, hi0),
                 "bound_note": "this run's trips' bytes over 3.35 TB/s; the "
                               "kernel is bound by dependent DRAM latency "
                               "times trips, not bytes",
-                # the longest lane's dependent round trips: its window and
-                # pattern row, the first ell entry, one per trip
-                "latency_bound_ms": (int(trips.max()) + 2) * dram_rt_ms,
-                "trips_max": int(trips.max()),
-                "trips_mean": float(trips.to(torch.float64).mean()),
                 "n_iter": dev.n_iter, "window_max": int(win.max()),
                 "window_mean": float(win.mean()),
                 "large": {"shape": f"rows={2 * large[0].shape[0]} "
@@ -1446,17 +1535,41 @@ def main() -> int:
                           "loop_ms": cuda_ms(ll, inner=1),
                           "bound_ms": bl_ms, "bound_by": bl_by,
                           "trips_mean": float(trips_l.to(torch.float64)
-                                              .mean())}}
+                                              .mean())},
+                **distinct_row(kind, sx, ax, srng, batch_rows, case,
+                               timing)}
 
-    def fetch_parity(kind: str, dev, sx: np.ndarray, ax, name: str) -> dict:
+    def n_distinct(pat: torch.Tensor, mask: torch.Tensor) -> int:
+        rows = torch.cat([pat, mask], 1).to(torch.int64)
+        return int(torch.unique(rows, dim=0).shape[0])
+
+    def distinct_row(kind: str, sx, ax, rng, batch_rows, case,
+                     timing) -> dict:
+        """Byte keys over dense words (a served batch repeats its patterns,
+        whose trips then share cache lines): the same times on 256
+        distinct patterns, checked first like every case."""
+        if kind != "packed":
+            return {}
+        rows_d = batch_rows(distinct_cases(sx, ax, rng))
+        case("distinct", *rows_d)
+        return {"distinct": {"shape": f"B={rows_d[0].shape[0]} "
+                                      f"nw={rows_d[0].shape[1]}",
+                             "patterns_distinct": n_distinct(*rows_d[:2]),
+                             **timing(*rows_d)}}
+
+    def fetch_parity(kind: str, dev, sx: np.ndarray, ax, name: str,
+                     serving=None, timed: bool = True) -> dict | None:
         """A fused find-and-fetch kernel against its plain version
         (``search.fetch_composition`` with the plain probes) and the search
         and epilogue kernels it fuses (exact, all four outputs) on the
-        find-and-fetch batch (256 patterns of 4-24 symbols, routed windows,
-        fetch 32) and its edges: patterns at the text's end (windows past
-        n_real), empty windows, fetch narrower and wider than the pattern,
-        NW past the register templates, B = 1, B = 33, B = 0 and 2^20
-        lanes (2^19 patterns).  Returns the kernel's row."""
+        find-and-fetch batch (``serving``, else 256 patterns of 4-24
+        symbols; routed windows, fetch 32) and its edges: unrouted, empty
+        and mixed windows, patterns at the text's end (windows past
+        n_real; byte keys: also running into the terminal, and every
+        ``[c, terminal]``), fetch narrower and wider than the pattern, NW
+        past the register templates, B = 1, B = 33, B = 0 and 2^20 lanes
+        (2^19 patterns).  ``kind`` as :func:`search_parity`.  Returns the
+        kernel's row when ``timed``."""
         from repro_torch.kernels.search import fetch_composition
         kernel = f"search_fetch_{kind}"
         word = kind == "words"
@@ -1470,7 +1583,7 @@ def main() -> int:
                 fused = lambda: ops.search_fetch_words(
                     dev.s_text, dev.ell, pat, mask, lengths, lo0, hi0, **kw)
             else:
-                fused = lambda: ops.search_fetch_bytes(
+                fused = lambda: getattr(ops, kernel)(
                     dev.s_text, dev.ell, pat, mask, lo0, hi0, **kw)
             comp = lambda plain: fetch_composition(
                 dev.s_text, dev.ell, pat, mask, lengths if word else None,
@@ -1495,8 +1608,9 @@ def main() -> int:
             """(bytes, ops, longest trips) of the fused kernel on this run's
             data: the search's (``search_work``) less its (2, B) result,
             plus per pattern the ell entry at its lower bound, the text its
-            verdict and window read (each word once, and the word a shift
-            or byte pick straddles) and the four outputs."""
+            verdict and window need (each word once, counted as
+            ``search_work`` counts a trip's; no window where the pattern
+            did not occur) and the four outputs."""
             trips, nbytes, n_ops, bnd = search_work(
                 kind, dev.s_text, dev.ell, pat, mask, lengths, None, lo0,
                 hi0, dev.n_iter, 2)
@@ -1507,30 +1621,42 @@ def main() -> int:
                 text = 4 * fused_reads("words", dev.s_text, pos0, pat, mask,
                                        nw_out)
             else:
-                neq = (kref.range_gather_pack_ref(dev.s_text, pos0, 4 * nw)
-                       & mask) != pat
+                gather = (kref.range_gather_packed_ref if kind == "packed"
+                          else kref.range_gather_pack_ref)
+                neq = (gather(dev.s_text, pos0, 4 * nw) & mask) != pat
                 first = torch.where(neq.any(1), neq.to(torch.uint8).argmax(1),
                                     nw).to(torch.int64)
                 verdict = torch.minimum(first + 1, (mask != 0).sum(1))
-                text = int(((torch.clamp(verdict, min=fetch // 4) + 1)
-                            * 4).sum())
+                found = bnd[1] > bnd[0]
+                keys = torch.where(found, torch.clamp(verdict, min=fetch // 4),
+                                   verdict)
+                read = (span_words(pos0, keys, dev.s_text.syms_per_word)
+                        if kind == "packed" else keys + 1)
+                text = int((read * 4).sum())
             nbytes += b * 4 + text + b * (fetch + 3) * 4 - 2 * b * 4
             return (nbytes, n_ops + b * (nw * 30 + fetch * 6),
                     int(trips.max()) if trips.numel() else 0)
 
-        serving = make_workload(sx, frng, batch=256, min_len=4, max_len=24,
-                                planted_frac=0.7, n_symbols=len(ax.symbols))
+        if serving is None:
+            serving = make_workload(sx, frng, batch=256, min_len=4,
+                                    max_len=24, planted_frac=0.7,
+                                    n_symbols=len(ax.symbols))
         rows_b = search_rows(dev, serving, word)
         pat, mask, lengths, lo0, hi0 = rows_b
         case("fetch", *rows_b)
-        tail = [np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
-        if not word:  # the byte string: patterns running into the terminal
-            tail += [np.append(sx[n_real - k:n_real], ax.terminal_code)
-                     .astype(np.uint8) for k in range(24)]
+        tail = ([np.asarray(sx[n_real - k:n_real]) for k in range(1, 25)]
+                if word else terminal_cases(sx, ax))
         case("terminal_tail", *search_rows(dev, tail, word))
         empty = torch.randint(0, total + 1, lo0.shape, device=cuda,
                               dtype=torch.int32)
         case("empty", pat, mask, lengths, empty, empty.clone())
+        case("unrouted", pat, mask, lengths, torch.zeros_like(lo0),
+             torch.full_like(hi0, total))
+        pick = torch.randint(0, 3, lo0.shape, device=cuda)
+        case("mixed", pat, mask, lengths,
+             torch.where(pick == 0, lo0, torch.where(pick == 1, 0, empty)),
+             torch.where(pick == 0, hi0, torch.where(pick == 1, total,
+                                                     empty)))
         case("fetch=4", *rows_b, fetch=4)
         case("fetch=64", *rows_b, fetch=64)
         spw = dev.s_text.syms_per_word if word else 4
@@ -1550,45 +1676,52 @@ def main() -> int:
         idx = torch.randint(0, pat.shape[0], (1 << 19,), device=cuda)
         large = tuple(x[idx].contiguous() for x in rows_b)
         case("2^20 lanes", *large)
+        if not timed:
+            return None
 
-        # the row: the find-and-fetch batch, and 2^20 lanes
-        fused, plain, unfused = calls(*rows_b, FETCH)
-        nbytes, n_ops, trips_max = work(*rows_b, FETCH)
-        b_ms, b_by = bound(nbytes, n_ops)
-        fl, pl, ul = calls(*large, FETCH)
-        nbytes_l, n_ops_l, trips_l = work(*large, FETCH)
-        bl_ms, bl_by = bound(nbytes_l, n_ops_l)
         # the longest lane's dependent round trips: its window and pattern
         # row, the first ell entry, one per trip, then the ell entry at the
         # lower bound and the text there
         lat = lambda trips: (trips + 4) * dram_rt_ms
-        replaces = ("src/repro/kernels/probe_gather.py:80" if word
-                    else "src/repro/kernels/pattern_probe.py:57")
-        search = lambda: ops.search_bounds(
-            dev.s_text, dev.ell, pat, mask, lengths, None, lo0, hi0,
-            n_iter=dev.n_iter, bounds=2, word=word)
-        # profiler device time per call (event windows of back-to-back
-        # small launches hold the wrappers' host time)
-        def per_call(fn):
-            ms = device_ms(lambda: [fn() for _ in range(20)])
-            return None if ms is None else ms / 20
+
+        def timing(pat, mask, lengths, lo0, hi0):
+            """Times and bounds at fetch FETCH, beside the search alone."""
+            fused, plain, unfused = calls(pat, mask, lengths, lo0, hi0,
+                                          FETCH)
+            nbytes, n_ops, trips_max = work(pat, mask, lengths, lo0, hi0,
+                                            FETCH)
+            b_ms, b_by = bound(nbytes, n_ops)
+            search = lambda: ops.search_bounds(
+                dev.s_text, dev.ell, pat, mask, lengths, None, lo0, hi0,
+                n_iter=dev.n_iter, bounds=2, word=word)
+            return {"ms": cuda_ms(fused, inner=100),
+                    "plain_ms": cuda_ms(plain, inner=2),
+                    "unfused_ms": cuda_ms(unfused, inner=20),
+                    "search_ms": cuda_ms(search, inner=100),
+                    "device_ms": per_call(fused),
+                    "unfused_device_ms": per_call(unfused),
+                    "search_device_ms": per_call(search),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "latency_bound_ms": lat(trips_max),
+                    "trips_max": trips_max}
+
+        # the row: the find-and-fetch batch, and 2^20 lanes
+        fl, pl, ul = calls(*large, FETCH)
+        nbytes_l, n_ops_l, trips_l = work(*large, FETCH)
+        bl_ms, bl_by = bound(nbytes_l, n_ops_l)
+        replaces = {"words": "src/repro/kernels/probe_gather.py:80",
+                    "bytes": "src/repro/kernels/pattern_probe.py:57",
+                    "packed": "src/repro/kernels/probe_gather.py:174"}[kind]
         return {"name": kernel, "replaces": replaces,
                 "replaces_composition": "src/repro/core/query.py:207",
                 "shape": f"B={pat.shape[0]} lanes={2 * pat.shape[0]} "
                          f"nw={pat.shape[1]} fetch={FETCH}",
-                "ms": cuda_ms(fused, inner=100),
-                "plain_ms": cuda_ms(plain, inner=2),
-                "unfused_ms": cuda_ms(unfused, inner=20),
-                "search_ms": cuda_ms(search, inner=100),
-                "device_ms": per_call(fused),
-                "unfused_device_ms": per_call(unfused),
-                "search_device_ms": per_call(search),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "patterns_distinct": n_distinct(pat, mask),
+                **timing(*rows_b),
                 "bound_note": "this run's trips' and epilogue's bytes over "
                               "3.35 TB/s; latency_bound_ms: the longest "
                               "lane's dependent round trips (trips + 4) "
                               "times the measured DRAM round trip",
-                "latency_bound_ms": lat(trips_max), "trips_max": trips_max,
                 "dram_round_trip_ms": dram_rt_ms,
                 "large": {"shape": f"B={large[0].shape[0]} "
                                    f"lanes={2 * large[0].shape[0]} "
@@ -1598,7 +1731,10 @@ def main() -> int:
                           "unfused_ms": cuda_ms(ul, inner=2),
                           "bound_ms": bl_ms, "bound_by": bl_by,
                           "latency_bound_ms": lat(trips_l),
-                          "trips_max": trips_l}}
+                          "trips_max": trips_l},
+                **distinct_row(kind, sx, ax, frng,
+                               lambda pats: search_rows(dev, pats, word),
+                               case, timing)}
 
     def gather_call(kernel: str):
         return getattr(ops, kernel), getattr(kref, f"{kernel}_ref")
@@ -2215,6 +2351,12 @@ def main() -> int:
     if (term_counts["pattern_probe_words"]
             or term_counts["search_bounds_words"]):
         raise AssertionError("a terminal-bearing batch took the word probe")
+    for name in PACKED_STEPS:
+        if term_counts[name]:
+            raise AssertionError(f"{name} was launched on the terminal batch")
+    search_batch_launches(lambda: dev.find_batch_ranges(
+        *dev.pad_batch(tpats)), "search_bounds_packed",
+        "genome terminal find_batch")
 
     # ---- 5b. find-and-fetch and the serving stack on the DNA index ---------
     frng = np.random.default_rng(17)
@@ -2232,6 +2374,14 @@ def main() -> int:
     emit({"phase": "find_fetch", "dataset": "genome",
           "batch": "terminal-bearing", **ff_check, "launches": tff_counts})
     require_fetch(tff_counts, "terminal", "the terminal-bearing fetch")
+    search_batch_launches(lambda: dev.find_fetch_ranges(
+        *dev.pad_batch(tpats), fetch=FETCH), "search_fetch_packed",
+        "genome terminal find_fetch")
+    # a served terminal-bearing batch: the patterns above repeated to 256
+    tpats256 = (tpats * (256 // len(tpats) + 1))[:256]
+    emit({"phase": "find_fetch_latency", "dataset": "genome",
+          "batch": len(tpats256), "patterns": "terminal-bearing",
+          **fetch_latency(dev, tpats256)})
     dna_serve_counts = serving_stack(dev, s, alpha, "genome")
     require_fetch(dna_serve_counts[FETCH], "genome",
                   "the genome serving stack")
@@ -2320,8 +2470,7 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by})
     # pattern_probe_packed: one search step of a served terminal-bearing
     # batch (2B rows of byte keys over the served dense text)
-    tpats = (tpats * (256 // len(tpats) + 1))[:256]
-    padded, lens, _ = dev.pad_batch(tpats)
+    padded, lens, _ = dev.pad_batch(tpats256)
     pat_b, mask_b = _pack_query_batch(
         None, torch.from_numpy(padded).to(cuda),
         torch.from_numpy(lens).to(cuda), word=False)
@@ -2343,6 +2492,25 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by})
     rows.append(search_parity("words", dev, s, alpha, "genome"))
     rows.append(fetch_parity("words", dev, s, alpha, "genome"))
+    # byte keys on the dense genome text: the served terminal-bearing batch
+    rows.append(search_parity("packed", dev, s, alpha, "genome",
+                              serving=tpats256))
+    rows.append(fetch_parity("packed", dev, s, alpha, "genome",
+                             serving=tpats256))
+    # ... and on 4- and 8-bit dense indexes (protein_class, and protein
+    # packed dense) at 2^20, every case, untimed
+    for a_name, bits in (("protein_class", 4), ("protein", 8)):
+        ax = ALPHABETS[a_name]
+        sx = synthetic_string(ax, min(n, 1 << 20), seed=3,
+                              repeat_fraction=0.15)
+        dx = EraIndexer(ax, cfg).build_device(sx, packing="dense")
+        if not (dx.packed and dx.s_text.bits == bits):
+            raise AssertionError(f"{a_name}: not a {bits}-bit dense index")
+        search_parity("packed", dx, sx, ax, f"{a_name} {bits}-bit",
+                      timed=False)
+        fetch_parity("packed", dx, sx, ax, f"{a_name} {bits}-bit",
+                     timed=False)
+        del dx, sx
     # kmer_histogram: the deepest kernel-counted DNA partition scan (t = 6)
     k = 6
     b_ms, b_by = bound(*kmer_work(n_win, k, alpha.base))
@@ -2841,6 +3009,17 @@ def main() -> int:
                          "counts": counts_now(), "t_build_s": t_leg,
                          "t_prepare_s": report.t_prepare,
                          "build_counts": leg_build}
+            if leg == "byte":  # each batch one launch (counted from 0)
+                padded_l = dev.pad_batch(leg_pats)
+                search_batch_launches(
+                    lambda: dev.find_batch_ranges(*padded_l),
+                    "search_bounds_packed", "byte leg find_batch")
+                search_batch_launches(
+                    lambda: dev.find_fetch_ranges(*padded_l, fetch=FETCH),
+                    "search_fetch_packed", "byte leg find_fetch")
+                search_batch_launches(
+                    lambda: eng.matching_stats(leg_q, window=64),
+                    "search_bounds_packed", "byte leg matching_stats")
             if leg == "byte":
                 leg_ell = dev.ell
             del dev, eng
@@ -2869,7 +3048,7 @@ def main() -> int:
     if not same:
         raise AssertionError("the byte leg disagrees with the word leg")
     require_launches(bl["counts"], BYTE_LEG_KERNELS, "the byte leg")
-    for name in WORD_ONLY_KERNELS:
+    for name in WORD_ONLY_KERNELS + PACKED_STEPS:
         if bl["counts"][name]:
             raise AssertionError(f"{name} ran under REPRO_WORD_COMPARE=byte")
 
@@ -2931,6 +3110,18 @@ def main() -> int:
                     if row["name"] in p["port_kernels"]}
         if in_build:
             row["ms_in_build"] = in_build
+    by_name = {row["name"]: row for row in rows}
+    for step, fused, yard in (("pattern_probe_packed", "search_bounds_packed",
+                               "loop_ms"),
+                              ("probe_gather_packed", "search_fetch_packed",
+                               "unfused_ms")):
+        # the single-step kernels keep their rows; the search they served
+        # is one kernel now
+        f = by_name[fused]
+        by_name[step]["fused_into"] = {
+            "name": fused, "launches": counts[fused],
+            **{k: f[k] for k in ("ms", "device_ms", yard,
+                                 "latency_bound_ms", "distinct")}}
     for row in rows:
         if row["name"] == "kmer_histogram":  # every counted partition scan
             row["per_k_ms"] = {f"{d} k={k}": v["ms"]
@@ -2978,7 +3169,9 @@ def main() -> int:
                                     "replaces_composition", "search_ms",
                                     "device_ms", "unfused_device_ms",
                                     "search_device_ms", "baseline_ms",
-                                    "baseline_design")}})
+                                    "baseline_design", "loop_device_ms",
+                                    "fused_into", "distinct",
+                                    "patterns_distinct")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

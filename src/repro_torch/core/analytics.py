@@ -55,8 +55,8 @@ def _matching_stats(s_text, ell, win_lo, win_hi, pows, q_ext: torch.Tensor,
 
     ``q_ext``: (B + w,) int32 query codes, terminal-padded past ``n_q``.
     Each position's window ``q[i:i+w]`` is routed and lower-bounded like a
-    ``find_batch`` pattern (one search-kernel launch, ``bounds=1``; a loop
-    of ``pattern_probe_packed`` steps for byte keys on dense text); the
+    ``find_batch`` pattern (one search-kernel launch, ``bounds=1``:
+    ``search_bounds_packed`` for byte keys on dense text); the
     max-LCP suffix is one of the two lexicographic neighbours of the
     insertion point.  ``word`` (dense text, terminal-free query) compares
     dense words with the window's first terminal as its limit; otherwise

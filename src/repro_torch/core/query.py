@@ -12,16 +12,16 @@ package:
 
 * a dense :class:`repro_torch.core.packing.PackedText` —
   ``search_bounds_words`` on dense pattern words, or, for a batch that
-  carries the terminal code, a loop of ``pattern_probe_packed`` steps on
-  byte keys (``n_iter`` launches);
+  carries the terminal code (and every batch under
+  ``REPRO_WORD_COMPARE=byte``), ``search_bounds_packed`` on byte keys;
 * the terminal-padded uint8 byte string (protein, english, byte, or
   ``packing="bytes"``) — ``search_bounds_bytes`` on byte keys.
 
 :meth:`DeviceIndex.find_fetch_ranges` adds the find-and-fetch epilogue
 (the verdict and the text at each pattern's lower-bound suffix) to the
-same launch: ONE ``search_fetch_words`` / ``search_fetch_bytes`` launch
-per batch on dense words / the byte string; byte keys on dense text run
-their loop, then one ``probe_gather_packed`` launch and the decode.  :class:`RouteCache` memoizes results by
+same launch: ONE ``search_fetch_words`` / ``search_fetch_packed`` /
+``search_fetch_bytes`` launch per batch on dense words / byte keys over
+dense text / the byte string.  :class:`RouteCache` memoizes results by
 :meth:`DeviceIndex.route_key` for :meth:`DeviceIndex.find_batch_cached` and
 the serving loop (:mod:`repro_torch.launch.serving`).
 

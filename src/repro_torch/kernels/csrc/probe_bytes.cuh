@@ -3,9 +3,9 @@
 // against a packed pattern row, compared unsigned at the first differing
 // word (0: the suffix starts with the pattern).  pattern_probe.cu (one
 // search step), search_bounds_bytes.cu (the whole search) and
-// search_fetch_bytes.cu (search and find-and-fetch in one launch) decide
-// with this code.  Row types (GlobalRow, RegRow, SharedRow) are those of
-// probe_words.cuh.
+// search_fetch_bytes.cu (search and find-and-fetch in one launch, through
+// the ByteText policy of search.cuh's kernels) decide with this code.  Row
+// types (GlobalRow, RegRow, SharedRow) are those of probe_words.cuh.
 #pragma once
 #include <cstdint>
 
@@ -33,3 +33,23 @@ __device__ __forceinline__ int probe_bytes_verdict(
   }
   return v;
 }
+
+// The Text policy of search.cuh's byte-key kernels on the terminal-padded
+// uint8 string: the verdict above, and key words read by byte_key_word.
+struct ByteText {
+  const uint8_t* s;
+  long long n_s;
+
+  template <int NWR, class Row>
+  __device__ __forceinline__ auto probe(const Row& row, int nw) const {
+    return [s = s, n_s = n_s, &row, nw](long long p0) {
+      return probe_bytes_verdict<NWR>(s, n_s, p0, row, nw);
+    };
+  }
+
+  template <class Emit>
+  __device__ __forceinline__ void read_keys(long long p0, int g0, int g1,
+                                            Emit&& emit) const {
+    for (int g = g0; g < g1; ++g) emit(g, byte_key_word(s, n_s, p0 + 4LL * g));
+  }
+};

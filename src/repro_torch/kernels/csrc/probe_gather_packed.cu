@@ -9,56 +9,59 @@
 // (pallas_call at :217; body _fused_packed_kernel, :148-170), which DMAs a
 // (2, tile) window of the staged words per row, expands every field to a
 // symbol, patches the virtual terminal and repacks max(W, fetch/4) key
-// words for both halves.  Here one thread per row makes
-// nw_rd = max(W, fetch/4) key words with dense_read.cuh: one shift-aligned
-// dense_read_word (sub_word 0) per 8/bits key words, each key word spread
-// to bytes and terminal-patched by dense_key_word.  The first fetch/4 go
-// to the window, the first W are masked and compared unsigned; the compare
-// stops at its first difference, the read once the window is written too.
+// words for both halves.  Here one thread per row runs the compare of
+// probe_packed.cuh (the pattern's key words masked and compared unsigned
+// up to the first difference), then reads the fetch/4 window key words
+// with the same code (each chunk's dense words loaded together, mostly
+// the lines the compare has just read); a template on BITS.
 //
 // Bound on the H100: launch latency at serving shapes, as the probes: a
 // batch of B rows moves B * (ceil(4 * nw_rd / spw) + 1) text words,
 // 2 * B * W pattern and mask words, B positions and B * (fetch/4 + 1)
 // output words, a few KB at B = 256 and fetch = 32.  At large row counts
-// the scattered text reads and the window stores bound it.
+// the scattered text reads and the window stores bound it.  Find-and-fetch
+// runs in search_fetch_packed.cu (search, verdict and decoded window in
+// one launch); this kernel stays as the TPU kernel's counterpart and the
+// unfused epilogue it is timed against.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "dense_read.cuh"
+#include "probe_packed.cuh"
 
+template <int BITS>
 __global__ void probe_gather_packed_kernel(
     const uint32_t* __restrict__ words, long long n_words,
     const int32_t* __restrict__ pos, const uint32_t* __restrict__ pat,
     const uint32_t* __restrict__ mask, long long b, int nw_pat, int nw_out,
-    int bits, long long n_real, uint32_t t_word, int32_t* __restrict__ cmp,
+    long long n_real, uint32_t t_word, int32_t* __restrict__ cmp,
     uint32_t* __restrict__ keys) {
-  const int spw = 32 / bits;
-  const int cpw = spw / 4;  // key words per dense word
-  const int nw_rd = nw_pat > nw_out ? nw_pat : nw_out;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
        i += (long long)gridDim.x * blockDim.x) {
-    long long p0 = pos[i];
-    int v = 0;
-    bool open = true;  // no differing key word found yet
-    uint32_t aligned = 0u;
-    for (int j = 0; j < nw_rd; ++j) {
-      if (j >= nw_out && !open) break;  // window written, verdict decided
-      if (j % cpw == 0)  // positions past n_real are patched, so sub = 0
-        aligned = dense_read_word(words, n_words, p0, j / cpw, bits, spw,
-                                  n_real, 0u);
-      uint32_t key = dense_key_word(aligned, j, bits, p0, n_real, t_word);
-      if (j < nw_out) keys[i * nw_out + j] = key;
-      if (open && j < nw_pat) {
-        uint32_t sw = key & mask[i * nw_pat + j];
-        uint32_t pw = pat[i * nw_pat + j];
-        if (sw != pw) {
-          v = sw < pw ? -1 : 1;
-          open = false;
-        }
-      }
-    }
-    cmp[i] = v;
+    const long long p0 = pos[i];
+    const GlobalRow row{pat + i * nw_pat, mask + i * nw_pat};
+    cmp[i] = packed::probe_packed_verdict<BITS, 0>(
+        words, n_words, p0, row, nw_pat, packed::live_words<0>(row, nw_pat),
+        n_real, t_word);
+    uint32_t* out = keys + i * nw_out;
+    packed::read_keys<BITS>(words, n_words, p0, n_real, 0, nw_out, t_word,
+                            [&](int g, uint32_t w) { out[g] = w; });
   }
+}
+
+template <int BITS>
+static cudaError_t launch(const void* words, long long n_words,
+                          const void* pos, const void* pat, const void* mask,
+                          long long b, int nw_pat, int nw_out,
+                          long long n_real, uint32_t t_word, void* cmp,
+                          void* keys, cudaStream_t stream) {
+  const int threads = 128;
+  long long blocks = (b + threads - 1) / threads;
+  if (blocks > 1048576) blocks = 1048576;  // grid-stride beyond this
+  probe_gather_packed_kernel<BITS><<<(unsigned)blocks, threads, 0, stream>>>(
+      (const uint32_t*)words, n_words, (const int32_t*)pos,
+      (const uint32_t*)pat, (const uint32_t*)mask, b, nw_pat, nw_out, n_real,
+      t_word, (int32_t*)cmp, (uint32_t*)keys);
+  return cudaGetLastError();
 }
 
 extern "C" int probe_gather_packed(const void* words, long long n_words,
@@ -67,13 +70,16 @@ extern "C" int probe_gather_packed(const void* words, long long n_words,
                                    int nw_out, int bits, long long n_real,
                                    unsigned int t_word, void* cmp, void* keys,
                                    void* stream) {
-  const int threads = 128;
-  long long blocks = (b + threads - 1) / threads;
-  if (blocks > 1048576) blocks = 1048576;  // grid-stride beyond this
-  probe_gather_packed_kernel<<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n_words, (const int32_t*)pos,
-      (const uint32_t*)pat, (const uint32_t*)mask, b, nw_pat, nw_out, bits,
-      n_real, (uint32_t)t_word, (int32_t*)cmp, (uint32_t*)keys);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (b == 0) return 0;
+  if (bits == 2)
+    return (int)launch<2>(words, n_words, pos, pat, mask, b, nw_pat, nw_out,
+                          n_real, t_word, cmp, keys, s);
+  if (bits == 4)
+    return (int)launch<4>(words, n_words, pos, pat, mask, b, nw_pat, nw_out,
+                          n_real, t_word, cmp, keys, s);
+  if (bits == 8)
+    return (int)launch<8>(words, n_words, pos, pat, mask, b, nw_pat, nw_out,
+                          n_real, t_word, cmp, keys, s);
+  return (int)cudaErrorInvalidValue;
 }

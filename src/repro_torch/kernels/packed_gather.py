@@ -92,6 +92,12 @@ def _stream(device: torch.device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _t_word(pt: PackedText) -> int:
+    """The terminal byte in every byte of a word: the key bytes of every
+    position ``>= n_real`` (the byte-key kernels over dense text)."""
+    return (pt.terminal & 0xFF) * 0x01010101
+
+
 def _check_mask(mask: torch.Tensor | None, f: int) -> None:
     """A row mask is a contiguous bool vector with one entry per offset."""
     if mask is not None:
@@ -217,8 +223,7 @@ def pattern_probe_packed(pt: PackedText, pos: torch.Tensor,
     with torch.cuda.device(pos.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos.data_ptr(),
                 pat_words.data_ptr(), mask_words.data_ptr(), b, nw, pt.bits,
-                pt.n_real, (pt.terminal & 0xFF) * 0x01010101, out.data_ptr(),
-                _stream(pos.device))
+                pt.n_real, _t_word(pt), out.data_ptr(), _stream(pos.device))
     _build.check(rc, "pattern_probe_packed")
     pattern_probe_packed.launches += 1
     return out
@@ -256,8 +261,8 @@ def range_gather_packed(pt: PackedText, offs: torch.Tensor, w: int,
                        _P])
     with torch.cuda.device(offs.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
-                nw, pt.bits, pt.n_real, (pt.terminal & 0xFF) * 0x01010101,
-                _ptr(mask), out.data_ptr(), _stream(offs.device))
+                nw, pt.bits, pt.n_real, _t_word(pt), _ptr(mask),
+                out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_packed")
     range_gather_packed.launches += 1
     range_gather_packed.rows += f

@@ -30,6 +30,7 @@ from repro_torch.kernels.packed_gather import (
     _on_cpu,
     _require,
     _stream,
+    _t_word,
 )
 
 _P = ctypes.c_void_p
@@ -113,8 +114,7 @@ def probe_gather_packed(pt: PackedText, pos: torch.Tensor,
     with torch.cuda.device(pos.device):
         rc = fn(pt.words.data_ptr(), pt.words.shape[0], pos.data_ptr(),
                 pat_words.data_ptr(), mask_words.data_ptr(), b, nw_pat,
-                nw_out, pt.bits, pt.n_real,
-                (pt.terminal & 0xFF) * 0x01010101, cmp.data_ptr(),
+                nw_out, pt.bits, pt.n_real, _t_word(pt), cmp.data_ptr(),
                 keys.data_ptr(), _stream(pos.device))
     _build.check(rc, "probe_gather_packed")
     probe_gather_packed.launches += 1

@@ -4,20 +4,22 @@
   as a loop of ``n_iter`` probe calls (the JAX ``fori_loop`` of
   ``repro.core.query._search_bounds`` and ``repro.core.analytics.
   _matching_stats``).  With the plain probes it is the plain version of
-  both search kernels; with ``pattern_probe_packed`` it is the search of a
-  terminal-bearing batch on dense text and of ``REPRO_WORD_COMPARE=byte``;
-  with the single-step kernels it is the yardstick the search kernels are
-  timed against.
+  the search kernels; with the single-step kernels it is the yardstick
+  they are timed against.
 * :func:`search_bounds_words` — ``csrc/search_bounds_words.cu``: the whole
   search of masked dense pattern rows (the loop around
   ``repro/kernels/packed_gather.py:pattern_probe_words``) in one launch.
 * :func:`search_bounds_bytes` — ``csrc/search_bounds_bytes.cu``: the same
   on the terminal-padded uint8 string (the loop around
   ``repro/kernels/pattern_probe.py:pattern_probe``).
+* :func:`search_bounds_packed` — ``csrc/search_bounds_packed.cu``: the
+  same for byte-key rows over the dense text (the loop around
+  ``repro/kernels/packed_gather.py:pattern_probe_packed``: a batch that
+  carries the terminal code, and ``REPRO_WORD_COMPARE=byte``).
 
-Both return a ``(bounds, B)`` int32 tensor: row 0 the lower bounds (first
-suffix >= the pattern), row 1, when ``bounds == 2``, the upper bounds
-(first suffix > it), indices into ``ell``.
+All three return a ``(bounds, B)`` int32 tensor: row 0 the lower bounds
+(first suffix >= the pattern), row 1, when ``bounds == 2``, the upper
+bounds (first suffix > it), indices into ``ell``.
 
 * :func:`search_fetch_words` — ``csrc/search_fetch_words.cu``: the whole
   find-and-fetch of ``repro.core.query._find_fetch_batch`` on dense words
@@ -26,8 +28,12 @@ suffix >= the pattern), row 1, when ``bounds == 2``, the upper bounds
 * :func:`search_fetch_bytes` — ``csrc/search_fetch_bytes.cu``: the same on
   the terminal-padded uint8 string (the search, then ``pattern_probe`` and
   ``range_gather_pack`` at each lower bound and the decode).
+* :func:`search_fetch_packed` — ``csrc/search_fetch_packed.cu``: the same
+  for byte-key rows over the dense text (the search, then
+  ``repro/kernels/probe_gather.py:probe_gather_packed`` at each lower
+  bound and the decode).
 
-Both return ``(start, count, window, verified)`` as
+All three return ``(start, count, window, verified)`` as
 :func:`fetch_epilogue` does; their plain version is
 :func:`fetch_composition`: :func:`search_loop` then that epilogue, with
 the plain probes.  CUDA tensors launch the
@@ -49,9 +55,14 @@ from repro_torch.kernels.packed_gather import (
     _on_cpu,
     _require,
     _stream,
+    _t_word,
+    pattern_probe_packed,
 )
 from repro_torch.kernels.pattern_probe import pattern_probe
-from repro_torch.kernels.probe_gather import probe_gather_words
+from repro_torch.kernels.probe_gather import (
+    probe_gather_packed,
+    probe_gather_words,
+)
 from repro_torch.kernels.range_gather import range_gather_pack, require_byte_text
 
 _P = ctypes.c_void_p
@@ -205,6 +216,47 @@ def search_bounds_bytes(s_padded: torch.Tensor, ell: torch.Tensor,
 search_bounds_bytes.launches = 0
 
 
+def search_bounds_packed(pt: PackedText, ell: torch.Tensor,
+                         pat_words: torch.Tensor, mask_words: torch.Tensor,
+                         lo0: torch.Tensor, hi0: torch.Tensor, *, n_iter: int,
+                         bounds: int) -> torch.Tensor:
+    """(bounds, B) int32 lower (and upper) bounds of masked byte-key
+    pattern rows in ``[lo0, hi0)`` of ``ell`` over the dense text —
+    bit-identical to :func:`search_loop` with
+    :func:`repro_torch.kernels.ref.pattern_probe_packed_ref` (and so to the
+    byte-key search on the terminal-padded string).
+
+    pat_words / mask_words: (B, W) int32 byte-packed pattern rows and
+    0xFF-byte masks.
+    """
+    if _on_cpu(pt.words, ell, pat_words, mask_words, lo0, hi0):
+        return search_loop(_ref.pattern_probe_packed_ref, pt, ell, pat_words,
+                           mask_words, None, None, lo0, hi0, n_iter=n_iter,
+                           bounds=bounds)
+    _require(pt.words, "words", torch.int32, 1)
+    _check_search(ell, pat_words, mask_words, lo0, hi0, n_iter, bounds)
+    b, nw = pat_words.shape
+    _check_extra(pt, 4 * nw)
+    out = torch.empty((bounds, b), dtype=torch.int32, device=ell.device)
+    if b == 0:
+        return out
+    fn = _build.entry("search_bounds_packed",
+                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I32,
+                       _I32, _I32, _I64, _U32, _P, _P])
+    with torch.cuda.device(ell.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], ell.data_ptr(),
+                ell.shape[0], pat_words.data_ptr(), mask_words.data_ptr(),
+                lo0.data_ptr(), hi0.data_ptr(), b, bounds, nw, n_iter,
+                pt.bits, pt.n_real, _t_word(pt), out.data_ptr(),
+                _stream(ell.device))
+    _build.check(rc, "search_bounds_packed")
+    search_bounds_packed.launches += 1
+    return out
+
+
+search_bounds_packed.launches = 0
+
+
 def fetch_epilogue(s_text, ell: torch.Tensor, bnd: torch.Tensor,
                    probe_gather, *, fetch: int, word: bool):
     """The find-and-fetch epilogue of ``repro.core.query._find_fetch_batch``
@@ -234,8 +286,10 @@ def fetch_composition(s_text, ell: torch.Tensor, pat: torch.Tensor,
     any device); else with the ported kernels launched one after the
     other — ``search_bounds_words`` then ``probe_gather_words`` on dense
     words, ``search_bounds_bytes`` then ``pattern_probe`` +
-    ``range_gather_pack`` on the byte string — the yardstick the fused
-    kernels are timed against."""
+    ``range_gather_pack`` on the byte string, and for byte keys on a dense
+    :class:`PackedText` the loop of ``pattern_probe_packed`` steps then
+    ``probe_gather_packed`` — the yardstick the fused kernels are timed
+    against."""
     args = (s_text, ell, pat, mask)
     if word:
         if plain:
@@ -248,6 +302,16 @@ def fetch_composition(s_text, ell: torch.Tensor, pat: torch.Tensor,
                                       n_iter=n_iter, bounds=2)
             gather = lambda pos: probe_gather_words(s_text, pos, pat, mask,
                                                     lengths, fetch)
+    elif isinstance(s_text, PackedText):
+        probe = _ref.pattern_probe_packed_ref if plain else pattern_probe_packed
+        bnd = search_loop(probe, *args, None, None, lo0, hi0, n_iter=n_iter,
+                          bounds=2)
+        if plain:
+            gather = lambda pos: _ref.probe_gather_packed_ref(
+                s_text, pos, pat, mask, fetch=fetch)
+        else:
+            gather = lambda pos: probe_gather_packed(s_text, pos, pat, mask,
+                                                     fetch)
     elif plain:
         bnd = search_loop(_ref.pattern_probe_ref, *args, None, None, lo0,
                           hi0, n_iter=n_iter, bounds=2)
@@ -356,3 +420,43 @@ def search_fetch_bytes(s_padded: torch.Tensor, ell: torch.Tensor,
 
 
 search_fetch_bytes.launches = 0
+
+
+def search_fetch_packed(pt: PackedText, ell: torch.Tensor,
+                        pat_words: torch.Tensor, mask_words: torch.Tensor,
+                        lo0: torch.Tensor, hi0: torch.Tensor, *, n_iter: int,
+                        fetch: int):
+    """Find-and-fetch of masked byte-key pattern rows in ``[lo0, hi0)`` of
+    ``ell`` over the dense text in one launch: ``(start, count, window,
+    verified)``, bit-identical to :func:`fetch_composition` (``word=False``
+    on a :class:`PackedText`: the search with
+    :func:`repro_torch.kernels.ref.pattern_probe_packed_ref`, then
+    :func:`repro_torch.kernels.ref.probe_gather_packed_ref` at the lower
+    bounds and the decode, the terminal patched in past ``n_real``)."""
+    _check_fetch(fetch)
+    if _on_cpu(pt.words, ell, pat_words, mask_words, lo0, hi0):
+        return fetch_composition(pt, ell, pat_words, mask_words, None, lo0,
+                                 hi0, n_iter=n_iter, fetch=fetch, word=False)
+    _require(pt.words, "words", torch.int32, 1)
+    _check_search(ell, pat_words, mask_words, lo0, hi0, n_iter, 2)
+    b, nw = pat_words.shape
+    _check_extra(pt, max(4 * nw, fetch))
+    start, count, window, verified = _fetch_outputs(b, fetch, ell.device)
+    if b == 0:
+        return start, count, window, verified
+    fn = _build.entry("search_fetch_packed",
+                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I32,
+                       _I32, _I64, _U32, _I32, _P, _P, _P, _P, _P])
+    with torch.cuda.device(ell.device):
+        rc = fn(pt.words.data_ptr(), pt.words.shape[0], ell.data_ptr(),
+                ell.shape[0], pat_words.data_ptr(), mask_words.data_ptr(),
+                lo0.data_ptr(), hi0.data_ptr(), b, nw, n_iter, pt.bits,
+                pt.n_real, _t_word(pt), fetch, start.data_ptr(),
+                count.data_ptr(), window.data_ptr(), verified.data_ptr(),
+                _stream(ell.device))
+    _build.check(rc, "search_fetch_packed")
+    search_fetch_packed.launches += 1
+    return start, count, window, verified
+
+
+search_fetch_packed.launches = 0

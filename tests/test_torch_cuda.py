@@ -842,6 +842,12 @@ def _search_rows(kind, m_pad, window, rng, b=700):
     end at the text's terminal tail, random codes) and their windows:
     routed, unrouted ([0, total): every trip runs) or empty."""
     s, a, dev = _search_index(kind)
+    return _rows_on(s, a, dev, m_pad, window, rng, b, word=kind == "words")
+
+
+def _rows_on(s, a, dev, m_pad, window, rng, b, *, word):
+    """The rows of :func:`_search_rows` on any card index; byte-key rows
+    (``word`` False) include patterns that run into the terminal."""
     n = len(s) - 1
     pats = []
     for i in range(b):
@@ -851,7 +857,7 @@ def _search_rows(kind, m_pad, window, rng, b=700):
             pats.append(s[p:p + m])
         elif i % 3 == 1:
             tail = s[n - min(m, n):n]
-            if kind == "bytes" and i % 2:  # into the terminal
+            if not word and i % 2:  # into the terminal
                 tail = np.append(tail[1:], a.terminal_code).astype(np.uint8)
             pats.append(tail if tail.size else s[:1])
         else:
@@ -859,8 +865,7 @@ def _search_rows(kind, m_pad, window, rng, b=700):
     padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad)
     t = lambda x: torch.from_numpy(x).cuda()
     len_t = t(lengths)
-    pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t,
-                                  kind == "words")
+    pat, mask = _pack_query_batch(dev.s_text, t(padded), len_t, word)
     lo0, hi0 = _route_window(dev.win_lo, dev.win_hi, dev.pows, dev.spans,
                              len_t, t(route), dev.k_route)
     if window == "unrouted":
@@ -881,11 +886,16 @@ def _searches(kind, dev, pat, mask, lengths, lim_p, lo0, hi0, bounds):
                 tsearch.search_loop(tref.pattern_probe_words_ref, *rows, **kw),
                 tsearch.search_loop(ops.pattern_probe_words, *rows, **kw))
     rows = (dev.s_text, dev.ell, pat, mask)
-    return (ops.search_bounds_bytes(*rows, lo0, hi0, **kw),
-            tsearch.search_loop(tref.pattern_probe_ref, *rows, None, None,
-                                lo0, hi0, **kw),
-            tsearch.search_loop(ops.pattern_probe, *rows, None, None, lo0,
-                                hi0, **kw))
+    if kind == "packed":
+        fused, plain, step = (tsearch.search_bounds_packed,
+                              tref.pattern_probe_packed_ref,
+                              ops.pattern_probe_packed)
+    else:
+        fused, plain, step = (tsearch.search_bounds_bytes,
+                              tref.pattern_probe_ref, ops.pattern_probe)
+    return (fused(*rows, lo0, hi0, **kw),
+            tsearch.search_loop(plain, *rows, None, None, lo0, hi0, **kw),
+            tsearch.search_loop(step, *rows, None, None, lo0, hi0, **kw))
 
 
 @pytest.mark.cuda
@@ -960,6 +970,8 @@ def _fetches(kind, dev, pat, mask, lengths, lo0, hi0, fetch):
     kw = dict(n_iter=dev.n_iter, fetch=fetch)
     if word:
         fused = tsearch.search_fetch_words(*args, lengths, lo0, hi0, **kw)
+    elif kind == "packed":
+        fused = tsearch.search_fetch_packed(*args, lo0, hi0, **kw)
     else:
         fused = tsearch.search_fetch_bytes(*args, lo0, hi0, **kw)
     comp = functools.partial(tsearch.fetch_composition, *args,
@@ -1075,6 +1087,146 @@ def test_cuda_find_fetch_is_one_launch(cuda_device, kind):
     assert counts[f"search_fetch_{kind}"] == 1
     assert sum(counts.values()) == 1
     s_dev = torch.from_numpy(s).cuda()
+    pos0 = dev.ell[torch.clamp(start, 0, dev.n_leaves - 1)].long()
+    idx = torch.clamp(pos0[:, None] + torch.arange(32, device="cuda"),
+                      max=n)
+    has = count > 0
+    assert torch.equal(win, torch.where(has[:, None], s_dev[idx].int(), -1))
+    assert bool((verified[has] == 0).all()) and bool((~has).any())
+
+
+# ---- byte keys on dense text: one launch per search and fetch -----------
+
+# byte-key rows over the 2-, 4- and 8-bit dense indexes, m_pad so that NW
+# sits at and past the register-template edges and on the shared-memory
+# route (NW 1 2 3 4 8 16 17 128)
+PACKED_ALPHAS = ("dna", "protein_class", "protein")
+PACKED_M_PAD = (4, 8, 12, 16, 32, 64, 68, 512)
+
+
+def _packed_index(alpha):
+    return _search_index("words") if alpha == "dna" else _dense_index(alpha)
+
+
+def _packed_rows(alpha, m_pad, window, rng, b=700):
+    s, a, dev = _packed_index(alpha)
+    assert dev.packed
+    return _rows_on(s, a, dev, m_pad, window, rng, b, word=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["routed", "unrouted", "empty"])
+@pytest.mark.parametrize("m_pad", PACKED_M_PAD)
+@pytest.mark.parametrize("alpha", PACKED_ALPHAS)
+def test_cuda_search_bounds_packed(cuda_device, alpha, m_pad, window):
+    """The byte-key search over dense text equals the loop with the plain
+    probe and the loop of ``pattern_probe_packed`` launches, both bounds
+    and the lower bound alone, in one launch: every BITS x NW template."""
+    rng = np.random.default_rng(m_pad + 3)
+    dev, pat, mask, lengths, lo0, hi0 = _packed_rows(alpha, m_pad, window,
+                                                     rng)
+    for bounds in (2, 1):
+        ops.reset_launch_counts()
+        got, plain, steps = _searches("packed", dev, pat, mask, lengths,
+                                      None, lo0, hi0, bounds)
+        assert ops.launch_counts()["search_bounds_packed"] == 1
+        assert got.shape == (bounds, pat.shape[0])
+        assert torch.equal(got, plain) and torch.equal(got, steps)
+        if window == "empty":
+            assert torch.equal(got[0], lo0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [0, 1, 33, 1 << 19, 1 << 20])
+def test_cuda_search_bounds_packed_batch_sizes(cuda_device, b):
+    """B = 0, 1 and 33, and 2^20 and 2^21 rows (both bounds), where each
+    thread of the capped grid strides over several rows."""
+    rng = np.random.default_rng(b)
+    dev, pat, mask, lengths, lo0, hi0 = _packed_rows("dna", 24, "routed",
+                                                     rng)
+    idx = torch.from_numpy(rng.integers(0, pat.shape[0], b)).cuda()
+    got, plain, steps = _searches("packed", dev, pat[idx].contiguous(),
+                                  mask[idx].contiguous(), lengths[idx], None,
+                                  lo0[idx], hi0[idx], 2)
+    assert got.shape == (2, b)
+    assert torch.equal(got, plain) and torch.equal(got, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,fetch", [("routed", 32), ("routed", 4),
+                                          ("unrouted", 36), ("empty", 64)])
+@pytest.mark.parametrize("m_pad", PACKED_M_PAD)
+@pytest.mark.parametrize("alpha", PACKED_ALPHAS)
+def test_cuda_search_fetch_packed(cuda_device, alpha, m_pad, window, fetch):
+    """The byte-key find-and-fetch over dense text equals its plain
+    version and the loop of ``pattern_probe_packed`` launches with
+    ``probe_gather_packed`` after it, in one launch: every BITS x NW
+    template, fetch narrower and wider than the pattern, windows past the
+    text's end, rows that match nothing and empty windows."""
+    rng = np.random.default_rng(m_pad + fetch)
+    dev, pat, mask, lengths, lo0, hi0 = _packed_rows(alpha, m_pad, window,
+                                                     rng)
+    ops.reset_launch_counts()
+    got, plain, kernels = _fetches("packed", dev, pat, mask, lengths, lo0,
+                                   hi0, fetch)
+    assert ops.launch_counts()["search_fetch_packed"] == 1
+    assert got[2].shape == (pat.shape[0], fetch)
+    _assert_fetch_equal(got, plain, kernels)
+    if window == "empty":
+        assert (got[1] == 0).all() and (got[2] == -1).all()
+    else:
+        assert (got[1] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [0, 1, 33, 1 << 20])
+def test_cuda_search_fetch_packed_batch_sizes(cuda_device, b):
+    """B = 0, 1 and 33 (a warp of lane pairs half filled), and 2^20
+    patterns (2^21 lanes)."""
+    rng = np.random.default_rng(b + 1)
+    dev, pat, mask, lengths, lo0, hi0 = _packed_rows("dna", 24, "routed",
+                                                     rng)
+    idx = torch.from_numpy(rng.integers(0, pat.shape[0], b)).cuda()
+    got, plain, kernels = _fetches(
+        "packed", dev, pat[idx].contiguous(), mask[idx].contiguous(),
+        lengths[idx], lo0[idx], hi0[idx], 32)
+    assert got[2].shape == (b, 32)
+    _assert_fetch_equal(got, plain, kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["terminal", "byte"])
+@pytest.mark.parametrize("alpha", PACKED_ALPHAS)
+def test_cuda_packed_index_is_one_launch(cuda_device, monkeypatch, alpha,
+                                         leg):
+    """Through ``DeviceIndex``: a batch that carries the terminal code, and
+    a plain batch under ``REPRO_WORD_COMPARE=byte``, launch one
+    ``search_bounds_packed`` a search and one ``search_fetch_packed`` a
+    find-and-fetch, nothing else; the ranges hold exactly each pattern's
+    occurrences and each window is the text at the first match."""
+    s, a, dev = _packed_index(alpha)
+    rng = np.random.default_rng(12)
+    n = len(s) - 1
+    pats = [s[p:p + m] for p, m in zip(rng.integers(0, n - 30, 40),
+                                       rng.integers(1, 24, 40))]
+    pats += [s[n - 5:n], rng.integers(0, len(a.symbols), 12).astype(np.uint8)]
+    if leg == "terminal":
+        pats += [np.append(s[n - 3:n], a.terminal_code).astype(np.uint8)]
+    else:
+        monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
+    ops.reset_launch_counts()
+    found = dev.find_batch(pats)
+    counts = ops.launch_counts()
+    assert counts["search_bounds_packed"] == 1 and sum(counts.values()) == 1
+    s_dev = torch.from_numpy(s).cuda()
+    for p, got in zip(pats, found):
+        win = np.lib.stride_tricks.sliding_window_view(s, len(p))
+        assert got.tolist() == np.nonzero((win == p).all(1))[0].tolist()
+    ops.reset_launch_counts()
+    start, count, win, verified = dev.find_fetch_ranges(
+        *dev.pad_batch(pats), fetch=32)
+    counts = ops.launch_counts()
+    assert counts["search_fetch_packed"] == 1 and sum(counts.values()) == 1
     pos0 = dev.ell[torch.clamp(start, 0, dev.n_leaves - 1)].long()
     idx = torch.clamp(pos0[:, None] + torch.arange(32, device="cuda"),
                       max=n)

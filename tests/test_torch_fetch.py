@@ -13,8 +13,7 @@ and epilogue on the same windows); windows running past ``n_real`` (the
 terminal patched in); ``fetch`` narrower and wider than the patterns;
 patterns of more than 16 words (the kernels' shared-memory row); and the
 byte-key route on dense text (a terminal-bearing batch and
-``REPRO_WORD_COMPARE=byte``), which keeps its loop of
-``pattern_probe_packed`` steps and ``probe_gather_packed``.
+``REPRO_WORD_COMPARE=byte``), one ``search_fetch_packed`` call a batch.
 Tolerance: exact — every quantity is an integer.
 """
 
@@ -222,14 +221,16 @@ def test_find_fetch_wide_patterns_equal_jax(case, m, use_pallas):
 
 def test_fetch_byte_keys_on_dense_text(monkeypatch):
     """A terminal-bearing batch on a dense index, and every batch under
-    ``REPRO_WORD_COMPARE=byte``, keep the byte-key route: the loop of
-    ``pattern_probe_packed`` steps, one ``probe_gather_packed`` call and
-    the decode — equal to JAX, and never the fused word kernel."""
+    ``REPRO_WORD_COMPARE=byte``, take the byte-key route: one
+    ``search_fetch_packed`` call a batch (search, verdict and decoded
+    window), equal to JAX, and never the fused word kernel nor the loop of
+    ``pattern_probe_packed`` steps and ``probe_gather_packed``."""
     s, jdev, tdev = _index(*DNA)
     a = J_ALPHABETS["dna"]
     rng = np.random.default_rng(5)
     calls = []
     for name in ("search_fetch_words", "search_fetch_bytes",
+                 "search_fetch_packed", "pattern_probe_packed",
                  "probe_gather_packed"):
         real = getattr(ops, name)
         monkeypatch.setattr(ops, name, lambda *x, _r=real, _n=name, **k: (
@@ -239,14 +240,14 @@ def test_fetch_byte_keys_on_dense_text(monkeypatch):
     got = tdev.find_fetch_ranges(padded, lengths, route, fetch=32)
     _assert_equal(got, _jax_ranges(jdev, padded, lengths, route, 32, False,
                                    False))
-    assert calls == ["probe_gather_packed"]
+    assert calls == ["search_fetch_packed"]
     monkeypatch.setenv("REPRO_WORD_COMPARE", "byte")
     padded, lengths, route = jdev.pad_batch(_patterns(s, len(a.symbols),
                                                       rng))
     got = tdev.find_fetch_ranges(padded, lengths, route, fetch=16)
     _assert_equal(got, _jax_ranges(jdev, padded, lengths, route, 16, True,
                                    False))
-    assert calls == ["probe_gather_packed"] * 2
+    assert calls == ["search_fetch_packed"] * 2
 
 
 @pytest.mark.parametrize("case", [DNA, PROTEIN], ids=["dna", "protein"])
@@ -257,7 +258,7 @@ def test_find_fetch_ranges_is_one_search_fetch_call(monkeypatch, case):
     fused = "search_fetch_words" if case is DNA else "search_fetch_bytes"
     calls = []
     for name in (fused, "search_bounds_words", "search_bounds_bytes",
-                 "probe_gather_words", "probe_gather", "pattern_probe",
+                 "probe_gather_words", "pattern_probe",
                  "range_gather_pack"):
         real = getattr(ops, name)
         monkeypatch.setattr(ops, name, lambda *x, _r=real, _n=name, **k: (

@@ -561,6 +561,11 @@ def _no_fallback_calls():
             bounds=2)),
         "search_bounds_bytes": (tsearch, lambda: tsearch.search_bounds_bytes(
             s, pos, words, words, pos, pos + 3, n_iter=4, bounds=1)),
+        "search_bounds_packed": (tsearch,
+                                 lambda: tsearch.search_bounds_packed(
+            pt, pos, words, words, pos, pos + 3, n_iter=4, bounds=2)),
+        "search_fetch_packed": (tsearch, lambda: tsearch.search_fetch_packed(
+            pt, pos, words, words, pos, pos + 3, n_iter=4, fetch=8)),
         "kmer_histogram": (tkmer, lambda: tkmer.kmer_histogram(s, 100, 3, 5)),
     }
 
@@ -572,6 +577,8 @@ def _no_fallback_calls():
                                     "probe_gather_packed", "flash_attention",
                                     "search_bounds_words",
                                     "search_bounds_bytes",
+                                    "search_bounds_packed",
+                                    "search_fetch_packed",
                                     "range_gather_pack:mask",
                                     "range_gather_words",
                                     "range_gather_words:mask",
@@ -654,7 +661,6 @@ def test_cpu_tensors_take_plain_versions_uncounted():
     dense = torch.zeros((offs.shape[0], 1), dtype=torch.int32)
     ops.probe_gather_words(tt, offs, dense, dense, offs, 16)
     ops.probe_gather_packed(tt, offs, keys, keys, 16)
-    ops.probe_gather(sp, offs, keys, keys, 16)
     ops.flash_attention(torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 1, 16)),
                         torch.zeros((1, 4, 1, 16)))
     ops.search_bounds_words(tt, offs, dense, dense, offs, None, offs,
@@ -665,8 +671,12 @@ def test_cpu_tensors_take_plain_versions_uncounted():
                            n_iter=3, fetch=16)
     ops.search_fetch_bytes(sp, offs, keys, keys, offs, offs + 5, n_iter=3,
                            fetch=16)
+    ops.search_bounds_packed(tt, offs, keys, keys, offs, offs + 5, n_iter=3,
+                             bounds=2)
+    ops.search_fetch_packed(tt, offs, keys, keys, offs, offs + 5, n_iter=3,
+                            fetch=16)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
-    assert len(ops.KERNELS) == 17
+    assert len(ops.KERNELS) == 19
 
 
 def test_reset_clears_range_gather_pack_tallies(monkeypatch):
@@ -1010,9 +1020,10 @@ def test_probe_gather_packed_equal(alpha, n, b, m, fetch):
 
 @pytest.mark.parametrize("leg", ["word", "byte"])
 def test_probe_gather_dispatch_equal(monkeypatch, leg):
-    """``ops.probe_gather`` follows the JAX dispatch: the fused packed
-    kernel on dense text, the two launches on the byte string, with equal
-    results for either storage."""
+    """Each storage's find-and-fetch pair gives what JAX's
+    ``ops.probe_gather`` dispatches to: the fused ``probe_gather_packed``
+    on dense text, ``pattern_probe`` + ``range_gather_pack`` on the byte
+    string, with equal results for either storage."""
     monkeypatch.setenv("REPRO_WORD_COMPARE", leg)
     alpha, n, b, m, fetch = DNA, 600, 16, 8, 16
     jt, tt, pos, sym, valid, _ = _fused_batch(alpha, n, b, m, 99)
@@ -1021,8 +1032,10 @@ def test_probe_gather_dispatch_equal(monkeypatch, leg):
     args_j = (jnp.asarray(pos), jnp.asarray(pat), jnp.asarray(mask))
     args_t = (torch.from_numpy(pos), torch.from_numpy(pat),
               torch.from_numpy(mask))
-    dense_t = ops.probe_gather(tt, *args_t, fetch)
-    byte_t = ops.probe_gather(torch.from_numpy(sp), *args_t, fetch)
+    dense_t = ops.probe_gather_packed(tt, *args_t, fetch)
+    sp_t = torch.from_numpy(sp)
+    byte_t = (ops.pattern_probe(sp_t, *args_t),
+              ops.range_gather_pack(sp_t, args_t[0], fetch))
     for text_j, got in ((jt, dense_t), (jnp.asarray(sp), byte_t)):
         want = jops.probe_gather(text_j, *args_j, fetch)
         for g, w in zip(got, want):

@@ -107,8 +107,9 @@ def _terminal_patterns(s, terminal):
 
 def test_terminal_bearing_batch_raises():
     """Once refused, now answered: a dense DNA index serves a batch that
-    carries the terminal code through ``pattern_probe_packed``, equal to
-    JAX and to the brute-force scan, and counts no word-probe launch."""
+    carries the terminal code on byte keys (``search_bounds_packed``),
+    equal to JAX and to the brute-force scan, and counts no word-probe
+    launch."""
     s, jdev = _jax_index("dna", 400, 2048, seed=77)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
     pats = [np.asarray(s[10:16])] + _terminal_patterns(s, 4)
@@ -136,8 +137,8 @@ def test_terminal_bearing_batch_other_alphabets(alpha):
 
 def test_byte_compare_knob_raises(monkeypatch):
     """Once refused, now answered: under ``REPRO_WORD_COMPARE=byte`` a
-    dense index probes every batch through the byte-key probe
-    (``pattern_probe_packed``), equal to JAX under the same leg and to
+    dense index searches every batch on byte keys
+    (``search_bounds_packed``), equal to JAX under the same leg and to
     the brute-force scan."""
     s, jdev = _jax_index("dna", 400, 2048, seed=78)
     tdev = DeviceIndex.from_blobs(jdev.to_blobs(), device="cpu")
