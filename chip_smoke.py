@@ -23,6 +23,11 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   (``range_gather_packed``, ``search_bounds_packed`` and, for
   find-and-fetch, ``search_fetch_packed``: one launch a batch), held equal
   to the word leg;
+* the out-of-core path — ``EraIndexer.build_stream`` of both strings
+  under a device budget (the host state double-buffered onto the card on
+  a side stream), the genome read back from a FASTA file, then
+  ``append_device`` of 2^16 symbols to the genome index, its swap into a
+  serving ``AsyncServer``, and ``migrate_archive`` of a byte archive;
 * find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
   (one ``search_fetch_words`` launch a batch on DNA, one
   ``search_fetch_bytes`` launch on the protein byte text, one
@@ -113,6 +118,31 @@ Phases, each printing one JSON line:
               ``boff_rows_from_text``: per ``lcp_from_text`` round its w,
               pending rows, adjacency share and device ms, the kernel's
               total beside ``t_rows_and_text_lcp_s`` (the rest is glue);
+6c. fasta / stream — the genome codes written as a FASTA file (4
+              records of 80-column lines, one in lower case, one with
+              ``N`` for ``A``) and read back by ``load_fasta``, equal to
+              the codes; then per dataset ``build_stream`` under a device
+              budget of G x ``state_bytes_per_group(F)`` // 8 (about 16
+              chunks double-buffered; genome with ``overlap`` on and off,
+              protein on), each index's seven fields and ``find_batch``
+              equal to the one-shot ``build_device``; chunks, the plan's
+              modelled peak, seconds beside the one-shot's, bytes copied,
+              copy seconds, the wait and ``overlap_frac``;
+              ``max_memory_allocated`` around each whole build and, for
+              genome, around the prepare stage alone (``partition``, then
+              a peak reset, then ``subtree_prepare_batch`` /
+              ``subtree_prepare_stream``), the stream's below half the
+              one-shot's and ``overlap_frac`` above 0.5, or the run fails;
+   append / append_swap / migrate — 2^16 fresh symbols appended to the
+              genome index (``append_device``): the seven fields,
+              ``string_codes()`` and epoch + 1 equal to ``build_device`` of
+              the longer string, every ``AppendReport`` field beside the
+              rebuild's seconds, ``search_bounds_words`` launched by the
+              terminal-tail scan; the new index swapped into an
+              ``AsyncServer`` (the cache flushed), its answers equal to a
+              fresh server over the rebuild; a 2^22 genome archive saved
+              with ``packing="bytes"`` migrated by ``migrate_archive``
+              (True, then False), equal to a dense build;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg; then a
               profiled warm byte-leg build (``build_profile``,
@@ -166,7 +196,8 @@ Phases, each printing one JSON line:
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, the find-and-fetch calls of each
 find_fetch phase, the fetch 0 and the fetch 32 passes of each
-serving_stack phase, each tree path from build to the end of its serving loop, each leg
+serving_stack phase, each stream build, the append, each tree path
+from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run and the LM check) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
@@ -189,6 +220,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -258,6 +290,13 @@ DESIGNS = {"range_gather_packed": ("row_read", "thread_per_key_word"),
 GATHER_NW = (1, 2, 3, 4, 5, 8, 16, 32, 64)
 GATHER_ROWS = (0, 1, 4099, (1 << 22) + 5)
 BYTE_LEG_LOG2 = 25  # the oracle leg's n: an oracle, not a user path
+STREAM_KERNELS = {"genome": ("range_gather_words", "kmer_histogram"),
+                  "protein": ("range_gather_pack", "lcp_pairs")}
+STREAM_FIELDS = ("ell", "sub_off", "sub_freq", "sub_prefix", "sub_plen",
+                 "win_lo", "win_hi")
+APPEND_LOG2 = 16      # symbols appended to the genome index
+MIGRATE_LOG2 = 22     # the byte archive migrated to dense storage
+FASTA_RECORDS = 4     # records of the genome FASTA file (80-column lines)
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
 SERVE_REQUESTS = 1 << 14
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
@@ -930,11 +969,18 @@ def main() -> int:
     from repro_torch.core import build as tbuild
     from repro_torch.core import packing
     from repro_torch.core.alphabet import ALPHABETS
+    from repro_torch.core import iomodel
     from repro_torch.core.api import BuildReport, EraConfig, EraIndexer
-    from repro_torch.core.prepare import PrepareStats, _pair_lanes, _stable_order
-    from repro_torch.core.query import _pack_query_batch
+    from repro_torch.core.prepare import (
+        PrepareStats,
+        _pair_lanes,
+        _stable_order,
+        subtree_prepare_batch,
+        subtree_prepare_stream,
+    )
+    from repro_torch.core.query import DeviceIndex, _pack_query_batch
     from repro_torch.core.vertical import VerticalStats
-    from repro_torch.data.strings import dataset, synthetic_string
+    from repro_torch.data.strings import dataset, load_fasta, synthetic_string
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.analytics_serve import make_query, serve_engine
@@ -947,6 +993,7 @@ def main() -> int:
         make_hot_workload,
         run_closed_loop,
     )
+    from repro_torch.launch.warmstart import migrate_archive
 
     cuda = torch.device("cuda")
 
@@ -2670,6 +2717,268 @@ def main() -> int:
     profiles["protein"] = build_profile("protein", s, protein,
                                         t_prepare["protein"], after_build)
 
+    # ---- 6c. the out-of-core stream build per dataset (counted) -----------
+    def write_fasta(path: Path, sx: np.ndarray, ax) -> None:
+        """``sx`` as FASTA_RECORDS records of 80-column lines, each under
+        a header and a ``;`` comment; record 1 in lower case, record 2
+        with ``N`` for every first symbol (the reader maps both back)."""
+        chars = np.frombuffer(ax.symbols.encode(), np.uint8)[sx[:-1]]
+        edges = np.linspace(0, chars.size, FASTA_RECORDS + 1).astype(int)
+        with open(path, "wb") as f:
+            for r, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+                rec = chars[lo:hi].copy()
+                if r == 1:
+                    rec = np.frombuffer(rec.tobytes().lower(), np.uint8)
+                if r == 2:
+                    rec[rec == ord(ax.symbols[0])] = ord("N")
+                full = rec.size // 80
+                lines = np.full((full, 81), ord("\n"), np.uint8)
+                lines[:, :80] = rec[:full * 80].reshape(full, 80)
+                f.write(f">record{r} synthetic\n;seed 0\n".encode())
+                f.write(lines.tobytes())
+                if rec.size > full * 80:
+                    f.write(rec[full * 80:].tobytes() + b"\n")
+                f.write(b"\n")
+
+    def prepare_peak(ix, sx: np.ndarray, budget=None) -> dict:
+        """``max_memory_allocated`` around the prepare stage alone: the
+        partition and the device text first, then a reset of the peak,
+        then ``subtree_prepare_batch`` (``budget`` None) or
+        ``subtree_prepare_stream``; bytes resident before it beside."""
+        groups = ix.partition(sx)
+        cap = ix._capacity(groups)
+        text = ix._device_text(sx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if budget is None:
+            state = subtree_prepare_batch(text, groups, cap,
+                                          ix.config.elastic_config())
+            torch.cuda.synchronize()
+        else:
+            state, _ = subtree_prepare_stream(
+                text, groups, cap, ix.config.elastic_config(),
+                device_budget=budget)
+        t = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del state, text, groups
+        return {"max_memory_allocated": peak, "resident_before": resident,
+                "t_prepare_s": t}
+
+    def whole_build(fn) -> tuple:
+        """``fn()``'s result, seconds and ``max_memory_allocated`` around
+        it (the peak reset first), with the launches it made, counted
+        from 0."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        return out, t, {"max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                        "resident_before": resident}, counts_now()
+
+    def stream_phase(name: str, sx: np.ndarray, ax,
+                     overlaps=(True, False), prepare_peaks: bool = True):
+        """``build_stream`` at G x state_bytes_per_group(F) // 8 of device
+        budget (about 16 chunks double-buffered), once per ``overlap``,
+        each index equal to the one-shot ``build_device`` (seven fields
+        and ``find_batch``); the peaks of the whole builds and, with
+        ``prepare_peaks``, of the prepare stages alone, beside the
+        one-shot's taken the same way.  Returns (the one-shot index, the
+        indexer, the stream runs' launch counts)."""
+        ix = EraIndexer(ax, cfg)
+        report = BuildReport(VerticalStats(), PrepareStats())
+        one_shot, t_one, mem_one, _ = whole_build(
+            lambda: ix.build_device(sx, report))
+        one = {"t_total_s": t_one, "t_vertical_s": report.t_vertical,
+               "t_prepare_s": report.t_prepare, **mem_one}
+        groups_n, cap = report.n_groups, report.capacity
+        budget = groups_n * iomodel.state_bytes_per_group(cap) // 8
+        pats = make_workload(sx, np.random.default_rng(41), batch=64,
+                             min_len=8, max_len=24, planted_frac=0.7,
+                             n_symbols=len(ax.symbols))
+        want_found = one_shot.find_batch(pats)
+        runs, counts = {}, []
+        for overlap in overlaps:
+            rep = BuildReport(VerticalStats(), PrepareStats())
+            (dev, srep), t_all, mem, got = whole_build(
+                lambda: ix.build_stream(sx, rep, device_budget=budget,
+                                        overlap=overlap))
+            for field in STREAM_FIELDS:
+                if not torch.equal(getattr(one_shot, field),
+                                   getattr(dev, field)):
+                    raise AssertionError(f"{name} stream (overlap="
+                                         f"{overlap}): {field} differs "
+                                         f"from the one-shot build")
+            for a_, b_ in zip(want_found, dev.find_batch(pats)):
+                if not np.array_equal(a_, b_):
+                    raise AssertionError(f"{name} stream (overlap="
+                                         f"{overlap}): find_batch differs")
+            require_launches(got, STREAM_KERNELS[name],
+                             f"the {name} stream build")
+            plan = iomodel.plan_stream(groups_n, cap, budget_bytes=budget,
+                                       double_buffer=overlap)
+            runs["overlap" if overlap else "sync"] = {
+                "n_chunks": srep.n_chunks,
+                "groups_per_chunk": plan.groups_per_chunk,
+                "plan_peak_bytes": plan.peak_bytes,
+                "t_prepare_s": rep.t_prepare, "t_total_s": t_all,
+                "t_vertical_s": rep.t_vertical,
+                "iterations": srep.iterations,
+                "chunk_iters_max": max(srep.chunk_iters),
+                "bytes_copied": srep.bytes_copied, "copy_s": srep.copy_s,
+                "copy_hidden_s": srep.copy_hidden_s,
+                "copy_wait_s": srep.copy_wait_s,
+                "overlap_frac": srep.overlap_frac, **mem,
+                "equal_to_one_shot": True, "launches": got}
+            counts.append(got)
+            del dev
+        row = {"phase": "stream", "dataset": name, "n": len(sx) - 1,
+               "groups": groups_n, "capacity": cap,
+               "device_budget": budget, "one_shot": one, "runs": runs}
+        if prepare_peaks:
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["prepare_stage"] = {
+                "one_shot": prepare_peak(ix, sx),
+                "stream": prepare_peak(ix, sx, budget)}
+            st = row["prepare_stage"]
+            row["prepare_peak_ratio"] = (
+                st["stream"]["max_memory_allocated"]
+                / st["one_shot"]["max_memory_allocated"])
+        emit(row)
+        if groups_n >= 16:  # a budget that splits: the stream's contract
+            if runs[next(iter(runs))]["n_chunks"] < 8:
+                raise AssertionError(f"{name} stream: fewer than 8 chunks")
+            if "overlap" in runs and runs["overlap"]["overlap_frac"] <= 0.5:
+                raise AssertionError(f"{name} stream: overlap_frac "
+                                     f"{runs['overlap']['overlap_frac']}")
+            if prepare_peaks and row["prepare_peak_ratio"] >= 0.5:
+                raise AssertionError(f"{name} stream: the prepare-stage peak"
+                                     f" is not below half the one-shot's")
+        return one_shot, ix, counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fasta = Path(tmp) / "genome.fa"
+        write_fasta(fasta, s_dna, alpha)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s_fa = load_fasta(str(fasta), alpha)
+        t_read = time.perf_counter() - t0
+        if not np.array_equal(s_fa, s_dna):
+            raise AssertionError("load_fasta does not give back the codes")
+        emit({"phase": "fasta", "dataset": "genome", "n": len(s_fa) - 1,
+              "records": FASTA_RECORDS, "file_bytes": fasta.stat().st_size,
+              "t_write_s": t_write, "t_load_fasta_s": t_read,
+              "equal_to_codes": True})
+    dna_index, dna_ix, stream_counts = stream_phase("genome", s_fa, alpha)
+    del s_fa
+    _, _, prot_stream_counts = stream_phase(
+        "protein", s_prot, protein, overlaps=(True,), prepare_peaks=False)
+    stream_counts += prot_stream_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6d. append to the genome index, swap it into a server (counted) ---
+    arng = np.random.default_rng(3)  # the JAX tests' ``_appended`` rule
+    s_new = np.concatenate([s_dna[:-1], arng.integers(
+        0, alpha.base - 1, size=1 << APPEND_LOG2, dtype=np.uint8),
+        s_dna[-1:]])
+    (dna_index2, arep), t_append, mem_append, append_counts = whole_build(
+        lambda: dna_ix.append_device(dna_index, s_new))
+    full_report = BuildReport(VerticalStats(), PrepareStats())
+    full, t_full, mem_full, _ = whole_build(
+        lambda: dna_ix.build_device(s_new, full_report))
+    for field in STREAM_FIELDS:
+        if not torch.equal(getattr(full, field), getattr(dna_index2, field)):
+            raise AssertionError(f"append: {field} differs from a rebuild")
+    if not np.array_equal(full.string_codes(), dna_index2.string_codes()):
+        raise AssertionError("append: string_codes differs from a rebuild")
+    if dna_index2.epoch != dna_index.epoch + 1:
+        raise AssertionError("append: the epoch did not advance by one")
+    require_launches(append_counts, ("search_bounds_words",
+                                     "range_gather_words"), "the append")
+    emit({"phase": "append", "dataset": "genome", "n_old": len(s_dna) - 1,
+          "appended": 1 << APPEND_LOG2,
+          **{k: getattr(arep, k) for k in (
+              "n_old", "n_new", "b_star", "n_prefixes", "n_affected",
+              "leaves_rebuilt", "leaves_reused", "partition_fallback",
+              "t_scan", "t_partition", "t_prepare", "t_merge")},
+          "t_total_report_s": arep.t_total, "reuse_frac": arep.reuse_frac,
+          "t_append_s": t_append, **{f"append_{k}": v
+                                     for k, v in mem_append.items()},
+          "rebuild": {"t_total_s": t_full,
+                      "t_vertical_s": full_report.t_vertical,
+                      "t_prepare_s": full_report.t_prepare, **mem_full},
+          "epoch": dna_index2.epoch, "equal_to_rebuild": True,
+          "launches": append_counts})
+    serve_cfg = ServeConfig(pipeline=True, cache_size=4096, max_batch=256)
+    swap_pats = make_workload(s_new, np.random.default_rng(43), batch=256,
+                              min_len=12, max_len=24, planted_frac=0.7,
+                              n_symbols=len(alpha.symbols))
+    swap_pats += [s_new[len(s_new) - 1 - k:len(s_new) - 1]
+                  for k in (12, 16, 20)]  # the appended tail
+    srv = AsyncServer(dna_index, serve_cfg)
+    srv.serve(swap_pats)
+    warm = len(srv.cache)
+    info = srv.update_index(dna_index2)
+    if not (info["flushed"] and info["epoch"] == dna_index.epoch + 1
+            and len(srv.cache) == 0 and warm > 0):
+        raise AssertionError(f"update_index did not flush: {info}")
+    got = srv.serve(swap_pats)
+    want = AsyncServer(full, serve_cfg).serve(swap_pats)
+    for (a_, _), (b_, _) in zip(got, want):
+        if not np.array_equal(a_, b_):
+            raise AssertionError("the swapped server disagrees with a fresh "
+                                 "server over the rebuild")
+    emit({"phase": "append_swap", "dataset": "genome", **info,
+          "cache_before_swap": warm, "requests": len(swap_pats),
+          "equal_to_fresh_server": True})
+    del srv, dna_index, dna_index2, full, got, want, s_new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a byte-layout genome archive migrated to dense storage in place
+    s_mig, _ = dataset("genome", 1 << min(MIGRATE_LOG2, args.n_log2), seed=1)
+    ix_mig = EraIndexer(alpha, cfg)
+    dev_b = ix_mig.build_device(s_mig, packing="bytes")
+    dense = ix_mig.build_device(s_mig, packing="dense")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "genome_bytes")
+        dev_b.save(path)
+        t0 = time.perf_counter()
+        first = migrate_archive(path)
+        t_mig = time.perf_counter() - t0
+        second = migrate_archive(path)
+        mig = DeviceIndex.load(path)
+    if not (first is True and second is False and mig.packed):
+        raise AssertionError(f"migrate_archive returned {first}, {second}")
+    if not torch.equal(mig.s_text.words, dense.s_text.words):
+        raise AssertionError("the migrated words differ from a dense build")
+    for field in STREAM_FIELDS:
+        if not torch.equal(getattr(mig, field), getattr(dense, field)):
+            raise AssertionError(f"migrated archive: {field} differs")
+    mig_pats = make_workload(s_mig, np.random.default_rng(47), batch=64,
+                             min_len=4, max_len=24, planted_frac=0.7,
+                             n_symbols=len(alpha.symbols))
+    for a_, b_, c_ in zip(mig.find_batch(mig_pats),
+                          dense.find_batch(mig_pats),
+                          dev_b.find_batch(mig_pats)):
+        if not (np.array_equal(a_, b_) and np.array_equal(a_, c_)):
+            raise AssertionError("the migrated archive answers differently")
+    emit({"phase": "migrate", "dataset": "genome", "n": len(s_mig) - 1,
+          "migrated": first, "second_call": second, "t_migrate_s": t_mig,
+          "equal_to_dense_build": True})
+    del dev_b, dense, mig, s_mig
+    torch.cuda.empty_cache()
+
     # ---- 6. the tree + analytics path per dataset (counted) ----------------
     def tree_path(name: str, sx: np.ndarray, ax) -> dict:
         """EraIndexer.build (node_lcp="words") -> SuffixTreeIndex ->
@@ -3094,7 +3403,8 @@ def main() -> int:
     paths = [dna_counts, term_counts, ff_counts, tff_counts,
              *dna_serve_counts.values(), prot_counts, prot_ff_counts,
              *prot_serve_counts.values(), tree["genome"]["counts"],
-             tree["protein"]["counts"], bl["counts"], lm_main]
+             tree["protein"]["counts"], bl["counts"], lm_main,
+             *stream_counts, append_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -13,6 +13,11 @@ string) → batched elastic-range SubTreePrepare on the (G, F) state:
   ``analytics()`` is the :class:`repro_torch.core.analytics.AnalyticsEngine`
   (:meth:`EraIndexer.build_analytics` does both).
 
+:meth:`EraIndexer.build_stream` is the out-of-core build (the groups in
+device-budget chunks, host state double-buffered onto the card), and
+:meth:`EraIndexer.append_device` extends a built index to a longer
+string, rebuilding only the sub-trees the appended symbols touch.
+
 ``EraConfig.packing`` picks the text as in the JAX package: ``auto``
 packs alphabets below 8 bits (DNA, protein classes) dense and keeps
 protein, english and byte strings one byte per symbol; ``bytes`` keeps any
@@ -36,11 +41,18 @@ from repro_torch.core.alphabet import Alphabet
 from repro_torch.core.prepare import (
     ElasticConfig,
     PrepareStats,
+    StreamReport,
     segments_of,
     subtree_prepare_batch,
+    subtree_prepare_stream,
 )
 from repro_torch.core.suffix_tree import SubTree, SuffixTreeIndex
-from repro_torch.core.vertical import VerticalStats, vertical_partition_grouped
+from repro_torch.core.vertical import (
+    SubTreePrefix,
+    VerticalStats,
+    group_prefixes,
+    vertical_partition_grouped,
+)
 from repro_torch.kernels import ops as kops
 
 NODE_BYTES = 16  # sizeof(tree_node): parent + depth + witness + pad (SoA)
@@ -105,6 +117,63 @@ class BuildReport:
     @property
     def t_total(self) -> float:
         return self.t_vertical + self.t_prepare + self.t_build
+
+
+@dataclasses.dataclass
+class AppendReport:
+    """Accounting for one incremental append (build only the affected
+    sub-trees, reuse every untouched leaf segment)."""
+
+    n_old: int = 0             # |S_old| real symbols
+    n_new: int = 0             # |S_new| real symbols
+    b_star: int = 0            # start of the terminal-affected suffix tail
+    n_prefixes: int = 0        # sub-trees in the merged index
+    n_affected: int = 0        # sub-trees rebuilt
+    leaves_rebuilt: int = 0
+    leaves_reused: int = 0
+    t_scan: float = 0.0        # terminal-affected boundary scan (queries)
+    partition_fallback: bool = False  # delta changed the split structure
+    t_partition: float = 0.0
+    t_prepare: float = 0.0     # elastic-range loop over affected groups
+    t_merge: float = 0.0
+
+    @property
+    def t_total(self) -> float:
+        return self.t_scan + self.t_partition + self.t_prepare + self.t_merge
+
+    @property
+    def reuse_frac(self) -> float:
+        total = self.leaves_rebuilt + self.leaves_reused
+        return self.leaves_reused / total if total else 0.0
+
+
+def _terminal_affected_start(count_fn, s_new: np.ndarray, n_old_real: int,
+                             max_plen: int, batch: int = 64) -> int:
+    """First position ``b*`` of the terminal-affected suffix tail.
+
+    Replacing the old terminal with appended symbols can only reorder a
+    sub-tree if some pair of its suffixes used to diverge AT the old
+    terminal — i.e. the later suffix's whole tail ``S_old[b:]`` occurs at
+    least twice in ``S_old``.  That predicate is suffix-closed, so the
+    affected positions form one contiguous range ``[b*, n_old_real)``
+    found by a backward scan of count queries against the OLD index, a
+    batch of ``batch`` tails a query.  Tails longer than the index's
+    ``max_pattern_len`` are checked on their truncated prefix: count < 2
+    there proves the full tail unique, count >= 2 is treated as affected
+    (conservative, never unsound).
+    """
+    cap = max(4, max_plen // 4 * 4)  # stays under pad_batch's width check
+    b = n_old_real - 1
+    while b >= 0:
+        bs = list(range(b, max(b - batch, -1), -1))
+        pats = [np.asarray(s_new[bb:min(n_old_real, bb + cap)],
+                           np.int32) for bb in bs]
+        counts = count_fn(pats)
+        for bb, c in zip(bs, counts):
+            if int(c) < 2:
+                return bb + 1
+        b -= batch
+    return 0
 
 
 def _sorted_segments(groups):
@@ -376,6 +445,334 @@ class EraIndexer:
             device=self.device,
             **device_kwargs,
         )
+
+
+    def build_stream(self, s: np.ndarray, report: BuildReport | None = None,
+                     *, device_budget: int | None = None,
+                     overlap: bool = True,
+                     stream_report: StreamReport | None = None,
+                     **device_kwargs):
+        """String → :class:`repro_torch.core.query.DeviceIndex` through the
+        out-of-core streaming pipeline
+        (:func:`repro_torch.core.prepare.subtree_prepare_stream`): the
+        groups run in chunks whose double-buffered state fits
+        ``device_budget`` bytes, the host→device copy of chunk k+1 behind
+        the elastic loop of chunk k (``overlap``).  The index equals
+        :meth:`build_device`'s.  Returns ``(index, stream_report)``."""
+        from repro_torch.core.query import DeviceIndex  # local: import cycle
+
+        report = report if report is not None else BuildReport(
+            VerticalStats(), PrepareStats())
+        device_kwargs.setdefault("packing", self.config.packing)
+        groups = self.partition(s, report)
+        if not groups:
+            raise ValueError("cannot flatten an empty index")
+        capacity = self._capacity(groups)
+        report.capacity = capacity
+        s_text = self._device_text(s)
+        t0 = time.perf_counter()
+        states, srep = subtree_prepare_stream(
+            s_text, groups, capacity, self.config.elastic_config(),
+            device_budget=device_budget, overlap=overlap,
+            stats=report.prepare, report=stream_report,
+            sort_fuse=self.config.sort_fuse,
+            compact=self.config.compaction)
+        report.t_prepare = time.perf_counter() - t0  # the drain synced
+        del s_text
+        prefixes, freqs, ell = _flatten_state(groups, states)
+        del states
+        dev = DeviceIndex.from_prepare(
+            alphabet=self.alphabet, s=np.asarray(s), prefixes=prefixes,
+            freqs=freqs, ell=ell, device=self.device, **device_kwargs)
+        return dev, srep
+
+    # ---- incremental append ------------------------------------------------
+
+    def _incremental_partition(self, s_new: np.ndarray, old_prefixes,
+                               old_freqs, old_offs, old_ell,
+                               n_old_real: int):
+        """``s_new``'s vertical-partition prefix table from the OLD flat
+        tables, rescanning only the dirty window tail
+        (``repro.core.api.EraIndexer._incremental_partition``).
+
+        A window position's owning prefix depends on at most
+        ``max_prefix_len`` symbols, so only positions in
+        ``[n_old_real - max_prefix_len + 1, n_new_real]`` can change
+        ownership or create occurrences.  Each dirty position walks the
+        old prefix trie under S_new: landing on a member prefix bumps its
+        count; falling off the trie creates a new survivor.  Old
+        occurrence lists come from the flat index (a sub-tree's ``ell``
+        segment IS its position set).  A member whose updated count
+        overflows ``f_max`` splits locally on the next symbol.  Returns
+        ``(table, dirty_flags)`` — the :class:`SubTreePrefix` list and
+        whether each sub-tree's leaf SET changed — or ``(None, None)``
+        when an old expanded node drops back to ``f_max`` or below (the
+        full scan would re-merge it), the one delta the local view cannot
+        decide.
+        """
+        base = self.alphabet.base
+        terminal = base - 1
+        f_max = self.config.f_max
+        n_new_real = len(s_new) - 1
+        old_syms = [tuple(int(c) for c in p) for p in old_prefixes]
+        max_plen = max(len(p) for p in old_syms)
+        dirty_lo = max(0, n_old_real - max_plen + 1)
+
+        members = set(old_syms)
+        interior: set[tuple] = set()
+        for p in old_syms:
+            for t in range(1, len(p)):
+                interior.add(p[:t])
+
+        pad = np.full(max_plen + 2, terminal, np.uint8)
+        sp = np.concatenate([np.asarray(s_new, np.uint8), pad])
+        owned: dict[tuple, list[int]] = {}
+        new_members: set[tuple] = set()
+        for b in range(dirty_lo, n_new_real + 1):
+            p: tuple = ()
+            for t in range(max_plen + 1):
+                p = p + (int(sp[b + t]),)
+                if p in members or p in new_members:
+                    owned.setdefault(p, []).append(b)
+                    break
+                if p in interior:
+                    continue
+                # first node off the old trie: the zero-frequency branch
+                # the full scan would now keep as a fresh survivor
+                new_members.add(p)
+                owned.setdefault(p, []).append(b)
+                break
+            else:  # deeper than every old prefix: structure changed
+                return None, None
+
+        s_arr = np.asarray(s_new, np.uint8)
+
+        def _next_sym(pos: np.ndarray, t: int) -> np.ndarray:
+            """Symbol t past each position, the terminal beyond the end."""
+            idx = pos + t
+            sym = np.full(pos.size, terminal, np.int64)
+            inside = idx < s_arr.size
+            sym[inside] = s_arr[idx[inside]]
+            return sym
+
+        table: list[SubTreePrefix] = []
+        dirty_flags: list[bool] = []
+        interior_freq: dict[tuple, int] = {}
+        pending: list[tuple[tuple, np.ndarray]] = []  # overflows to split
+
+        def _account(p: tuple, freq: int) -> None:
+            for t in range(1, len(p)):
+                q = p[:t]
+                interior_freq[q] = interior_freq.get(q, 0) + freq
+
+        for p, f, o in zip(old_syms, old_freqs, old_offs):
+            seg = old_ell[int(o):int(o) + int(f)]
+            lost = int((seg >= dirty_lo).sum())
+            gained = owned.get(p, ())
+            freq = int(f) - lost + len(gained)
+            _account(p, freq)
+            if freq == 0:
+                continue                   # every occurrence moved away
+            if lost or gained:
+                keep = seg[seg < dirty_lo].astype(np.int64)
+                pos = np.sort(np.concatenate(
+                    [keep, np.asarray(gained, np.int64)]))
+                if freq > f_max:
+                    pending.append((p, pos))
+                    continue
+                table.append(SubTreePrefix(symbols=p, freq=freq,
+                                           positions=pos))
+                dirty_flags.append(True)
+            else:
+                table.append(SubTreePrefix(symbols=p, freq=freq,
+                                           positions=seg.astype(np.int64)))
+                dirty_flags.append(False)
+        for p in sorted(new_members):
+            pos = np.asarray(owned[p], np.int64)
+            _account(p, int(pos.size))
+            if pos.size > f_max:
+                pending.append((p, pos))
+                continue
+            table.append(SubTreePrefix(symbols=p, freq=int(pos.size),
+                                       positions=pos))
+            dirty_flags.append(True)
+        # every node the old scan expanded must still overflow, else the
+        # full scan would KEEP it instead of its children
+        if any(f <= f_max for f in interior_freq.values()):
+            return None, None
+        # local refinement of overflowing sub-trees (vertical phase 2 on
+        # the merged position lists; masks keep positions ascending)
+        while pending:
+            p, pos = pending.pop()
+            if pos.size == 0:
+                continue
+            if pos.size <= f_max:
+                table.append(SubTreePrefix(symbols=p, freq=int(pos.size),
+                                           positions=pos))
+                dirty_flags.append(True)
+                continue
+            nxt = _next_sym(pos, len(p))
+            for c in range(base):
+                child = pos[nxt == c]
+                if child.size:
+                    pending.append((p + (c,), child))
+        return table, dirty_flags
+
+    def _append_merge(self, s_new: np.ndarray, old_prefixes, old_freqs,
+                      old_offs, old_ell, count_fn, max_plen: int,
+                      arep: AppendReport):
+        """The append engine: rebuild only the affected sub-trees of
+        ``s_new`` and reuse every other leaf segment of the old flat
+        layout (``repro.core.api.EraIndexer._append_merge``).
+
+        A sub-tree of the new partition is affected iff its prefix is new
+        or its occurrence count changed, its prefix holds the terminal, or
+        it owns a suffix in the terminal-affected tail ``[b*,
+        n_old_real)`` (:func:`_terminal_affected_start`).  Every other
+        sub-tree keeps its leaf set and its order, so its old ``ell``
+        segment is reused verbatim and the merged index equals a full
+        rebuild.  The affected groups run :func:`subtree_prepare_batch`
+        on the indexer's device.  Returns ``(prefixes, freqs, ell)``.
+        """
+        terminal = self.alphabet.base - 1
+        n_old_real = int(np.asarray(old_freqs, np.int64).sum()) - 1
+        n_new_real = len(s_new) - 1
+        if int(s_new[-1]) != terminal:
+            raise ValueError("appended string must end with the terminal")
+        if n_new_real <= n_old_real:
+            raise ValueError(
+                f"append needs new symbols: |S_new|={n_new_real} real "
+                f"symbols vs |S_old|={n_old_real}")
+        arep.n_old = n_old_real
+        arep.n_new = n_new_real
+
+        t0 = time.perf_counter()
+        b_star = _terminal_affected_start(count_fn, s_new, n_old_real,
+                                          max_plen)
+        arep.b_star = b_star
+        arep.t_scan = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        table, dirty_flags = self._incremental_partition(
+            s_new, old_prefixes, old_freqs, old_offs, old_ell, n_old_real)
+        if table is None:  # split structure changed: full scan (rare)
+            arep.partition_fallback = True
+            groups_new = self.partition(s_new)
+            table = [p for g in groups_new for p in g.prefixes]
+            for p in table:  # the partition leaves them on the device
+                p.positions = p.positions.cpu().numpy()
+            dirty_flags = None
+        arep.t_partition = time.perf_counter() - t0
+
+        old_map = {p: (int(f), int(o))
+                   for p, f, o in zip(old_prefixes, old_freqs, old_offs)}
+        affected = []
+        for i, p in enumerate(table):
+            old = old_map.get(p.symbols)
+            in_tail = lambda: bool(((p.positions >= b_star)
+                                    & (p.positions < n_old_real)).any())
+            if dirty_flags is not None:
+                # incremental table: leaf-set changes are already
+                # flagged; an unchanged set still rebuilds when any
+                # suffix lies in the terminal-comparison tail
+                changed = dirty_flags[i]
+                if not changed and in_tail():
+                    p.positions = np.sort(p.positions)
+                    changed = True
+            else:
+                changed = (old is None or old[0] != p.freq
+                           or terminal in p.symbols or in_tail())
+            if changed:
+                affected.append(p)
+        arep.n_prefixes = len(table)
+        arep.n_affected = len(affected)
+
+        rebuilt: dict[tuple, np.ndarray] = {}
+        if affected:
+            t0 = time.perf_counter()
+            re_groups = group_prefixes(affected, self.config.f_max)
+            capacity = min(self.config.f_max,
+                           max(g.total_freq for g in re_groups))
+            states = subtree_prepare_batch(
+                self._device_text(s_new), re_groups, capacity,
+                self.config.elastic_config(),
+                sort_fuse=self.config.sort_fuse,
+                compact=self.config.compaction)
+            L_host = states.L.cpu().numpy()
+            del states
+            for g_i, g in enumerate(re_groups):
+                for (off, freq), p in zip(segments_of(g), g.prefixes):
+                    rebuilt[p.symbols] = L_host[g_i, off:off + freq]
+            arep.t_prepare = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        order = sorted(range(len(table)), key=lambda i: table[i].symbols)
+        segs, pref_out, freq_out = [], [], []
+        reused = 0
+        for i in order:
+            p = table[i]
+            seg = rebuilt.get(p.symbols)
+            if seg is None:
+                f, o = old_map[p.symbols]
+                seg = old_ell[o:o + f]
+                reused += f
+            segs.append(np.asarray(seg, np.int32))
+            pref_out.append(p.symbols)
+            freq_out.append(p.freq)
+        ell = np.concatenate(segs).astype(np.int32)
+        arep.leaves_reused = reused
+        arep.leaves_rebuilt = int(ell.size) - reused
+        arep.t_merge = time.perf_counter() - t0
+        return pref_out, np.asarray(freq_out, np.int32), ell
+
+    @staticmethod
+    def _check_append_prefix(old_codes: np.ndarray, s_new: np.ndarray,
+                             n_old_real: int) -> None:
+        if not np.array_equal(np.asarray(s_new[:n_old_real], np.uint8),
+                              np.asarray(old_codes[:n_old_real], np.uint8)):
+            raise ValueError(
+                "append requires S_new to extend the indexed string: the "
+                f"first {n_old_real} symbols differ")
+
+    def append_device(self, dev, s_new: np.ndarray,
+                      report: AppendReport | None = None, **device_kwargs):
+        """Extend a :class:`repro_torch.core.query.DeviceIndex` over
+        ``S_old`` to index ``s_new`` (S_old's real symbols + appended
+        symbols + terminal) without a full rebuild: only the affected
+        sub-trees run the elastic loop (:meth:`_append_merge`), the
+        terminal-tail scan counts through ``dev.find_batch_ranges`` (one
+        search launch a batch), and every other leaf segment is copied
+        from the old index.  The result equals ``build_device(s_new)``
+        with the same flatten kwargs and carries ``epoch = dev.epoch + 1``
+        so serving caches flush.  Returns ``(index, append_report)``."""
+        from repro_torch.core.query import DeviceIndex  # local: import cycle
+
+        s_new = np.asarray(s_new)
+        arep = report if report is not None else AppendReport()
+        plen = dev.sub_plen.cpu().numpy()
+        pref = dev.sub_prefix.cpu().numpy()
+        old_prefixes = [tuple(int(c) for c in pref[t, :plen[t]])
+                        for t in range(len(plen))]
+        old_freqs = dev.sub_freq.cpu().numpy()
+        old_offs = dev.sub_off.cpu().numpy()
+        self._check_append_prefix(dev.string_codes(), s_new,
+                                  int(old_freqs.sum()) - 1)
+
+        def count_fn(pats):
+            padded, lengths, route = dev.pad_batch(pats)
+            _, cnt = dev.find_batch_ranges(padded, lengths, route)
+            return cnt.cpu().numpy()
+
+        prefixes, freqs, ell = self._append_merge(
+            s_new, old_prefixes, old_freqs, old_offs, dev.ell_host,
+            count_fn, dev.max_pattern_len, arep)
+        device_kwargs.setdefault("packing", self.config.packing)
+        device_kwargs.setdefault("max_pattern_len", dev.max_pattern_len)
+        device_kwargs.setdefault("epoch", dev.epoch + 1)
+        device_kwargs.setdefault("device", self.device)
+        return DeviceIndex.from_prepare(
+            alphabet=self.alphabet, s=s_new, prefixes=prefixes,
+            freqs=freqs, ell=ell, **device_kwargs), arep
 
 
 class _HostState:

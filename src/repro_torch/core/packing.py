@@ -203,6 +203,65 @@ def pack_text(codes: np.ndarray, alphabet, *, extra: int = 8,
                                  device)
 
 
+def pack_text_stream(chunks, alphabet, *, extra: int = 8,
+                     device="cuda") -> PackedText:
+    """Dense-pack a terminated code string delivered in CHUNKS (the JAX
+    ``pack_text_stream``).
+
+    ``chunks`` is any iterable of uint8 code arrays whose concatenation is
+    a terminated code string (the :func:`pack_text` input contract), of
+    any sizes, consumed one at a time: the host holds one chunk plus a
+    carry of fewer than ``syms_per_word`` symbols.  Equal to
+    :func:`pack_text` on the concatenation: symbols are committed to
+    words only on ``syms_per_word`` boundaries, the last symbol of the
+    stream is held back one step (it must be the terminal, which is
+    virtual and never stored), and the zero tail follows the same
+    ``n_real + extra`` formula.  The words move to ``device`` once.
+    """
+    bits = alphabet.dense_bits
+    spw = 32 // bits
+    shifts = (32 - bits * (np.arange(spw, dtype=np.uint32) + 1))
+    word_parts: list[np.ndarray] = []
+    carry = np.zeros(0, np.uint32)   # committed symbols short of a word
+    pending = None                   # last symbol seen; terminal candidate
+    n_real = 0
+
+    def commit(sym: np.ndarray) -> None:
+        nonlocal carry
+        buf = np.concatenate([carry, sym]) if carry.size else sym
+        n_full = buf.size // spw
+        if n_full:
+            head = buf[:n_full * spw].reshape(n_full, spw)
+            word_parts.append(
+                (head << shifts[None, :]).sum(axis=1, dtype=np.uint32))
+        carry = buf[n_full * spw:]
+
+    for chunk in chunks:
+        c = np.asarray(chunk, np.uint8).astype(np.uint32)
+        if c.size == 0:
+            continue
+        if pending is not None:
+            c = np.concatenate([np.array([pending], np.uint32), c])
+        pending = int(c[-1])
+        real = c[:-1]
+        if real.size and int(real.max()) >= (1 << bits):
+            raise ValueError(
+                f"codes exceed {bits}-bit dense range for alphabet "
+                f"{alphabet.name!r} (max code {int(real.max())})")
+        n_real += real.size
+        commit(real)
+    if pending is None or pending != alphabet.terminal_code:
+        raise ValueError("pack_text_stream needs a terminated code string")
+
+    n_words = -(-(n_real + extra) // spw) + 1  # same formula as pack_text
+    commit(np.zeros(n_words * spw - n_real, np.uint32))
+    assert carry.size == 0
+    words = (np.concatenate(word_parts) if word_parts
+             else np.zeros(0, np.uint32))
+    return PackedText.from_numpy(words, n_real, bits, alphabet.terminal_code,
+                                 device)
+
+
 def unpack_text(pt: PackedText, n: int | None = None) -> np.ndarray:
     """Decode dense storage back to uint8 codes (terminal included)."""
     n_real = pt.n_real

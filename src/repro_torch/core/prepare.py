@@ -38,17 +38,24 @@ torch has no ``lexsort``):
 
 The host loop reads back the per-group active counts once per iteration,
 as the reference does; nothing else syncs.
+
+:func:`subtree_prepare_stream` is the out-of-core engine: the same loop
+over contiguous chunks of groups sized to a device budget
+(:func:`repro_torch.core.iomodel.plan_stream`), each chunk's state built
+on the host and copied to the card on a side stream while the previous
+chunk iterates; the result comes back to the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import iomodel, packing
 from repro_torch.core.packing import MASK32, PackedText, to_u64
 from repro_torch.core.vertical import VirtualTree
 from repro_torch.kernels import ops as kops
@@ -133,6 +140,41 @@ def init_batch(groups: list[VirtualTree], capacity: int,
         b_c1=torch.zeros(shape, dtype=torch.int32, device=dev),
         b_c2=torch.zeros(shape, dtype=torch.int32, device=dev),
     )
+
+
+def _host_init_batch(groups: list[VirtualTree], capacity: int,
+                     pin: bool = False) -> PrepareState:
+    """The stacked (G, F) state built on the host — the unit the streaming
+    pipeline stages for its host→device copies; ``pin`` builds it in
+    page-locked memory, so those copies run asynchronously.  The fields
+    are those of :func:`init_batch`; each prefix's segment is one slice
+    write (a host copy), as in the JAX package's ``_init_arrays``."""
+    if not groups:
+        raise ValueError("init_batch needs at least one group")
+    shape = (len(groups), capacity)
+    kw = dict(dtype=torch.int32, pin_memory=pin)
+    state = PrepareState(L=torch.full(shape, -1, **kw),
+                         start=torch.zeros(shape, **kw),
+                         area=torch.full(shape, -1, **kw),
+                         b_off=torch.full(shape, -1, **kw),
+                         b_c1=torch.zeros(shape, **kw),
+                         b_c2=torch.zeros(shape, **kw))
+    L, start, area = (t.numpy() for t in state[:3])
+    for g_i, group in enumerate(groups):
+        if group.total_freq > capacity:
+            raise ValueError(f"group frequency {group.total_freq} exceeds "
+                             f"capacity {capacity}")
+        off = 0
+        for p in group.prefixes:
+            f = p.freq
+            pos = p.positions
+            L[g_i, off:off + f] = (pos.cpu().numpy()
+                                   if isinstance(pos, torch.Tensor) else pos)
+            start[g_i, off:off + f] = p.length
+            if f > 1:
+                area[g_i, off:off + f] = off
+            off += f
+    return state
 
 
 def _signed_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -467,6 +509,197 @@ def subtree_prepare_batch(
         n_active = n_active_dev.cpu().numpy()  # the one sync per iteration
         it += 1
     return states
+
+
+@dataclasses.dataclass
+class StreamReport:
+    """Accounting for one out-of-core streaming build (paper §4.1 scaled
+    to device memory): how many chunks the planner cut, how much
+    host→device traffic the pipeline moved, and how much of it was hidden
+    behind the elastic-range loop of the previous chunk."""
+
+    n_chunks: int = 0
+    overlap: bool = True
+    groups: int = 0
+    iterations: int = 0            # summed over chunk loops
+    bytes_copied: int = 0          # host->device state traffic
+    copy_s: float = 0.0            # estimated total copy wall time
+    copy_hidden_s: float = 0.0     # portion overlapped with compute
+    copy_wait_s: float = 0.0       # blocking remainder actually observed
+    chunk_iters: list = dataclasses.field(default_factory=list)
+
+    @property
+    def overlap_frac(self) -> float:
+        """Fraction of host→device transfer hidden behind compute."""
+        return self.copy_hidden_s / self.copy_s if self.copy_s > 0 else 0.0
+
+
+def _state_nbytes(state: PrepareState) -> int:
+    return sum(t.numel() * t.element_size() for t in state)
+
+
+def subtree_prepare_stream(
+    text,
+    groups: list[VirtualTree],
+    capacity: int,
+    cfg: ElasticConfig = ElasticConfig(),
+    *,
+    plan: iomodel.StreamPlan | None = None,
+    device_budget: int | None = None,
+    overlap: bool = True,
+    stats: PrepareStats | None = None,
+    report: StreamReport | None = None,
+    max_iters: int = 10_000,
+    sort_fuse: bool | None = None,
+    compact: bool | None = None,
+) -> tuple[PrepareState, StreamReport]:
+    """Out-of-core SubTreePrepare: pipeline group chunks through a device
+    memory budget with double-buffered host→device copies, on the device
+    that holds ``text`` (``repro.core.prepare.subtree_prepare_stream``).
+
+    The planner (:func:`repro_torch.core.iomodel.plan_stream`, or an
+    explicit ``plan``) slices the groups into contiguous chunks whose
+    double-buffered (G_chunk, F) state fits ``device_budget``.  Each chunk
+    runs the loop of :func:`subtree_prepare_batch` on its own rows, the
+    elastic range keyed to the chunk's busiest group.  A chunk's state is
+    built on the host (page-locked on a card); chunk 0 is copied
+    synchronously, which calibrates the copy rate, and with ``overlap``
+    the copy of chunk k+1 starts on a side CUDA stream right after
+    chunk k dispatches its first step, so it transfers behind the chunk's
+    loop.  The compute stream waits on the side stream before chunk k+1
+    starts, and the staged tensors are recorded on the compute stream so
+    the caching allocator does not hand their memory out early.  The loop
+    reads ``n_active`` back once per iteration and syncs nothing else.
+    ``overlap=False`` copies each chunk synchronously.  On the CPU the
+    same loop runs without streams or pinning.
+
+    Range choice never changes results (Fig. 9b), so the arrays equal the
+    one-shot build's; only ``start`` may differ when the per-chunk range
+    schedules diverge from the global one.  Returns ``(state, report)``:
+    the full (G, F) :class:`PrepareState` as CPU tensors in the original
+    group order, and the copy-overlap accounting (``copy_s`` estimates
+    each prefetched copy from the calibrated rate, as the JAX package
+    does; ``copy_wait_s`` is the blocking wait observed).
+    """
+    if not groups:
+        raise ValueError("subtree_prepare_stream needs at least one group")
+    if plan is None:
+        plan = iomodel.plan_stream(len(groups), capacity,
+                                   budget_bytes=device_budget,
+                                   double_buffer=overlap)
+    rep = report if report is not None else StreamReport()
+    rep.n_chunks = plan.n_chunks
+    rep.overlap = overlap
+    rep.groups = len(groups)
+
+    word_keys = kops._use_word_compare()
+    if sort_fuse is None:
+        sort_fuse = kops._use_sort_fuse()
+    if compact is None:
+        compact = kops._use_compaction()
+    dev = text.device
+    on_card = dev.type == "cuda"
+    compute = torch.cuda.current_stream(dev) if on_card else None
+    side = torch.cuda.Stream(dev) if on_card and overlap else None
+    g_total = len(groups)
+    out = PrepareState(*(torch.empty((g_total, capacity), dtype=torch.int32)
+                         for _ in range(6)))
+    chunks = list(plan.chunks)
+    copy_rate = None  # bytes/s, calibrated by the chunk-0 synchronous copy
+
+    def host_state(lo: int, hi: int) -> PrepareState:
+        return _host_init_batch(groups[lo:hi], capacity, pin=on_card)
+
+    def copy_sync(host: PrepareState) -> PrepareState:
+        nonlocal copy_rate
+        nb = _state_nbytes(host)
+        t = time.perf_counter()
+        state = PrepareState(*(h.to(dev, non_blocking=True) for h in host))
+        if on_card:
+            compute.synchronize()
+        dt = max(time.perf_counter() - t, 1e-9)
+        rep.copy_s += dt
+        rep.bytes_copied += nb
+        if copy_rate is None:
+            copy_rate = nb / dt
+        return state
+
+    def copy_async(host: PrepareState):
+        """Start the standby copy; returns (staged state, its done event)."""
+        if not on_card:
+            return host, None
+        with torch.cuda.stream(side):
+            staged = PrepareState(*(h.to(dev, non_blocking=True)
+                                    for h in host))
+            done = torch.cuda.Event()
+            done.record(side)
+        return staged, done
+
+    lo0, hi0 = chunks[0]
+    states = copy_sync(host_state(lo0, hi0))
+    for ci, (lo, hi) in enumerate(chunks):
+        nxt = chunks[ci + 1] if ci + 1 < len(chunks) else None
+        host_next = host_state(*nxt) if nxt is not None else None
+        standby = None
+        n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
+        it = 0
+        while int(n_active.max()) > 0:
+            w = elastic_range(cfg, int(n_active.max()))
+            if it >= max_iters:
+                raise RuntimeError(
+                    f"SubTreePrepare (stream chunk {ci}, groups [{lo}, {hi}))"
+                    f" failed to converge after {it} iterations (w={w})")
+            f_prime = (compaction_width(int(n_active.max()), capacity)
+                       if compact else None)
+            if f_prime is not None:
+                states, n_active_dev = compact_step_batch(
+                    text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse,
+                    word_keys=word_keys)
+            else:
+                states, n_active_dev = prepare_step(text, states, w=w,
+                                                    sort_fuse=sort_fuse,
+                                                    word_keys=word_keys)
+            if overlap and standby is None and host_next is not None:
+                # the step above is queued on the compute stream: the
+                # standby copy transfers behind the chunk's loop
+                standby = copy_async(host_next)
+            if stats is not None:
+                total_active = int(n_active.sum())
+                stats.iterations += 1
+                stats.ranges.append(w)
+                stats.active_history.append(total_active)
+                stats.symbols_fetched += total_active * w
+            n_active = n_active_dev.cpu().numpy()  # the one sync per step
+            it += 1
+        rep.iterations += it
+        rep.chunk_iters.append(it)
+        # drain this chunk to its host slice (waits on the chunk's compute
+        # stream, not on the standby copy)
+        for o, d in zip(out, states):
+            o[lo:hi].copy_(d)
+        if host_next is None:
+            continue
+        if standby is None:
+            # synchronous mode, or a chunk that converged at init (no
+            # step to hide the copy behind)
+            states = copy_sync(host_next)
+            continue
+        nb = _state_nbytes(host_next)
+        staged, done = standby
+        t_wait = time.perf_counter()
+        if on_card:
+            done.synchronize()
+            compute.wait_stream(side)
+            for t in staged:
+                t.record_stream(compute)
+        wait = time.perf_counter() - t_wait
+        states = staged
+        est = max(nb / copy_rate, wait)  # >= the observed blocking time
+        rep.bytes_copied += nb
+        rep.copy_s += est
+        rep.copy_wait_s += wait
+        rep.copy_hidden_s += est - wait
+    return out, rep
 
 
 def segments_of(group: VirtualTree) -> list[tuple[int, int]]:

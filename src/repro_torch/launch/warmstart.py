@@ -5,8 +5,9 @@
 (the flattened index plus its LCP array, in the JAX package's npz layout):
 normalize the cache path (``np.savez`` appends ``.npz``, so the existence
 check must too), load and validate it against the requested dataset if
-the file exists, otherwise build once and save.  Sharded archives
-(ROADMAP A12) and the archive migration (A11) are later slices.
+the file exists, otherwise build once and save.  :func:`migrate_archive`
+re-packs a byte-layout archive to dense storage in place.  Sharded
+archives and their migration are a later slice (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -16,6 +17,11 @@ import sys
 import time
 from typing import Callable
 
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.core.query import npz_path
 from repro_torch.data.strings import dataset
 
@@ -29,6 +35,73 @@ def will_load(index_path: str | None) -> bool:
     """True when :func:`load_or_build` would take the cache path."""
     path = normalize_npz(index_path)
     return path is not None and os.path.exists(path)
+
+
+def _alphabet_by_base(base: int):
+    for al in ALPHABETS.values():
+        if al.base == base:
+            return al
+    raise ValueError(f"no registered alphabet has base {base}")
+
+
+def migrate_archive(path: str, *, chunk_symbols: int = 1 << 20,
+                    verify: bool = True) -> bool:
+    """Re-pack one byte-layout npz archive to dense storage IN PLACE,
+    chunk by chunk, without rebuilding the index (the JAX
+    ``migrate_archive``; the layouts are the JAX package's, so an archive
+    migrated by either package loads in both).
+
+    A byte archive stores the terminal-padded string as ``s_padded`` and a
+    4(+epoch)-entry ``meta``; the dense layout stores ``s_words`` (uint32,
+    ``Alphabet.dense_bits`` bits a symbol) and extends ``meta`` with
+    ``[s_bits, n_real]`` before the epoch.  Every routing and leaf blob is
+    carried over as it is.  The string goes through
+    :func:`repro_torch.core.packing.pack_text_stream` in
+    ``chunk_symbols``-sized chunks, on the host; ``verify`` also packs it
+    whole with :func:`pack_text` and requires word-for-word equality
+    before anything is written.  The archive is written to
+    ``<path>.tmp.npz`` and then renamed over ``path``.
+
+    Returns True when the archive was migrated, False when it was already
+    dense.  Raises on a missing or unrecognizable archive.
+    """
+    path = npz_path(path)
+    with np.load(path) as data:
+        if "s_words" in data:
+            return False
+        if "s_padded" not in data or "meta" not in data:
+            raise ValueError(f"{path} is not a DeviceIndex archive")
+        blobs = {k: data[k] for k in data.files}
+    meta = np.asarray(blobs.pop("meta"), np.int64)
+    base, max_plen = int(meta[0]), int(meta[3])
+    epoch = int(meta[4]) if meta.size > 4 else 0
+    alphabet = _alphabet_by_base(base)
+    s_padded = np.asarray(blobs.pop("s_padded"), np.uint8)
+    # the stored string is terminal-PADDED, so the real length is where
+    # the terminal first appears (it only ever occurs at the end)
+    term = np.flatnonzero(s_padded == alphabet.terminal_code)
+    if term.size == 0:
+        raise ValueError(f"{path} stores an unterminated string")
+    codes = s_padded[:int(term[0]) + 1]  # real symbols + one terminal
+    chunks = (codes[i:i + chunk_symbols]
+              for i in range(0, codes.size, chunk_symbols))
+    pt = packing.pack_text_stream(chunks, alphabet, extra=max_plen + 8,
+                                  device="cpu")
+    if verify:
+        ref = packing.pack_text(codes, alphabet, extra=max_plen + 8,
+                                device="cpu")
+        if not (torch.equal(pt.words, ref.words)
+                and pt.n_real == ref.n_real):
+            raise AssertionError(
+                f"streamed re-pack of {path} diverged from pack_text")
+    blobs["s_words"] = pt.words_numpy()
+    blobs["meta"] = np.array(
+        [base, int(meta[1]), int(meta[2]), max_plen,
+         pt.bits, pt.n_real, epoch], np.int64)
+    tmp = path + ".tmp.npz"   # already .npz-suffixed: savez won't rename it
+    np.savez_compressed(tmp, **blobs)
+    os.replace(tmp, path)
+    return True
 
 
 def load_or_build(index_path: str | None, dataset_name: str, n: int,

@@ -15,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import iomodel
 from repro_torch.core import packing as tpk
+from repro_torch.core import prepare as tprep
 from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.core.api import EraConfig, EraIndexer
 from repro_torch.core.query import _pack_query_batch, _route_window
+from repro_torch.data.strings import dataset
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmer_histogram as tkmer
 from repro_torch.kernels import lcp as tlcp
@@ -1233,3 +1237,107 @@ def test_cuda_packed_index_is_one_launch(cuda_device, monkeypatch, alpha,
     has = count > 0
     assert torch.equal(win, torch.where(has[:, None], s_dev[idx].int(), -1))
     assert bool((verified[has] == 0).all()) and bool((~has).any())
+
+
+# ---- out-of-core streaming and append on the card --------------------------
+
+STREAM_FIELDS = ("ell", "sub_off", "sub_freq", "sub_prefix", "sub_plen",
+                 "win_lo", "win_hi")
+
+
+def _stream_indexer(name, n, mem=1 << 20):
+    s, a = dataset(name, n, seed=0)
+    return s, a, EraIndexer(a, EraConfig(memory_bytes=mem), device="cuda")
+
+
+def _assert_same_index(want, got):
+    for field in STREAM_FIELDS:
+        assert torch.equal(getattr(want, field), getattr(got, field)), field
+    assert np.array_equal(want.string_codes(), got.string_codes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("name,kernels", [
+    ("genome", ("range_gather_words", "kmer_histogram")),
+    ("protein", ("range_gather_pack", "lcp_pairs", "kmer_histogram"))])
+def test_cuda_build_stream_equals_batch(cuda_device, name, kernels, overlap):
+    """A 2^20 stream build in at least 4 chunks equals the one-shot build,
+    and its prepare launches the build's kernels."""
+    s, a, ix = _stream_indexer(name, 1 << 20)
+    one_shot = ix.build_device(s)
+    groups = ix.partition(s)
+    budget = len(groups) * iomodel.state_bytes_per_group(
+        ix._capacity(groups)) // 8
+    ops.reset_launch_counts()
+    dev, rep = ix.build_stream(s, device_budget=budget, overlap=overlap)
+    counts = ops.launch_counts()
+    assert rep.n_chunks >= 4 and rep.overlap == overlap
+    for k in kernels:
+        assert counts[k] > 0, k
+    _assert_same_index(one_shot, dev)
+    pats = [s[i:i + 9] for i in range(0, 4096, 64)]
+    for x, y in zip(one_shot.find_batch(pats), dev.find_batch(pats)):
+        assert np.array_equal(x, y)
+    if not overlap:
+        assert rep.copy_hidden_s == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_stream_copies_on_a_side_stream(cuda_device, monkeypatch):
+    """Every standby copy starts inside ``torch.cuda.stream`` of a
+    stream other than the compute stream, the staged state reaches the
+    prepare loop, and nothing calls ``torch.cuda.synchronize``.  At
+    f_max = 19,660 the default range budget does not saturate, so chunk
+    schedules diverge from the one-shot's: ``start`` may differ, no
+    result field may."""
+    s, a, ix = _stream_indexer("genome", 1 << 20)
+    groups = ix.partition(s)
+    cap = ix._capacity(groups)
+    text = ix._device_text(s)
+    want = tprep.subtree_prepare_batch(text, groups, cap,
+                                         ix.config.elastic_config())
+    entered = []
+    real_stream = torch.cuda.stream
+
+    def spy(stream):
+        entered.append((stream, torch.cuda.current_stream()))
+        return real_stream(stream)
+
+    def no_sync(*args, **kw):
+        raise AssertionError("torch.cuda.synchronize in the stream build")
+
+    monkeypatch.setattr(torch.cuda, "stream", spy)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    budget = len(groups) * iomodel.state_bytes_per_group(cap) // 8
+    got, rep = tprep.subtree_prepare_stream(
+        text, groups, cap, ix.config.elastic_config(), device_budget=budget)
+    monkeypatch.undo()
+    assert rep.n_chunks >= 4
+    assert len(entered) == sum(it > 0 for it in rep.chunk_iters[:-1])
+    assert len(entered) >= 3
+    assert all(side != compute for side, compute in entered)
+    assert len({side for side, _ in entered}) == 1  # one side stream
+    assert rep.copy_s > 0 and 0.0 <= rep.overlap_frac <= 1.0
+    for field in ("L", "area", "b_off", "b_c1", "b_c2"):
+        assert torch.equal(getattr(want, field).cpu(), getattr(got, field))
+
+
+@pytest.mark.cuda
+def test_cuda_append_equals_rebuild(cuda_device):
+    """Appending 2^12 symbols to a 2^20 genome index equals a rebuild,
+    epoch + 1; the terminal-tail scan launches ``search_bounds_words``
+    and the affected groups ``range_gather_words``."""
+    s, a, ix = _stream_indexer("genome", 1 << 20)
+    dev = ix.build_device(s)
+    rng = np.random.default_rng(3)
+    s_new = np.concatenate([s[:-1], rng.integers(0, a.base - 1, 1 << 12,
+                                                 dtype=np.uint8), s[-1:]])
+    ops.reset_launch_counts()
+    dev2, rep = ix.append_device(dev, s_new)
+    counts = ops.launch_counts()
+    assert counts["search_bounds_words"] > 0
+    assert counts["range_gather_words"] > 0
+    assert dev2.epoch == dev.epoch + 1 and not rep.partition_fallback
+    assert rep.leaves_rebuilt + rep.leaves_reused == dev2.n_leaves
+    _assert_same_index(ix.build_device(s_new), dev2)
