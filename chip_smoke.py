@@ -28,6 +28,12 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   a side stream), the genome read back from a FASTA file, then
   ``append_device`` of 2^16 symbols to the genome index, its swap into a
   serving ``AsyncServer``, and ``migrate_archive`` of a byte archive;
+* the sharded fabric — ``build_sharded`` of both strings over a mesh of
+  four entries that all name the one card (``[cuda:0] * 4``: four shards
+  on one H100), its finds, find-and-fetches and the serving stack's
+  cached mode over the four shards, ``append_sharded`` and the per-shard
+  archives (``migrate_archives``, ``ShardedIndex.load``,
+  ``load_or_build(sharded=True)``);
 * find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
   (one ``search_fetch_words`` launch a batch on DNA, one
   ``search_fetch_bytes`` launch on the protein byte text, one
@@ -143,6 +149,31 @@ Phases, each printing one JSON line:
               fresh server over the rebuild; a 2^22 genome archive saved
               with ``packing="bytes"`` migrated by ``migrate_archive``
               (True, then False), equal to a dense build;
+6e. fabric_build / fabric_find / fabric_serving / fabric_append /
+    fabric_archives — the sharded fabric on a mesh of ``[cuda:0] * 4``:
+              ``build_sharded`` of both strings into 4 route-key shards,
+              ``flat_table()`` equal to phase build's one-shot arrays,
+              the same schedule (iterations), ``t_prepare_s`` beside the
+              one-shot's, shard steps (one elastic gather each), the
+              prepare stage's ``max_memory_allocated`` beside the
+              one-shot's taken the same way; 256 patterns per dataset (a
+              few shorter than ``k_route``, one built to straddle a shard
+              cut: some span must cover two shards or more) and, on
+              genome, the terminal-bearing batch through ``find_batch``
+              and ``find_fetch_batch`` (fetch 32), equal to the one-shot
+              index rebuilt from those arrays, each shard's sub-batch one
+              search and one find-and-fetch launch; ``run_closed_loop``
+              in cached mode, fetch 32, on the genome shards and the
+              serving_stack workload, warmed once with every
+              ``_dispatch_sharded`` sync-free and one launch a
+              sub-batch, every result equal to the single-index
+              server's, qps and latency beside serving_stack's cached
+              row, per-shard hit rates; ``append_sharded`` of the same
+              2^16 symbols, equal to phase append's index, epoch + 1; a
+              3-shard byte archive at 2^22 migrated by
+              ``migrate_archives``, loaded onto the card, answering as
+              before, and a ``load_or_build(sharded=True)`` cache hit
+              with the full string;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg; then a
               profiled warm byte-leg build (``build_profile``,
@@ -196,7 +227,9 @@ Phases, each printing one JSON line:
 Launch counts are set to 0 just before each path (build + check +
 serving, the terminal-bearing check, the find-and-fetch calls of each
 find_fetch phase, the fetch 0 and the fetch 32 passes of each
-serving_stack phase, each stream build, the append, each tree path
+serving_stack phase, each stream build, the append, each fabric build,
+each fabric_find batch, the fabric serving passes, the fabric append,
+each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run and the LM check) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
@@ -295,6 +328,10 @@ STREAM_KERNELS = {"genome": ("range_gather_words", "kmer_histogram"),
 STREAM_FIELDS = ("ell", "sub_off", "sub_freq", "sub_prefix", "sub_plen",
                  "win_lo", "win_hi")
 APPEND_LOG2 = 16      # symbols appended to the genome index
+FABRIC_ENTRIES = 4    # the fabric's mesh: [cuda:0] * 4 on the one card
+FABRIC_KERNELS = {"genome": ("range_gather_words",),
+                  "protein": ("range_gather_pack", "lcp_pairs")}
+FABRIC_SHORT = 6      # patterns shorter than k_route in fabric_find's 256
 MIGRATE_LOG2 = 22     # the byte archive migrated to dense storage
 FASTA_RECORDS = 4     # records of the genome FASTA file (80-column lines)
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
@@ -576,6 +613,27 @@ def require_launches(counts: dict, kernels, what: str) -> None:
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on {what}")
+
+
+def flat_of(dev) -> dict:
+    """A DeviceIndex's flat table on the host: its sorted prefixes, their
+    leaf counts and ``ell_host`` (the layout ``ShardedIndex.flat_table``
+    gives)."""
+    plen = dev.sub_plen.cpu().numpy()
+    pref = dev.sub_prefix.cpu().numpy()
+    return {"prefixes": [tuple(int(c) for c in pref[t, :plen[t]])
+                         for t in range(len(plen))],
+            "freqs": dev.sub_freq.cpu().numpy(), "ell": dev.ell_host}
+
+
+def require_flat(sh, want: dict, what: str) -> None:
+    """``sh.flat_table()`` equal to the kept host arrays ``want``."""
+    prefixes, freqs, ell = sh.flat_table()
+    if prefixes != want["prefixes"]:
+        raise AssertionError(f"{what}: the prefixes differ")
+    for key, got in (("freqs", freqs), ("ell", ell)):
+        if not np.array_equal(got, want[key]):
+            raise AssertionError(f"{what}: {key} differs")
 
 
 def search_batch_launches(search, kernel: str, what: str) -> None:
@@ -967,6 +1025,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import build as tbuild
+    from repro_torch.core import fabric
     from repro_torch.core import packing
     from repro_torch.core.alphabet import ALPHABETS
     from repro_torch.core import iomodel
@@ -993,7 +1052,11 @@ def main() -> int:
         make_hot_workload,
         run_closed_loop,
     )
-    from repro_torch.launch.warmstart import migrate_archive
+    from repro_torch.launch.warmstart import (
+        load_or_build,
+        migrate_archive,
+        migrate_archives,
+    )
 
     cuda = torch.device("cuda")
 
@@ -1253,12 +1316,13 @@ def main() -> int:
                 raise AssertionError(f"{name} was launched on {what}")
 
     class SyncFreeServer(AsyncServer):
-        """An AsyncServer whose every ``_dispatch`` runs under
+        """An AsyncServer whose every ``_dispatch`` (``_dispatch_sharded``
+        on a ShardedIndex) runs under
         ``torch.cuda.set_sync_debug_mode("error")`` (any call that
         synchronises the host with the card raises) and launches exactly
-        one kernel, ``kernel``, when its batch has rows to search (none
+        one kernel, ``kernel``, per (sub-)batch with rows to search (none
         when the cache answered it all), with the host seconds of each
-        dispatch, each wait for a batch's event and each consume after
+        dispatch, each wait for a batch's events and each consume after
         it."""
 
         def __init__(self, *args, kernel: str, **kw):
@@ -1279,16 +1343,20 @@ def main() -> int:
                 got = {k: v - before[k]
                        for k, v in ops.launch_counts().items()
                        if v != before[k]}
-                if got != ({self.kernel: 1} if flight.n_rows else {}):
+                subs = (len(flight.out) if self.sharded
+                        else int(flight.n_rows > 0))
+                if got != ({self.kernel: subs} if subs else {}):
                     raise AssertionError(f"a served batch of {flight.n_rows}"
-                                         f" rows launched {got}, not one "
-                                         f"{self.kernel}")
+                                         f" rows in {subs} sub-batches "
+                                         f"launched {got}, not one "
+                                         f"{self.kernel} each")
+                if len(flight.ready) != subs:
+                    raise AssertionError("a sub-batch recorded no event")
             return flight
 
         def _consume(self, flight):
             t0 = time.perf_counter()
-            if flight.ready is not None:
-                flight.ready.synchronize()
+            flight.wait()
             t1 = time.perf_counter()
             super()._consume(flight)
             self.t_wait.append(t1 - t0)
@@ -1311,6 +1379,8 @@ def main() -> int:
             torch.cuda.synchronize()
         ms = sum(r[0] for r in device_events(prof))
         return ms if ms else None
+
+    stack_rows = {}  # (dataset, mode, fetch) -> its serving_stack line
 
     def serving_stack(dev, sx: np.ndarray, ax, name: str) -> dict:
         """``run_closed_loop`` in sync, async and cached mode, with fetch 0
@@ -1381,7 +1451,8 @@ def main() -> int:
                     busy = {"device_ms_per_pass": d_ms,
                             "device_busy_share": None if d_ms is None
                             else d_ms / (st["wall_s"] * 1e3)}
-                emit({"phase": "serving_stack", "dataset": name,
+                stack_rows[(name, mode, fetch)] = row = {
+                      "phase": "serving_stack", "dataset": name,
                       "mode": mode, "fetch": fetch, "qps": st["qps"],
                       "lat_p50_ms": st["lat_p50_ms"],
                       "lat_p99_ms": st["lat_p99_ms"],
@@ -1393,7 +1464,8 @@ def main() -> int:
                       "warm_pass_s": t_warm, "warm_pass_host": warm.host_ms(),
                       **busy, "sync_free_dispatch": True,
                       "per_batch_launches": {kernel: 1},
-                      "equal_to_find_batch": True})
+                      "equal_to_find_batch": True}
+                emit(row)
             counts[fetch] = counts_now()
             emit({"phase": "serving_stack", "dataset": name, "fetch": fetch,
                   "launches": counts[fetch]})
@@ -2359,6 +2431,9 @@ def main() -> int:
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": after_build})
     t_prepare, build_counts = {"genome": report.t_prepare}, after_build
+    # the one-shot index's host arrays, which the fabric phases compare with
+    one_shot = {"genome": {**flat_of(dev), "t_prepare_s": report.t_prepare,
+                           "iterations": report.prepare.iterations}}
     s_dev = torch.from_numpy(s).to(cuda)
     qrng = np.random.default_rng(11)
     pats = make_workload(s, qrng, batch=64, min_len=4, max_len=24,
@@ -2601,6 +2676,8 @@ def main() -> int:
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": after_build})
     t_prepare["protein"] = report.t_prepare
+    one_shot["protein"] = {**flat_of(dev), "t_prepare_s": report.t_prepare,
+                           "iterations": report.prepare.iterations}
     for name in ("kmer_histogram", "range_gather_pack", "lcp_pairs"):
         if after_build[name] <= 0:
             raise AssertionError(f"{name} was never launched by the "
@@ -2740,11 +2817,12 @@ def main() -> int:
                     f.write(rec[full * 80:].tobytes() + b"\n")
                 f.write(b"\n")
 
-    def prepare_peak(ix, sx: np.ndarray, budget=None) -> dict:
+    def prepare_peak(ix, sx: np.ndarray, budget=None, mesh=None) -> dict:
         """``max_memory_allocated`` around the prepare stage alone: the
         partition and the device text first, then a reset of the peak,
-        then ``subtree_prepare_batch`` (``budget`` None) or
-        ``subtree_prepare_stream``; bytes resident before it beside."""
+        then ``subtree_prepare_batch`` (``budget`` and ``mesh`` None),
+        ``subtree_prepare_stream`` or ``fabric.sharded_prepare`` over
+        ``mesh``; bytes resident before it beside."""
         groups = ix.partition(sx)
         cap = ix._capacity(groups)
         text = ix._device_text(sx)
@@ -2752,7 +2830,12 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        if budget is None:
+        if mesh is not None:
+            state = fabric.sharded_prepare(text, groups, cap,
+                                           ix.config.elastic_config(),
+                                           mesh=mesh)
+            torch.cuda.synchronize()
+        elif budget is None:
             state = subtree_prepare_batch(text, groups, cap,
                                           ix.config.elastic_config())
             torch.cuda.synchronize()
@@ -2941,6 +3024,8 @@ def main() -> int:
     emit({"phase": "append_swap", "dataset": "genome", **info,
           "cache_before_swap": warm, "requests": len(swap_pats),
           "equal_to_fresh_server": True})
+    appended = {**flat_of(dna_index2), "epoch": dna_index2.epoch,
+                "s_new": s_new, "report": arep}
     del srv, dna_index, dna_index2, full, got, want, s_new
     gc.collect()
     torch.cuda.empty_cache()
@@ -2977,6 +3062,286 @@ def main() -> int:
           "migrated": first, "second_call": second, "t_migrate_s": t_mig,
           "equal_to_dense_build": True})
     del dev_b, dense, mig, s_mig
+    torch.cuda.empty_cache()
+
+    # ---- 6e. the sharded fabric on the one card (counted) -----------------
+    # four shards on cuda:0: the mesh repeats the one card
+    mesh = [torch.device("cuda", 0)] * FABRIC_ENTRIES
+    fabric_idx, fabric_one, fabric_counts = {}, {}, []
+    for name, sx, ax in (("genome", s_dna, alpha),
+                         ("protein", s_prot, protein)):
+        ix = EraIndexer(ax, cfg)
+        rep = BuildReport(VerticalStats(), PrepareStats())
+        sh, t_all, mem, got = whole_build(lambda: ix.build_sharded(
+            sx, n_shards=FABRIC_ENTRIES, report=rep, mesh=mesh))
+        require_flat(sh, one_shot[name], f"{name} fabric_build")
+        if rep.prepare.iterations != one_shot[name]["iterations"]:
+            raise AssertionError(f"{name} fabric_build: the schedule differs "
+                                 f"from the one-shot's")
+        require_launches(got, FABRIC_KERNELS[name],
+                         f"the {name} fabric build")
+        fabric_counts.append(got)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage = {"one_shot": prepare_peak(ix, sx),
+                 "fabric": prepare_peak(ix, sx, mesh=mesh)}
+        above = {k: v["max_memory_allocated"] - v["resident_before"]
+                 for k, v in stage.items()}
+        emit({"phase": "fabric_build", "dataset": name, "n": len(sx) - 1,
+              "mesh": len(mesh), "devices": len(set(mesh)),
+              "stats": sh.stats(), "t_prepare_s": rep.t_prepare,
+              "one_shot_t_prepare_s": one_shot[name]["t_prepare_s"],
+              "prepare_vs_one_shot": (rep.t_prepare
+                                      / one_shot[name]["t_prepare_s"]),
+              "t_vertical_s": rep.t_vertical, "t_total_s": t_all,
+              "iterations": rep.prepare.iterations,
+              "one_shot_iterations": one_shot[name]["iterations"],
+              # one elastic gather a shard step
+              "shard_steps": got[FABRIC_KERNELS[name][0]],
+              "whole_build": mem, "prepare_stage": stage,
+              "prepare_stage_above": above,
+              "prepare_above_vs_one_shot": (above["fabric"]
+                                            / above["one_shot"]),
+              "equal_to_one_shot": True, "launches": got})
+        fabric_idx[name] = sh
+        want = one_shot[name]
+        fabric_one[name] = DeviceIndex.from_prepare(
+            alphabet=ax, s=sx, prefixes=want["prefixes"],
+            freqs=want["freqs"], ell=torch.from_numpy(want["ell"]),
+            device=cuda)
+
+    def straddler(sh) -> np.ndarray:
+        """The longest route prefix whose cell interval holds a shard cut
+        strictly inside: its span covers two shards or more."""
+        best = None
+        for cell in sh.cell_lo[1:].tolist():
+            digits = [(cell // sh.base ** (sh.k_route - 1 - j)) % sh.base
+                      for j in range(sh.k_route)]
+            for j in range(sh.k_route - 1, 0, -1):
+                if cell % sh.base ** (sh.k_route - j):
+                    if best is None or j > len(best):
+                        best = np.asarray(digits[:j], np.int32)
+                    break
+        if best is None:
+            raise AssertionError("every shard cut lies on a one-symbol "
+                                 "route boundary: no span can cross one")
+        return best
+
+    def fabric_check(sh, one, pats, what: str) -> dict:
+        """Sharded finds and finds-and-fetches of ``pats`` (counted from
+        0) equal to the one-shot index's; returns timings and counts."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = sh.find_batch(pats)
+        got_ff, got_win = sh.find_fetch_batch(pats, fetch=FETCH)
+        t_sharded = time.perf_counter() - t0
+        got_counts = counts_now()
+        t0 = time.perf_counter()
+        want = one.find_batch(pats)
+        want_ff, want_win = one.find_fetch_batch(pats, fetch=FETCH)
+        t_one = time.perf_counter() - t0
+        for a_, b_, c_ in zip(want, got, got_ff):
+            if not (np.array_equal(a_, b_) and np.array_equal(a_, c_)):
+                raise AssertionError(f"{what}: positions differ from the "
+                                     f"one-shot index's")
+        if not np.array_equal(want_win, got_win):
+            raise AssertionError(f"{what}: windows differ")
+        return {"t_sharded_s": t_sharded, "t_one_shot_s": t_one,
+                "occurrences": sum(int(a_.size) for a_ in want),
+                "launches": got_counts}
+
+    def per_shard_launches(sh, pats, what: str) -> dict:
+        """Each shard's sub-batch of ``pats``: one search launch, one
+        find-and-fetch launch (byte keys when it carries the
+        terminal)."""
+        subs = {}
+        for k, idxs in sorted(sh._split_batch(pats).items()):
+            shard = sh.shards[k]
+            sub = [pats[i] for i in idxs]
+            term = max(int(np.max(p)) for p in sub) >= sh.base - 1
+            kind = ("terminal" if term and shard.packed
+                    else "genome" if shard.packed else "protein")
+            search = (TERMINAL_KERNELS[0] if kind == "terminal"
+                      else SEARCH_KERNELS[kind])
+            search_batch_launches(lambda: shard.find_batch_ranges(
+                *shard.pad_batch(sub)), search, f"{what} shard {k}")
+            search_batch_launches(lambda: shard.find_fetch_ranges(
+                *shard.pad_batch(sub), fetch=FETCH), FETCH_KERNELS[kind][0],
+                f"{what} shard {k} fetch")
+            subs[k] = len(sub)
+        return subs
+
+    for name, sx, ax in (("genome", s_dna, alpha),
+                         ("protein", s_prot, protein)):
+        sh = fabric_idx[name]
+        frng = np.random.default_rng(53)
+        # with one-symbol routes (k_route 1: the short run's sizes) no cut
+        # can fall inside a route cell
+        short = [straddler(sh)] if sh.k_route > 1 else []
+        for _ in range(FABRIC_SHORT - 1 if sh.k_route > 1 else 0):
+            # planted, 3 .. k_route - 1
+            m = int(frng.integers(min(3, sh.k_route - 1), sh.k_route))
+            i = int(frng.integers(0, len(sx) - 1 - m))
+            short.append(np.asarray(sx[i:i + m], np.int32))
+        pats = short + make_workload(
+            sx, frng, batch=256 - len(short), min_len=sh.k_route,
+            max_len=24, planted_frac=0.7, n_symbols=len(ax.symbols))
+        spans = [sh.shard_span(p) for p in pats]
+        multi = sum(hi > lo for lo, hi in spans)
+        if not multi and sh.k_route > 1:
+            raise AssertionError(f"{name} fabric_find: no span covers two "
+                                 f"shards")
+        row = fabric_check(sh, fabric_one[name], pats, f"{name} fabric_find")
+        fabric_counts.append(row["launches"])
+        row["per_shard_rows"] = per_shard_launches(sh, pats,
+                                                   f"{name} fabric_find")
+        extra = {}
+        if name == "genome":  # byte keys on dense text
+            extra = fabric_check(sh, fabric_one[name], tpats,
+                                 "genome fabric_find terminal-bearing")
+            fabric_counts.append(extra["launches"])
+            require_launches(extra["launches"],
+                             TERMINAL_KERNELS + FETCH_KERNELS["terminal"],
+                             "the fabric's terminal-bearing batch")
+            extra["per_shard_rows"] = per_shard_launches(
+                sh, tpats, "genome fabric_find terminal-bearing")
+            extra = {"terminal_bearing": {"patterns": len(tpats), **extra}}
+        require_launches(row["launches"], (SEARCH_KERNELS[name],)
+                         + FETCH_KERNELS[name], f"the {name} fabric finds")
+        emit({"phase": "fabric_find", "dataset": name, "patterns": len(pats),
+              "short": [p.tolist() for p in short], "k_route": sh.k_route,
+              "spans_over_two_or_more_shards": multi,
+              "widest_span": max(hi - lo + 1 for lo, hi in spans),
+              **row, "search_launches_per_shard_batch": 1,
+              "equal_to_one_shot": True, **extra})
+
+    # the genome serving stack's cached mode, fetch 32, on the sharded index
+    sh = fabric_idx["genome"]
+    hot = make_hot_workload(s_dna, np.random.default_rng(29),
+                            n_requests=SERVE_REQUESTS, hot_pool=32,
+                            hot_frac=0.8, min_len=4, max_len=24,
+                            n_symbols=len(alpha.symbols))
+    serve_cfg = ServeConfig(queue_depth=1024, max_batch=256, max_wait_ms=1.0,
+                            fetch=FETCH, pipeline=True, cache_size=4096)
+    t0 = time.perf_counter()
+    want = AsyncServer(fabric_one["genome"], serve_cfg).serve(hot)
+    t_single = time.perf_counter() - t0
+
+    def same_as_single(res, what: str) -> None:
+        seen = set()
+        for (a_, wa), (b_, wb) in zip(want, res):
+            if (id(a_), id(b_)) in seen:
+                continue
+            seen.add((id(a_), id(b_)))
+            if not (np.array_equal(a_, b_) and np.array_equal(wa, wb)):
+                raise AssertionError(f"{what}: a result differs from the "
+                                     f"single-index server's")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm = SyncFreeServer(sh, serve_cfg, kernel=FETCH_KERNELS["genome"][0])
+    same_as_single(warm.serve(hot), "fabric serving (warm-up)")
+    t_warm = time.perf_counter() - t0
+    res, st = run_closed_loop(sh, hot, serve_cfg)
+    same_as_single(res, "fabric serving")
+    del res, want
+    serve_counts = counts_now()
+    fabric_counts.append(serve_counts)
+    require_launches(serve_counts, FETCH_KERNELS["genome"],
+                     "the fabric serving stack")
+    single = stack_rows[("genome", "cached", FETCH)]
+    emit({"phase": "fabric_serving", "dataset": "genome", "mode": "cached",
+          "fetch": FETCH, "requests": len(hot), "shards": sh.n_shards,
+          "qps": st["qps"], "lat_p50_ms": st["lat_p50_ms"],
+          "lat_p99_ms": st["lat_p99_ms"], "wall_s": st["wall_s"],
+          "single_index": {k: single[k] for k in (
+              "qps", "lat_p50_ms", "lat_p99_ms", "wall_s")},
+          "qps_vs_single_index": st["qps"] / single["qps"],
+          "cache_hit_rate": st["cache"]["hit_rate"],
+          "per_shard_hit_rate": [c["hit_rate"]
+                                 for c in st["cache"]["per_shard"]],
+          "cache": st["cache"], "batches": st["batches"],
+          "rows_padded": st["rows_padded"], "shapes": st["shapes"],
+          "warm_pass_s": t_warm, "warm_pass_host": warm.host_ms(),
+          "t_single_index_check_s": t_single, "sync_free_dispatch": True,
+          "per_sub_batch_launches": {FETCH_KERNELS["genome"][0]: 1},
+          "equal_to_single_index": True, "launches": serve_counts})
+    del warm, hot
+
+    # the phase-append symbols appended to the sharded genome index
+    (sh2, srep), t_app, mem_app, app_counts = whole_build(
+        lambda: EraIndexer(alpha, cfg).append_sharded(sh, appended["s_new"]))
+    require_flat(sh2, appended, "fabric_append")
+    if not sh2.epoch == sh.epoch + 1 == appended["epoch"]:
+        raise AssertionError("fabric_append: the epoch did not advance by one")
+    require_launches(app_counts, ("search_bounds_words", "range_gather_words"),
+                     "the fabric append")
+    fabric_counts.append(app_counts)
+    arep = appended["report"]
+    report_keys = ("n_old", "n_new", "b_star", "n_prefixes", "n_affected",
+                   "leaves_rebuilt", "leaves_reused", "partition_fallback",
+                   "t_scan", "t_partition", "t_prepare", "t_merge")
+    emit({"phase": "fabric_append", "dataset": "genome",
+          "appended": len(appended["s_new"]) - len(s_dna),
+          "shards": sh2.n_shards,
+          "stats": sh2.stats(), "epoch": sh2.epoch,
+          "report": {k: getattr(srep, k) for k in report_keys},
+          "t_total_report_s": srep.t_total, "t_append_s": t_app,
+          "append_device": {**{k: getattr(arep, k) for k in report_keys},
+                            "t_total_report_s": arep.t_total},
+          **{f"append_{k}": v for k, v in mem_app.items()},
+          "equal_to_append_device": True, "launches": app_counts})
+    del sh2, appended, fabric_idx, fabric_one, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 3-shard byte-layout archive at 2^22: migrated, loaded, warm-started
+    s_mig, _ = dataset("genome", 1 << min(MIGRATE_LOG2, args.n_log2), seed=1)
+    sh_b = EraIndexer(alpha, cfg).build_sharded(s_mig, n_shards=3, mesh=mesh,
+                                                packing="bytes")
+    mig_pats = make_workload(s_mig, np.random.default_rng(59), batch=64,
+                             min_len=4, max_len=24, planted_frac=0.7,
+                             n_symbols=len(alpha.symbols))
+    want = sh_b.find_batch(mig_pats)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "genome_shards")
+        sh_b.save(path)
+        files = fabric.ShardedIndex.shard_files(path)
+        if len(files) != 3:
+            raise AssertionError(f"fabric_archives: {len(files)} shard files")
+        t0 = time.perf_counter()
+        done = migrate_archives(path)
+        t_mig = time.perf_counter() - t0
+        again = migrate_archives(path)
+        if done != files or again:
+            raise AssertionError(f"migrate_archives gave {done}, then {again}")
+        t0 = time.perf_counter()
+        loaded = fabric.ShardedIndex.load(path, device=cuda)
+        t_load = time.perf_counter() - t0
+        if not all(d.packed and d.device.type == "cuda"
+                   for d in loaded.shards):
+            raise AssertionError("fabric_archives: a loaded shard is not "
+                                 "dense on the card")
+        for a_, b_ in zip(want, loaded.find_batch(mig_pats)):
+            if not np.array_equal(a_, b_):
+                raise AssertionError("fabric_archives: the migrated shards "
+                                     "answer differently")
+        builds = []
+        hit, s_back, _, t_hit = load_or_build(
+            path, "genome", len(s_mig) - 1, 1,
+            load=lambda p: fabric.ShardedIndex.load(p, device=cuda),
+            build=lambda *a: builds.append(1), sharded=True)
+        if builds or not np.array_equal(s_back, s_mig):
+            raise AssertionError("load_or_build(sharded=True) rebuilt or "
+                                 "lost the full string")
+    emit({"phase": "fabric_archives", "dataset": "genome",
+          "n": len(s_mig) - 1, "shards": len(files), "migrated": len(done),
+          "second_call": len(again), "t_migrate_archives_s": t_mig,
+          "t_load_s": t_load, "t_load_or_build_s": t_hit,
+          "cache_hit": True, "full_string": True,
+          "equal_after_migration": True})
+    del sh_b, loaded, hit, s_mig, want
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 6. the tree + analytics path per dataset (counted) ----------------
@@ -3404,7 +3769,7 @@ def main() -> int:
              *dna_serve_counts.values(), prot_counts, prot_ff_counts,
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
-             *stream_counts, append_counts]
+             *stream_counts, append_counts, *fabric_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -17,6 +17,10 @@ string) → batched elastic-range SubTreePrepare on the (G, F) state:
 device-budget chunks, host state double-buffered onto the card), and
 :meth:`EraIndexer.append_device` extends a built index to a longer
 string, rebuilding only the sub-trees the appended symbols touch.
+:meth:`EraIndexer.build_sharded` and :meth:`EraIndexer.append_sharded`
+build and extend a :class:`repro_torch.core.fabric.ShardedIndex`: the
+prepare over a mesh of devices, the leaf arrays cut into route-key
+shards.
 
 ``EraConfig.packing`` picks the text as in the JAX package: ``auto``
 packs alphabets below 8 bits (DNA, protein classes) dense and keeps
@@ -773,6 +777,88 @@ class EraIndexer:
         return DeviceIndex.from_prepare(
             alphabet=self.alphabet, s=s_new, prefixes=prefixes,
             freqs=freqs, ell=ell, **device_kwargs), arep
+
+    def append_sharded(self, sharded, s_new: np.ndarray,
+                       report: AppendReport | None = None, *,
+                       n_shards: int | None = None, **device_kwargs):
+        """Incremental append for a
+        :class:`repro_torch.core.fabric.ShardedIndex`
+        (``repro.core.api.EraIndexer.append_sharded``): the route-ordered
+        per-shard tables concatenate into the single-device flat layout
+        (``ShardedIndex.flat_table``), :meth:`_append_merge` runs there
+        (its terminal-tail scan counts through ``sharded.find_batch``), and
+        the merged layout re-shards through
+        :meth:`ShardedIndex.from_flat` over the old index's mesh, into
+        ``n_shards`` shards (default: as many as before).  The result
+        carries ``epoch + 1``.  Returns ``(sharded_index, append_report)``."""
+        from repro_torch.core import fabric  # local: import cycle
+
+        s_new = np.asarray(s_new)
+        arep = report if report is not None else AppendReport()
+        old_prefixes, old_freqs, old_ell = sharded.flat_table()
+        old_offs = np.concatenate(
+            [[0], np.cumsum(old_freqs)[:-1]]).astype(np.int64)
+        self._check_append_prefix(sharded.string_codes(), s_new,
+                                  int(old_freqs.sum()) - 1)
+
+        def count_fn(pats):
+            return np.asarray([len(h) for h in sharded.find_batch(pats)],
+                              np.int64)
+
+        prefixes, freqs, ell = self._append_merge(
+            s_new, old_prefixes, old_freqs, old_offs, old_ell, count_fn,
+            sharded.max_pattern_len, arep)
+        device_kwargs.setdefault("packing", self.config.packing)
+        device_kwargs.setdefault("max_pattern_len", sharded.max_pattern_len)
+        device_kwargs.setdefault("epoch", sharded.epoch + 1)
+        device_kwargs.setdefault("device", self.device)
+        device_kwargs.setdefault("mesh", sharded.mesh)
+        return fabric.ShardedIndex.from_flat(
+            alphabet=self.alphabet, s=s_new, prefixes=prefixes, freqs=freqs,
+            ell=ell, n_shards=n_shards or sharded.n_shards,
+            **device_kwargs), arep
+
+    def build_sharded(self, s: np.ndarray, n_shards: int | None = None,
+                      report: BuildReport | None = None, *,
+                      mesh=None, sort_fuse: bool | None = None,
+                      **device_kwargs):
+        """String → :class:`repro_torch.core.fabric.ShardedIndex`
+        (``repro.core.api.EraIndexer.build_sharded``): the partition and
+        the text on the indexer's device, :func:`fabric.sharded_prepare`
+        over ``mesh`` (default: every device of the indexer's type; a
+        device may repeat), then the flattened leaf arrays cut by route
+        key into ``n_shards`` shards (default: the mesh's size) placed
+        over the same mesh.  The construction mesh and the shard count
+        are independent.  Results equal :meth:`build_device`'s."""
+        from repro_torch.core import fabric  # local: import cycle
+
+        report = report if report is not None else BuildReport(
+            VerticalStats(), PrepareStats())
+        device_kwargs.setdefault("packing", self.config.packing)
+        mesh = fabric.as_mesh(mesh, self.device)
+        if n_shards is None:
+            n_shards = len(mesh)
+        groups = self.partition(s, report)
+        if not groups:
+            raise ValueError("cannot shard an empty index")
+        capacity = self._capacity(groups)
+        s_text = self._device_text(s)
+        t0 = time.perf_counter()
+        states = fabric.sharded_prepare(
+            s_text, groups, capacity, self.config.elastic_config(),
+            mesh=mesh, stats=report.prepare,
+            sort_fuse=(sort_fuse if sort_fuse is not None
+                       else self.config.sort_fuse))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        report.t_prepare = time.perf_counter() - t0
+        del s_text
+        prefixes, freqs, ell = _flatten_state(groups, states)
+        del states
+        return fabric.ShardedIndex.from_flat(
+            alphabet=self.alphabet, s=np.asarray(s), prefixes=prefixes,
+            freqs=freqs, ell=ell, n_shards=n_shards, mesh=mesh,
+            device=self.device, **device_kwargs)
 
 
 class _HostState:

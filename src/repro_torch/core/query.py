@@ -47,6 +47,14 @@ def npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def shard_npz_path(path: str, k: int) -> str:
+    """Per-shard archive path: ``_shard{k}`` goes before the ``.npz``
+    extension (``idx.npz`` → ``idx_shard2.npz``), so sharded saves collide
+    with neither the base archive nor each other."""
+    base = npz_path(path)
+    return f"{base[:-4]}_shard{k}.npz"
+
+
 def route_depth(base: int, max_plen: int, route_cap: int) -> int:
     """Depth of the dense top-trie routing table: the deepest ``k`` with
     ``base**k`` cells under ``route_cap`` (and within the shallowest

@@ -1,10 +1,10 @@
 """Async continuous-batching serving stack — PyTorch port of
-``repro.launch.serving`` (the single-index backend).
+``repro.launch.serving``.
 
 :mod:`repro_torch.launch.query_serve` measures the engine: pre-padded
 batches through ``find_batch_ranges``, one at a time, blocking on every
 call.  This module is the tier users put in front of a
-:class:`repro_torch.core.query.DeviceIndex`:
+:class:`repro_torch.core.query.DeviceIndex` or a sharded index:
 
 * **Admission queue and continuous batch coalescing** — requests queue up
   (bounded depth, rejects counted) and the server drains up to
@@ -29,11 +29,22 @@ call.  This module is the tier users put in front of a
 * **Find-and-fetch** — ``fetch`` > 0 returns, with each match, ``fetch``
   symbols of text read by the fused probe + gather kernel.
 
+* **Sharded backend** — hand the server a
+  :class:`repro_torch.core.fabric.ShardedIndex` and each batch splits by
+  route key into per-shard sub-batches: each its own pow2 pad and pack,
+  uploaded next to its shard's arrays, one search (or find-and-fetch)
+  launch, its own copies back and its own event; patterns shorter than
+  ``k_route`` take a row in every shard their route covers.  Each shard
+  keeps its own route cache, looked up at the pattern's primary (lowest
+  covered) shard.  Consuming a batch waits on its sub-batches' events,
+  concatenates and sorts the positions, and takes the window from the
+  first shard in route order with a hit, so results equal the
+  single-index server's.  ``--shards`` turns it on.
+
 Every :class:`ServeConfig` field defaults from a ``REPRO_SERVE_*``
-variable, with the JAX package's names and defaults.  The sharded backend
-(``--shards``) waits for the port's fabric (ROADMAP A12) and the spans,
-metrics and ``--metrics-port`` for its tracing (A16); ``stats()`` reports
-every counter the JAX server reports.
+variable, with the JAX package's names and defaults.  The spans, metrics
+and ``--metrics-port`` wait for the port's tracing (ROADMAP A16);
+``stats()`` reports every counter the JAX server reports.
 
   PYTHONPATH=src python -m repro_torch.launch.serving --dataset dna \\
       --n 100000 --requests 4096 --mode all        # --device cpu: plain path
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import EraConfig, EraIndexer
+from repro_torch.core.fabric import ShardedIndex
 from repro_torch.core.query import DeviceIndex, RouteCache
 from repro_torch.launch.warmstart import load_or_build
 
@@ -103,9 +115,14 @@ class _Request:
 
 class _InFlight:
     """One dispatched batch: its requests and their rows, the cache hits
-    resolved at admission, and the host tensors its results land in
-    (``ready``, the CUDA event recorded after their copies, is None on the
-    CPU)."""
+    resolved at admission, and the host tensors its results land in.
+
+    Single index: ``row_of`` holds each request's batch row (None = cache
+    hit) and ``out`` the (start, count[, window]) host tensors.  Sharded:
+    ``row_of`` holds each request's ``[(shard, local row), ...]`` and
+    ``out`` maps each shard to its sub-batch's host tensors.
+    ``ready`` holds the CUDA events recorded after the copies (one per
+    sub-batch; none on the CPU)."""
 
     __slots__ = ("requests", "keys", "row_of", "hit_vals", "n_rows", "out",
                  "ready")
@@ -113,11 +130,17 @@ class _InFlight:
     def __init__(self, requests, keys, row_of, hit_vals, n_rows):
         self.requests = requests
         self.keys = keys
-        self.row_of = row_of      # per-request batch row; None = cache hit
+        self.row_of = row_of
         self.hit_vals = hit_vals
         self.n_rows = n_rows      # real rows before the b_pad padding
-        self.out = ()             # (start, count[, window]) host tensors
-        self.ready = None
+        self.out = ()
+        self.ready: list = []
+
+    def wait(self) -> None:
+        """Block until this batch's results are on the host (its own
+        events only)."""
+        for ev in self.ready:
+            ev.synchronize()
 
 
 def _frozen(*arrays) -> tuple:
@@ -128,15 +151,9 @@ def _frozen(*arrays) -> tuple:
     return arrays
 
 
-def _single_index(dev) -> None:
-    if hasattr(dev, "shards"):
-        raise NotImplementedError(
-            "the sharded serving backend is not ported yet (ROADMAP A12); "
-            "serve a DeviceIndex")
-
-
 class AsyncServer:
-    """Continuous-batching server over a :class:`DeviceIndex`.
+    """Continuous-batching server over a :class:`DeviceIndex` or a
+    :class:`ShardedIndex`.
 
     A single-threaded loop: :meth:`submit` admits requests; :meth:`pump`
     (or :meth:`serve`) coalesces a batch, dispatches it without blocking and
@@ -146,11 +163,14 @@ class AsyncServer:
     its first suffix-array-order match (else None), both read-only.
     """
 
-    def __init__(self, dev: DeviceIndex, config: ServeConfig | None = None):
-        _single_index(dev)
+    def __init__(self, dev, config: ServeConfig | None = None):
         self.dev = dev
         self.config = config or ServeConfig()
-        self.cache = RouteCache(self.config.cache_size)
+        self.sharded = isinstance(dev, ShardedIndex)
+        n_caches = dev.n_shards if self.sharded else 1
+        self.caches = [RouteCache(self.config.cache_size)
+                       for _ in range(n_caches)]
+        self.cache = self.caches[0]
         self.queue: collections.deque[_Request] = collections.deque()
         self.inflight: _InFlight | None = None
         self.results: dict[int, tuple] = {}
@@ -189,6 +209,23 @@ class AsyncServer:
             r *= 2
         return min(r, self.config.max_batch)
 
+    def _cache_hit_rate(self) -> float:
+        hits = sum(c.hits for c in self.caches)
+        total = hits + sum(c.misses for c in self.caches)
+        return hits / total if total else 0.0
+
+    def _cache_stats(self) -> dict:
+        if not self.sharded:
+            return self.cache.stats()
+        agg = {"size": sum(len(c) for c in self.caches),
+               "capacity": sum(c.capacity for c in self.caches),
+               "hits": sum(c.hits for c in self.caches),
+               "misses": sum(c.misses for c in self.caches),
+               "evictions": sum(c.evictions for c in self.caches),
+               "hit_rate": self._cache_hit_rate()}
+        agg["per_shard"] = [c.stats() for c in self.caches]
+        return agg
+
     def _take_batch(self) -> list[_Request] | None:
         """Pop up to ``max_batch`` requests; a partial batch is held open
         (None) until its oldest request has waited ``max_wait_ms``."""
@@ -201,29 +238,55 @@ class AsyncServer:
         return [self.queue.popleft()
                 for _ in range(min(len(self.queue), cfg.max_batch))]
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host batch array on the index's device: pinned, then copied
-        without blocking the host."""
+    @staticmethod
+    def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+        """A host batch array on ``device``: pinned, then copied without
+        blocking the host."""
         t = torch.from_numpy(a)
-        if self.dev.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.dev.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
-    def _download(self, flight: _InFlight, outs, n_rows: int) -> None:
-        """Start the copies of a batch's results to the host: fresh pinned
-        tensors (never reused while a copy may be in flight), then one event
-        for the consume to wait on."""
-        if self.dev.device.type != "cuda":
-            flight.out = tuple(t[:n_rows] for t in outs)
-            return
+    @staticmethod
+    def _download(flight: _InFlight, outs, n_rows: int,
+                  device: torch.device) -> tuple:
+        """Start the copies of one (sub-)batch's results to the host: fresh
+        pinned tensors (never reused while a copy may be in flight), then
+        one event on ``device``'s stream for the consume to wait on.
+        Returns the host tensors."""
+        if device.type != "cuda":
+            return tuple(t[:n_rows] for t in outs)
         host = []
         for t in outs:
             h = torch.empty(t[:n_rows].shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t[:n_rows], non_blocking=True)
             host.append(h)
-        flight.out = tuple(host)
-        flight.ready = torch.cuda.Event()
-        flight.ready.record()
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
+        flight.ready.append(ready)
+        return tuple(host)
+
+    def _launch(self, dev: DeviceIndex, flight: _InFlight, reqs) -> tuple:
+        """Pad, pack and upload one (sub-)batch next to ``dev``'s arrays,
+        launch its search (or find-and-fetch) and start the copies back;
+        returns the host tensors."""
+        cfg = self.config
+        pats = [r.pattern for r in reqs]
+        m_pad = self._bucket_width(-(-max(len(p) for p in pats) // 4) * 4)
+        b_pad = self._bucket_rows(len(reqs))
+        padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad, b_pad=b_pad)
+        self.shapes.add((m_pad, b_pad))
+        self.n_rows_padded += b_pad
+        padded, lengths, route = (self._upload(a, dev.device)
+                                  for a in (padded, lengths, route))
+        pat_max = max(r.pat_max for r in reqs)
+        if cfg.fetch:
+            outs = dev.find_fetch_ranges(padded, lengths, route,
+                                         fetch=cfg.fetch, pat_max=pat_max)[:3]
+        else:
+            outs = dev.find_batch_ranges(padded, lengths, route,
+                                         pat_max=pat_max)
+        return self._download(flight, outs, len(reqs), dev.device)
 
     def _dispatch(self) -> _InFlight | None:
         """Coalesce up to ``max_batch`` queued requests into one padded
@@ -233,6 +296,8 @@ class AsyncServer:
         requests = self._take_batch()
         if requests is None:
             return None
+        if self.sharded:
+            return self._dispatch_sharded(requests)
         cfg = self.config
         keys = [self.dev.route_key(r.pattern) for r in requests]
         # with the cache OFF every request takes its own row (the honest
@@ -262,24 +327,54 @@ class AsyncServer:
 
         flight = _InFlight(requests, keys, row_of, hit_vals, len(miss_req))
         if miss_req:
-            pats = [r.pattern for r in miss_req]
-            m_pad = self._bucket_width(-(-max(len(p) for p in pats) // 4) * 4)
-            b_pad = self._bucket_rows(len(miss_req))
-            padded, lengths, route = self.dev.pad_batch(
-                pats, m_pad=m_pad, b_pad=b_pad)
-            self.shapes.add((m_pad, b_pad))
-            self.n_rows_padded += b_pad
-            padded, lengths, route = (self._upload(a)
-                                      for a in (padded, lengths, route))
-            pat_max = max(r.pat_max for r in miss_req)
-            if cfg.fetch:
-                outs = self.dev.find_fetch_ranges(
-                    padded, lengths, route, fetch=cfg.fetch,
-                    pat_max=pat_max)[:3]
-            else:
-                outs = self.dev.find_batch_ranges(padded, lengths, route,
-                                                  pat_max=pat_max)
-            self._download(flight, outs, len(miss_req))
+            flight.out = self._launch(self.dev, flight, miss_req)
+        self.n_batches += 1
+        return flight
+
+    def _dispatch_sharded(self, requests: list[_Request]) -> _InFlight:
+        """The ShardedIndex backend: split the batch by route key, then pad,
+        pack and dispatch one pow2-bucketed sub-batch PER SHARD, next to
+        that shard's arrays, without blocking.  Patterns shorter than
+        ``k_route`` may span shards: they take one row in every covered
+        shard and merge at consume time.  Cache lookups go to the primary
+        (lowest covered) shard's cache: route→shard is deterministic, so
+        the per-shard caches partition the key space."""
+        cfg = self.config
+        keys = [self.dev.route_key(r.pattern) for r in requests]
+        caching = cfg.cache_size > 0
+        # per request: None = cache hit, else [(shard, local row), ...]
+        row_of: list[list | None] = []
+        key_rows: dict[tuple, list] = {}
+        hit_vals: dict[tuple, tuple] = {}
+        shard_req: dict[int, list[_Request]] = {}
+        for req, key in zip(requests, keys):
+            if caching:
+                if key in hit_vals:
+                    row_of.append(None)
+                    continue
+                if key in key_rows:  # in-batch duplicate: share the rows
+                    row_of.append(key_rows[key])
+                    continue
+            lo, hi = self.dev.shard_span(req.pattern)
+            if caching:
+                val = self.caches[lo].get(key)
+                if val is not None:
+                    hit_vals[key] = val
+                    row_of.append(None)
+                    continue
+            rows = []
+            for k in range(lo, hi + 1):
+                local = shard_req.setdefault(k, [])
+                rows.append((k, len(local)))
+                local.append(req)
+            if caching:
+                key_rows[key] = rows
+            row_of.append(rows)
+
+        flight = _InFlight(requests, keys, row_of, hit_vals,
+                           sum(len(r) for r in shard_req.values()))
+        flight.out = {k: self._launch(self.dev.shards[k], flight, reqs)
+                      for k, reqs in sorted(shard_req.items())}
         self.n_batches += 1
         return flight
 
@@ -289,9 +384,10 @@ class AsyncServer:
         Rows with the same bounds share one materialized result (a hot
         pattern repeated in a batch without the cache is sorted once), so
         results are read-only arrays."""
+        if self.sharded:
+            return self._consume_sharded(flight)
         cfg = self.config
-        if flight.ready is not None:
-            flight.ready.synchronize()
+        flight.wait()
         if flight.n_rows:
             start = flight.out[0].numpy()
             count = flight.out[1].numpy()
@@ -319,27 +415,76 @@ class AsyncServer:
             self.results[req.rid] = val
             self.latency_s.append(now - req.t_admit)
 
+    def _consume_sharded(self, flight: _InFlight) -> None:
+        """Wait for every sub-batch of one batch (its own events) and merge
+        per request: positions concatenate and sort (shards own disjoint
+        leaf ranges); the window comes from the first shard in route order
+        with a hit — the rule of :meth:`ShardedIndex.find_fetch_batch`.
+        Misses fill their primary shard's cache."""
+        cfg = self.config
+        flight.wait()
+        mats = {k: tuple(t.numpy() for t in host)
+                for k, host in flight.out.items()}
+        done: dict[tuple, tuple] = {}
+        caching = cfg.cache_size > 0
+        now = time.perf_counter()
+        for req, key, rows in zip(flight.requests, flight.keys,
+                                  flight.row_of):
+            if rows is None:
+                val = flight.hit_vals[key]
+            elif tuple(rows) in done:
+                val = done[tuple(rows)]
+            else:
+                parts, win_out = [], None
+                for k, row in rows:
+                    start, count = mats[k][0], mats[k][1]
+                    s, c = int(start[row]), int(count[row])
+                    if c:
+                        ell = self.dev.shards[k].ell_host
+                        parts.append(ell[s:s + c].astype(np.int64))
+                        if cfg.fetch and win_out is None:
+                            win_out = mats[k][2][row].copy()
+                if cfg.fetch and win_out is None:
+                    win_out = np.full(cfg.fetch, -1, np.int32)
+                pos = (np.sort(np.concatenate(parts)) if parts
+                       else np.empty(0, np.int64))
+                val = _frozen(pos, win_out if cfg.fetch else None)
+                done[tuple(rows)] = val
+                if caching:
+                    self.caches[rows[0][0]].put(key, val)
+            self.results[req.rid] = val
+            self.latency_s.append(now - req.t_admit)
+
     # ---- live index swap --------------------------------------------------
 
     def update_index(self, dev) -> dict:
-        """Swap in a new index generation without dropping queued
-        requests: the in-flight batch (dispatched against the old index)
-        is consumed first; the route cache is flushed when the ``epoch``
-        changes and kept on a same-epoch swap (a replica of the same
-        index)."""
-        _single_index(dev)
+        """Swap in a new index generation (a :class:`DeviceIndex` or a
+        :class:`ShardedIndex`) without dropping queued requests: the
+        in-flight batch (dispatched against the old index) is consumed
+        first.  The route caches are rebuilt when the shard count changes,
+        flushed when the ``epoch`` changes and kept on a same-epoch swap
+        (a replica of the same index)."""
         if self.inflight is not None:
             self._consume(self.inflight)
             self.inflight = None
         old_epoch = int(getattr(self.dev, "epoch", 0))
         new_epoch = int(getattr(dev, "epoch", 0))
         self.dev = dev
-        flushed = new_epoch != old_epoch
-        if flushed:
-            self.cache.clear()
+        self.sharded = isinstance(dev, ShardedIndex)
+        n_caches = dev.n_shards if self.sharded else 1
+        flushed = False
+        if len(self.caches) != n_caches:
+            self.caches = [RouteCache(self.config.cache_size)
+                           for _ in range(n_caches)]
+            flushed = True
+        elif new_epoch != old_epoch:
+            for c in self.caches:
+                c.clear()
+            flushed = True
+        self.cache = self.caches[0]
         self._width_cap = max(4, dev.max_pattern_len - dev.max_pattern_len % 4)
         self.n_index_swaps += 1
-        return {"epoch": new_epoch, "flushed": flushed, "shards": 1}
+        return {"epoch": new_epoch, "flushed": flushed, "shards": n_caches}
 
     # ---- the serving loop -------------------------------------------------
 
@@ -387,7 +532,7 @@ class AsyncServer:
             "shapes": sorted(self.shapes),
             "lat_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
             "lat_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
-            "cache": self.cache.stats(),
+            "cache": self._cache_stats(),
         }
 
 
@@ -419,10 +564,11 @@ def make_hot_workload(s: np.ndarray, rng: np.random.Generator, *,
     return out
 
 
-def run_closed_loop(dev: DeviceIndex, patterns, config: ServeConfig,
+def run_closed_loop(dev, patterns, config: ServeConfig,
                     ) -> tuple[list[tuple], dict]:
-    """Serve a whole workload closed-loop on a fresh server; returns
-    ``(results, stats)`` with the wall seconds and qps added."""
+    """Serve a whole workload closed-loop on a fresh server over ``dev``
+    (a DeviceIndex or a ShardedIndex); returns ``(results, stats)`` with
+    the wall seconds and qps added."""
     server = AsyncServer(dev, config)
     t0 = time.perf_counter()
     results = server.serve(patterns)
@@ -443,20 +589,26 @@ def serve_stream(dataset_name: str = "dna", *, n: int = 100_000,
     on a hot workload, and report the stats of each mode: ``sync`` (no
     pipeline, no cache), ``async`` (pipeline), ``cached`` (pipeline and
     cache) or ``all``; ``vs_sync`` is a mode's qps over sync's when sync
-    ran first."""
-    if shards > 0:
-        raise NotImplementedError(
-            "sharded serving (shards > 0) is not ported yet (ROADMAP A12)")
+    ran first.  ``shards`` > 0 serves a :class:`ShardedIndex` of that many
+    route-key shards (built over every device of ``device``'s type, cached
+    as per-shard archives); 0 the single DeviceIndex."""
     max_len4 = -(-max_len // 4) * 4
+    mpl = max(64, max_len4)
 
     def build(s, alphabet):
         cfg = EraConfig(memory_bytes=memory_bytes, build_impl="none")
-        return EraIndexer(alphabet, cfg, device=device).build_device(
-            s, max_pattern_len=max(64, max_len4))
+        ix = EraIndexer(alphabet, cfg, device=device)
+        if shards > 0:
+            return ix.build_sharded(s, n_shards=shards, max_pattern_len=mpl)
+        return ix.build_device(s, max_pattern_len=mpl)
 
+    loader = ShardedIndex.load if shards > 0 else DeviceIndex.load
     dev, s, alphabet, t_build = load_or_build(
         index_path, dataset_name, n, seed,
-        load=lambda path: DeviceIndex.load(path, device=device), build=build)
+        load=lambda path: loader(path, device=device), build=build,
+        sharded=shards > 0)
+    where = (sorted({str(d) for d in dev.devices}) if shards > 0
+             else [str(dev.device)])
     rng = np.random.default_rng(seed + 7)
     pats = make_hot_workload(s, rng, n_requests=requests, hot_pool=hot_pool,
                              hot_frac=hot_frac, min_len=min_len,
@@ -468,7 +620,7 @@ def serve_stream(dataset_name: str = "dna", *, n: int = 100_000,
         "cached": ServeConfig(pipeline=True),
     }
     wanted = modes if mode == "all" else {mode: modes[mode]}
-    report = {"dataset": dataset_name, "device": str(dev.device),
+    report = {"dataset": dataset_name, "device": ",".join(where),
               "n_symbols": len(s), "requests": requests,
               "t_build_s": round(t_build, 3)}
     baseline = None
@@ -497,7 +649,11 @@ def main():
                     choices=["all", "sync", "async", "cached"])
     ap.add_argument("--index-path", default=None,
                     help="npz cache: load the flattened index if the file "
-                         "exists, else build once and save it there")
+                         "exists, else build once and save it there "
+                         "(per-shard _shard{k}.npz archives with --shards)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve a ShardedIndex with this many route-key "
+                         "shards (0 = single DeviceIndex)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand kernels) or cpu (plain PyTorch versions)")
     args = ap.parse_args()
@@ -505,7 +661,7 @@ def main():
                           hot_frac=args.hot_frac, hot_pool=args.hot_pool,
                           min_len=args.min_len, max_len=args.max_len,
                           index_path=args.index_path, mode=args.mode,
-                          device=args.device)
+                          shards=args.shards, device=args.device)
     for key, val in report.items():
         print(f"{key}: {val}")
 

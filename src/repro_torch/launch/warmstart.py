@@ -1,13 +1,17 @@
 """Shared npz warm-start logic for the serving drivers — PyTorch port of
-``repro.launch.warmstart`` (the single-archive path).
+``repro.launch.warmstart``.
 
-``analytics_serve`` caches an :class:`repro_torch.core.analytics.AnalyticsEngine`
-(the flattened index plus its LCP array, in the JAX package's npz layout):
-normalize the cache path (``np.savez`` appends ``.npz``, so the existence
-check must too), load and validate it against the requested dataset if
-the file exists, otherwise build once and save.  :func:`migrate_archive`
-re-packs a byte-layout archive to dense storage in place.  Sharded
-archives and their migration are a later slice (ROADMAP A12).
+``query_serve`` and ``serving`` cache a
+:class:`repro_torch.core.query.DeviceIndex` (or, sharded, a
+:class:`repro_torch.core.fabric.ShardedIndex` as per-shard archives),
+``analytics_serve`` an :class:`repro_torch.core.analytics.AnalyticsEngine`
+(the flattened index plus its LCP array), all in the JAX package's npz
+layouts: normalize the cache path (``np.savez`` appends ``.npz``, so the
+existence check must too), load and validate it against the requested
+dataset if the file exists, otherwise build once and save.
+:func:`migrate_archive` re-packs a byte-layout archive to dense storage in
+place; :func:`migrate_archives` does so for a cache path and its shard
+siblings.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.core.fabric import ShardedIndex
 from repro_torch.core.query import npz_path
 from repro_torch.data.strings import dataset
 
@@ -31,8 +36,21 @@ def normalize_npz(path: str | None) -> str | None:
     return None if path is None else npz_path(path)
 
 
-def will_load(index_path: str | None) -> bool:
-    """True when :func:`load_or_build` would take the cache path."""
+def shard_archives(index_path: str | None) -> list:
+    """The ``{path}_shard{k}.npz`` siblings a sharded index saved under
+    ``index_path``, in shard order (empty when there are none)."""
+    if index_path is None:
+        return []
+    return ShardedIndex.shard_files(index_path)
+
+
+def will_load(index_path: str | None, *, sharded: bool = False) -> bool:
+    """True when :func:`load_or_build` would take the cache path.  A
+    sharded index writes only ``{path}_shard{k}.npz``, never the base
+    ``{path}.npz``: with ``sharded`` any shard archive counts, without it
+    only the base archive (the two caches are distinct)."""
+    if sharded:
+        return bool(shard_archives(index_path))
     path = normalize_npz(index_path)
     return path is not None and os.path.exists(path)
 
@@ -77,7 +95,8 @@ def migrate_archive(path: str, *, chunk_symbols: int = 1 << 20,
     epoch = int(meta[4]) if meta.size > 4 else 0
     alphabet = _alphabet_by_base(base)
     s_padded = np.asarray(blobs.pop("s_padded"), np.uint8)
-    # the stored string is terminal-PADDED, so the real length is where
+    # the stored string is terminal-PADDED and shard archives carry the
+    # full string whatever their leaf count, so the real length is where
     # the terminal first appears (it only ever occurs at the end)
     term = np.flatnonzero(s_padded == alphabet.terminal_code)
     if term.size == 0:
@@ -104,9 +123,25 @@ def migrate_archive(path: str, *, chunk_symbols: int = 1 << 20,
     return True
 
 
+def migrate_archives(index_path: str, *, chunk_symbols: int = 1 << 20,
+                     verify: bool = True) -> list[str]:
+    """Migrate a cache path's byte archives to dense storage: the base
+    ``{path}.npz`` (if present) and every ``{path}_shard{k}.npz`` sibling.
+    Returns the archive files actually migrated."""
+    done = []
+    base = normalize_npz(index_path)
+    targets = [base] if base and os.path.exists(base) else []
+    targets += shard_archives(index_path)
+    for f in targets:
+        if migrate_archive(f, chunk_symbols=chunk_symbols, verify=verify):
+            done.append(f)
+    return done
+
+
 def load_or_build(index_path: str | None, dataset_name: str, n: int,
                   seed: int, *, load: Callable, build: Callable,
-                  dev_of: Callable = lambda obj: obj):
+                  dev_of: Callable = lambda obj: obj,
+                  sharded: bool = False):
     """Load ``load(path)`` from the npz cache, else ``build(s, alphabet)``
     and save.  ``dev_of`` extracts the underlying DeviceIndex (``eng.dev``
     for analytics_serve) for validation and string recovery.  Returns
@@ -114,10 +149,14 @@ def load_or_build(index_path: str | None, dataset_name: str, n: int,
 
     A cache hit serves whatever string the npz was built from: the
     alphabet base must match, an ``n`` mismatch prints a notice, and
-    ``seed`` is not validated (the string comes from the npz itself)."""
-    path = normalize_npz(index_path)
+    ``seed`` is not validated (the string comes from the npz itself).
+    ``sharded`` takes the per-shard archives (``{path}_shard{k}.npz``):
+    any shard archive is a hit, ``load``/``build(...).save`` are the
+    :class:`ShardedIndex` pair (which add the suffixes), and the string
+    recovered is the full one."""
+    path = index_path if sharded else normalize_npz(index_path)
     t0 = time.perf_counter()
-    if will_load(index_path):
+    if path and will_load(index_path, sharded=sharded):
         obj = load(path)
         dev = dev_of(obj)
         s = dev.string_codes()  # n_leaves symbols == |S|, any representation

@@ -1341,3 +1341,113 @@ def test_cuda_append_equals_rebuild(cuda_device):
     assert dev2.epoch == dev.epoch + 1 and not rep.partition_fallback
     assert rep.leaves_rebuilt + rep.leaves_reused == dev2.n_leaves
     _assert_same_index(ix.build_device(s_new), dev2)
+
+
+# ---- the sharded fabric on one card ------------------------------------------
+
+def _fabric_pair(name):
+    """A 2^20 index built once and over a 4-entry ``cuda:0`` mesh."""
+    s, a, ix = _stream_indexer(name, 1 << 20)
+    one_shot = ix.build_device(s)
+    mesh = [torch.device("cuda", 0)] * 4
+    ops.reset_launch_counts()
+    sh = ix.build_sharded(s, n_shards=4, mesh=mesh)
+    return s, a, one_shot, sh, ops.launch_counts()
+
+
+def _fabric_patterns(s, a, k_route):
+    rng = np.random.default_rng(5)
+    pats = [s[i:i + m] for m in (3, k_route - 1, k_route, 12)
+            for i in rng.integers(0, len(s) - 13, 16)]
+    pats += [rng.integers(0, len(a.symbols), 9).astype(np.uint8)
+             for _ in range(8)]
+    # every one-symbol route: a cut inside one is crossed
+    return pats + [np.array([c], np.uint8) for c in range(len(a.symbols))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernels,search", [
+    ("genome", ("range_gather_words", "kmer_histogram"),
+     "search_bounds_words"),
+    ("protein", ("range_gather_pack", "lcp_pairs"), "search_bounds_bytes")])
+def test_cuda_fabric_build_equals_build_device(cuda_device, name, kernels,
+                                              search):
+    """``build_sharded`` over ``[cuda:0] * 4`` at 2^20: the flat table
+    equals ``build_device``'s, the prepare launched the build's kernels,
+    finds (fanned out over shards) equal the one-shot's, and each shard's
+    sub-batch is one search launch."""
+    s, a, one_shot, sh, counts = _fabric_pair(name)
+    for k in kernels:
+        assert counts[k] > 0, k
+    assert sh.n_shards == 4 and sh.mesh == [torch.device("cuda", 0)] * 4
+    assert all(d == torch.device("cuda", 0) for d in sh.devices)
+    prefixes, freqs, ell = sh.flat_table()
+    plen = one_shot.sub_plen.cpu().numpy()
+    pref = one_shot.sub_prefix.cpu().numpy()
+    assert prefixes == [tuple(int(c) for c in pref[t, :plen[t]])
+                        for t in range(len(plen))]
+    assert np.array_equal(freqs, one_shot.sub_freq.cpu().numpy())
+    assert np.array_equal(ell, one_shot.ell_host)
+    assert np.array_equal(sh.string_codes(), one_shot.string_codes())
+    pats = _fabric_patterns(s, a, sh.k_route)
+    assert any(hi > lo for lo, hi in map(sh.shard_span, pats))
+    for x, y in zip(one_shot.find_batch(pats), sh.find_batch(pats)):
+        assert np.array_equal(x, y)
+    want_pos, want_win = one_shot.find_fetch_batch(pats, fetch=32)
+    got_pos, got_win = sh.find_fetch_batch(pats, fetch=32)
+    assert np.array_equal(want_win, got_win)
+    for x, y in zip(want_pos, got_pos):
+        assert np.array_equal(x, y)
+    for k, idxs in sh._split_batch(pats).items():
+        shard = sh.shards[k]
+        ops.reset_launch_counts()
+        shard.find_batch_ranges(*shard.pad_batch([pats[i] for i in idxs]))
+        torch.cuda.synchronize()
+        got = {n: c for n, c in ops.launch_counts().items() if c}
+        assert got == {search: 1}, (k, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", [0, 32])
+def test_cuda_fabric_dispatch_never_syncs(cuda_device, monkeypatch, fetch):
+    """The sharded ``AsyncServer`` dispatches every batch under
+    ``set_sync_debug_mode("error")`` with ``torch.cuda.synchronize``
+    patched to raise, one search (or find-and-fetch) launch per shard
+    sub-batch, and answers as the single-index server."""
+    from repro_torch.launch.serving import AsyncServer, ServeConfig
+
+    s, a, one_shot, sh, _ = _fabric_pair("genome")
+    pats = _fabric_patterns(s, a, sh.k_route) * 3
+    kernel = "search_fetch_words" if fetch else "search_bounds_words"
+    cfg = ServeConfig(pipeline=True, cache_size=256, max_batch=64,
+                      fetch=fetch)
+    want = AsyncServer(one_shot, cfg).serve(pats)
+
+    class Checked(AsyncServer):
+        def _dispatch(self):
+            before = ops.launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                flight = super()._dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if flight is not None:
+                got = {n: c - before[n] for n, c in ops.launch_counts().items()
+                       if c != before[n]}
+                subs = len(flight.out)
+                assert got == ({kernel: subs} if subs else {}), got
+                assert len(flight.ready) == subs
+            return flight
+
+    def no_sync(*args, **kw):
+        raise AssertionError("torch.cuda.synchronize in the serving loop")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    srv = Checked(sh, cfg)
+    got = srv.serve(pats)
+    monkeypatch.undo()
+    assert srv.sharded and srv.stats()["cache"]["hits"] > 0
+    for (wp, ww), (gp, gw) in zip(want, got):
+        assert np.array_equal(wp, gp)
+        if fetch:
+            assert np.array_equal(ww, gw)

@@ -360,15 +360,25 @@ def test_update_index_flushes_on_epoch_change(devs, workload):
 
 
 def test_sharded_backend_refused(devs):
-    _, tdev, _ = devs
-
-    class Sharded:
-        shards = [tdev]
-
-    with pytest.raises(NotImplementedError, match="A12"):
-        AsyncServer(Sharded())
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve_stream("dna", n=500, shards=2, device="cpu")
+    """The sharded backend, refused until the fabric was ported, now
+    serves: an AsyncServer over a ShardedIndex keeps a route cache per
+    shard and answers as the single index, and ``serve_stream(shards=2)``
+    runs."""
+    _, tdev, s = devs
+    ix = EraIndexer(ALPHABETS["dna"], EraConfig(
+        memory_bytes=1 << 12, build_impl="none", packing="dense"),
+        device="cpu")
+    sh = ix.build_sharded(s, n_shards=2, mesh=["cpu"] * 2,
+                          max_pattern_len=64)
+    server = AsyncServer(sh, ServeConfig(max_wait_ms=0.0))
+    assert server.sharded and len(server.caches) == sh.n_shards == 2
+    pats = [s[i:i + m] for m in (2, 6) for i in range(0, 300, 7)]
+    for (a, _), b in zip(server.serve(pats), tdev.find_batch(pats)):
+        np.testing.assert_array_equal(a, b)
+    report = serve_stream("dna", n=500, shards=2, device="cpu",
+                          mode="cached", requests=64)
+    assert report["cached"]["served"] == 64
+    assert len(report["cached"]["cache"]["per_shard"]) == 2
 
 
 def test_serve_stream_all_modes_cpu(tmp_path):

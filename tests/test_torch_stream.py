@@ -478,6 +478,8 @@ def test_stream_modules_import_no_jax():
             "import repro_torch.core.iomodel, repro_torch.launch.warmstart\n"
             "import repro_torch.data.strings, repro_torch.core.prepare\n"
             "import repro_torch.launch.stream_bench\n"
+            "import repro_torch.core.fabric, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.shard_run\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")
