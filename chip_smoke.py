@@ -34,6 +34,12 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   cached mode over the four shards, ``append_sharded`` and the per-shard
   archives (``migrate_archives``, ``ShardedIndex.load``,
   ``load_or_build(sharded=True)``);
+* the paper's serial engine and the worker driver —
+  ``EraConfig(construction="serial")`` builds of both strings (one group's
+  elastic loop at a time) against the batched engine's sub-trees, the
+  serial node builders (``build_impl`` numpy, scan, parallel) at 2^20,
+  ``era_run.build_distributed`` (four workers, one failed mid-run, a
+  checkpoint) and the ``era_run`` command line in both modes;
 * find-and-fetch serving on both indexes — ``DeviceIndex.find_fetch_batch``
   (one ``search_fetch_words`` launch a batch on DNA, one
   ``search_fetch_bytes`` launch on the protein byte text, one
@@ -174,6 +180,20 @@ Phases, each printing one JSON line:
               ``migrate_archives``, loaded onto the card, answering as
               before, and a ``load_or_build(sharded=True)`` cache hit
               with the full string;
+6f. serial / serial_nodes / era_run — per dataset the batched
+              ``build(build_impl="none")`` and the serial engine's
+              ``build`` (counted), every sub-tree's ``ell``, ``b_off``,
+              ``b_c1`` and ``b_c2`` equal, ``t_prepare_s`` of both beside
+              ``build_device``'s, iterations and launches; genome at
+              2^20 built serially under ``build_impl`` numpy, scan and
+              parallel, every node set equal to the batched tree's
+              (intervals), scan's arrays equal to numpy's;
+              ``build_distributed`` at 2^27 (4 workers, 4 groups a pull,
+              a checkpoint under ``build/``, ``w1`` failed after 2
+              groups) equal to the batched build, the queue's stats and
+              each worker's groups and seconds; ``python -m
+              repro_torch.launch.era_run`` at 2^20 as a subprocess in the
+              worker and ``--stream`` modes, each exiting 0;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg; then a
               profiled warm byte-leg build (``build_profile``,
@@ -229,6 +249,7 @@ serving, the terminal-bearing check, the find-and-fetch calls of each
 find_fetch phase, the fetch 0 and the fetch 32 passes of each
 serving_stack phase, each stream build, the append, each fabric build,
 each fabric_find batch, the fabric serving passes, the fabric append,
+each serial build, the serial node builds, ``build_distributed``,
 each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run and the LM check) and read
@@ -261,8 +282,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak (data sheet)
+# the card's figures (repro_torch/roofline/hopper.HopperLimits: memory
+# rate, 32-bit non-tensor and bf16 tensor-core peaks), which every bound
+# divides by; set by main once the package is importable
+LIMITS = None
 DNA_KERNELS = ("range_gather_words", "search_bounds_words", "kmer_histogram")
 TERMINAL_KERNELS = ("search_bounds_packed",)
 PROTEIN_KERNELS = ("kmer_histogram", "range_gather_pack", "lcp_pairs",
@@ -334,9 +357,16 @@ FABRIC_KERNELS = {"genome": ("range_gather_words",),
 FABRIC_SHORT = 6      # patterns shorter than k_route in fabric_find's 256
 MIGRATE_LOG2 = 22     # the byte archive migrated to dense storage
 FASTA_RECORDS = 4     # records of the genome FASTA file (80-column lines)
+# the serial engine and the worker driver (phases serial, serial_nodes,
+# era_run): the kernels every serial build launches, the node builders'
+# string (2^20), the era_run subprocesses' too, and the queue's shape
+SERIAL_KERNELS = {"genome": ("kmer_histogram", "range_gather_words"),
+                  "protein": ("kmer_histogram", "range_gather_pack",
+                              "lcp_pairs")}
+SERIAL_NODES_LOG2 = 20
+ERA_WORKERS, ERA_PULL, ERA_FAIL_AFTER = 4, 4, 2
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
 SERVE_REQUESTS = 1 << 14
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 # Decode against prefill in float32 over 28 layers, as a share of the
 # largest logit: the decode's _sdpa and one-row products sum in another
 # order than the prefill's kernel and 513-row products (measured 6.4e-7).
@@ -389,8 +419,8 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(least milliseconds, "bytes" | "operations") for the given work."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_bytes = nbytes / LIMITS.hbm_bytes_per_s * 1e3
+    t_ops = ops / LIMITS.int32_ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -976,8 +1006,8 @@ def flash_row(cuda, cases: list) -> dict:
     k, v = (torch.randn((b, s, kv, d), generator=gen, device=cuda
                         ).to(torch.bfloat16) for _ in range(2))
     nbytes, flops = attention_work(b, s, s, h, kv, d, 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / LIMITS.hbm_bytes_per_s * 1e3
+    t_ops = flops / LIMITS.bf16_flops * 1e3
     path = [c for c in cases if c["shape"] == [b, s, s, h, kv, d]
             and c["dtype"] == "bfloat16"]
     # 10 back-to-back calls a window: the wrapper's host work (three
@@ -1015,6 +1045,161 @@ def _to_device(tree, device):
     return {k: _to_device(v, device) for k, v in tree.items()}
 
 
+# ---- the serial engine and the worker driver ------------------------------
+
+def require_same_subtrees(got: dict, want: dict, what: str) -> None:
+    """Every sub-tree's ``ell``, ``b_off``, ``b_c1`` and ``b_c2`` equal."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: the sub-tree prefixes differ")
+    for p, st in want.items():
+        for f in ("ell", "b_off", "b_c1", "b_c2"):
+            if not np.array_equal(getattr(got[p], f), getattr(st, f)):
+                raise AssertionError(f"{what}: sub-tree {p} {f} differs")
+
+
+def serial_phase(name: str, sx: np.ndarray, ax, cfg, t_one_shot: float):
+    """The batched ``build(build_impl="none")`` and the serial engine's
+    (``construction="serial"``) of the same string, the serial one
+    counted; every sub-tree equal.  Returns (batched sub-trees, counts)."""
+    import dataclasses
+    from repro_torch.core.api import BuildReport, EraIndexer
+    from repro_torch.core.prepare import PrepareStats
+    from repro_torch.core.vertical import VerticalStats
+    from repro_torch.kernels import ops
+    base = dataclasses.replace(cfg, build_impl="none")
+    rep_b = BuildReport(VerticalStats(), PrepareStats())
+    t0 = time.perf_counter()
+    batched = EraIndexer(ax, base).build(sx, rep_b)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    rep_s = BuildReport(VerticalStats(), PrepareStats())
+    t0 = time.perf_counter()
+    serial = EraIndexer(ax, dataclasses.replace(
+        base, construction="serial")).build(sx, rep_s)
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t0
+    got = counts_now()
+    require_same_subtrees(serial.subtrees, batched.subtrees,
+                          f"{name} serial")
+    require_launches(got, SERIAL_KERNELS[name], f"the {name} serial build")
+    emit({"phase": "serial", "dataset": name, "n": len(sx) - 1,
+          "groups": rep_s.n_groups, "subtrees": len(serial.subtrees),
+          "capacity": rep_s.capacity, "t_prepare_s": rep_s.t_prepare,
+          "batched_t_prepare_s": rep_b.t_prepare,
+          "build_device_t_prepare_s": t_one_shot,
+          "serial_vs_batched": rep_s.t_prepare / rep_b.t_prepare,
+          "t_total_s": t_serial, "batched_t_total_s": t_batched,
+          "iterations": rep_s.prepare.iterations,
+          "batched_iterations": rep_b.prepare.iterations,
+          "symbols_fetched": rep_s.prepare.symbols_fetched,
+          "batched_symbols_fetched": rep_b.prepare.symbols_fetched,
+          "equal_to_batched": True, "launches": got})
+    return batched.subtrees, got
+
+
+def serial_nodes_phase(n_log2: int) -> dict:
+    """Genome at 2^n_log2: the serial engine under ``build_impl`` numpy,
+    scan and parallel (counted together); every node set equal to the
+    batched tree's, the scan's arrays equal to the stack builder's."""
+    from repro_torch.core.alphabet import ALPHABETS
+    from repro_torch.core.api import EraConfig, EraIndexer
+    from repro_torch.core.build import nodes_to_host, nodes_to_intervals
+    from repro_torch.data.strings import dataset
+    from repro_torch.kernels import ops
+    sx, ax = dataset("genome", 1 << n_log2, seed=0)
+    t0 = time.perf_counter()
+    tree = EraIndexer(ax, EraConfig()).build(sx)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    want = {p: nodes_to_intervals(st.nodes)
+            for p, st in tree.subtrees.items()}
+    ops.reset_launch_counts()
+    seconds, built = {}, {}
+    for impl in ("numpy", "scan", "parallel"):
+        t0 = time.perf_counter()
+        idx = EraIndexer(ax, EraConfig(construction="serial",
+                                       build_impl=impl)).build(sx)
+        torch.cuda.synchronize()
+        seconds[impl] = time.perf_counter() - t0
+        require_same_subtrees(idx.subtrees, tree.subtrees,
+                              f"serial_nodes {impl}")
+        built[impl] = {p: nodes_to_host(st.nodes)
+                       for p, st in idx.subtrees.items()}
+        for p, iv in want.items():
+            if nodes_to_intervals(built[impl][p]) != iv:
+                raise AssertionError(f"serial_nodes {impl}: sub-tree {p}'s "
+                                     f"nodes differ from the batched tree's")
+    got = counts_now()
+    for p, a in built["numpy"].items():  # one algorithm, two walks
+        b = built["scan"][p]
+        if not all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3])) \
+                or a.n_nodes != b.n_nodes:
+            raise AssertionError(f"serial_nodes: scan and numpy differ at {p}")
+    require_launches(got, SERIAL_KERNELS["genome"], "the serial_nodes builds")
+    emit({"phase": "serial_nodes", "dataset": "genome", "n": len(sx) - 1,
+          "subtrees": len(tree.subtrees),
+          "internal_nodes": sum(len(v) for v in want.values()),
+          "t_total_s": seconds, "batched_tree_t_total_s": t_batched,
+          "equal_to_batched_tree": True, "launches": got})
+    return got
+
+
+def era_run_phase(sx: np.ndarray, ax, cfg, want: dict, n_sub_log2: int):
+    """``build_distributed``: 4 workers, 4 groups a pull, a checkpoint
+    under build/, worker w1 failed after 2 groups (counted), equal to the
+    batched build's sub-trees; then ``python -m repro_torch.launch.era_run``
+    at 2^n_sub_log2 in both modes as subprocesses that must exit 0."""
+    import dataclasses
+    import os
+    from repro_torch.kernels import ops
+    from repro_torch.launch.era_run import build_distributed
+    ckpt = ROOT / "build" / "era_run_groups.jsonl"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    ckpt.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx, qstats, workers = build_distributed(
+        sx, ax, dataclasses.replace(cfg, build_impl="none"),
+        n_workers=ERA_WORKERS, checkpoint_path=str(ckpt),
+        fail_worker="w1", fail_after=ERA_FAIL_AFTER,
+        groups_per_pull=ERA_PULL)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    got = counts_now()
+    require_same_subtrees(idx.subtrees, want, "era_run build_distributed")
+    records = ckpt.read_text().splitlines()
+    if qstats["done"] != qstats["total"] or len(records) != qstats["total"]:
+        raise AssertionError(f"era_run: {qstats} with {len(records)} "
+                             f"checkpoint records")
+    if (qstats["total"] > ERA_PULL + ERA_FAIL_AFTER
+            and qstats["reattempts"] < 1):  # w1 held a group past its 2nd
+        raise AssertionError("era_run: the failed worker's groups were "
+                             "never re-dispatched")
+    require_launches(got, SERIAL_KERNELS["genome"], "the era_run build")
+    emit({"phase": "era_run", "mode": "build_distributed",
+          "n": len(sx) - 1, "t_total_s": t_total, "queue": qstats,
+          "checkpoint_records": len(records),
+          "workers": [{"worker": w.worker, "groups": w.groups,
+                       "seconds": w.seconds} for w in workers],
+          "equal_to_batched": True, "launches": got})
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for mode in ([], ["--stream", "--device-budget-mb", "8"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.era_run",
+               "--dataset", "genome", "--n", str(1 << n_sub_log2), *mode]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        emit({"phase": "era_run", "mode": "stream" if mode else "workers",
+              "cmd": " ".join(cmd[1:]), "rc": out.returncode,
+              "t_wall_s": time.perf_counter() - t0,
+              "stdout": out.stdout.strip().splitlines(),
+              "stderr_tail": out.stderr.strip().splitlines()[-5:]})
+        if out.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited {out.returncode}")
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-log2", type=int, default=27,
@@ -1024,6 +1209,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    global LIMITS
+    from repro_torch.roofline.hopper import HopperLimits
+    LIMITS = HopperLimits()
     from repro_torch.core import build as tbuild
     from repro_torch.core import fabric
     from repro_torch.core import packing
@@ -1933,13 +2121,13 @@ def main() -> int:
         a byte string, ``range_gather_packed`` in the byte leg),
         ``kmer_histogram`` the string once per launch."""
         b = {k: ((5 * counts[f"{k}_rows"] + 4 * counts[f"{k}_words"])
-                 / HBM_BYTES_PER_S * 1e3) for k in GATHERS}
+                 / LIMITS.hbm_bytes_per_s * 1e3) for k in GATHERS}
         byte = ("range_gather_pack", "range_gather_packed")
         b["lcp_pairs"] = ((8 * sum(counts[f"{k}_words"] for k in byte)
                            + 12 * sum(counts[f"{k}_rows"] for k in byte))
-                          / HBM_BYTES_PER_S * 1e3)
+                          / LIMITS.hbm_bytes_per_s * 1e3)
         b["kmer_histogram"] = (counts["kmer_histogram"] * n_sym
-                               / HBM_BYTES_PER_S * 1e3)
+                               / LIMITS.hbm_bytes_per_s * 1e3)
         return b
 
     def build_profile(name: str, sx: np.ndarray, ax, t_prepare_s: float,
@@ -3344,6 +3532,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 6f. the serial engine and the worker driver ----------------------
+    # (counted): the serial builds of both strings against the batched
+    # engine's sub-trees, the node builders at 2^20, build_distributed
+    # with a failed worker and the era_run command line
+    serial_counts = []
+    for name, sx, ax in (("genome", s_dna, alpha),
+                         ("protein", s_prot, protein)):
+        batched_sub, got = serial_phase(name, sx, ax, cfg,
+                                        one_shot[name]["t_prepare_s"])
+        serial_counts.append(got)
+        if name == "genome":
+            genome_sub = batched_sub
+        del batched_sub
+        gc.collect()
+        torch.cuda.empty_cache()
+    serial_counts.append(serial_nodes_phase(SERIAL_NODES_LOG2))
+    serial_counts.append(era_run_phase(s_dna, alpha, cfg, genome_sub,
+                                       SERIAL_NODES_LOG2))
+    del genome_sub
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 6. the tree + analytics path per dataset (counted) ----------------
     def tree_path(name: str, sx: np.ndarray, ax) -> dict:
         """EraIndexer.build (node_lcp="words") -> SuffixTreeIndex ->
@@ -3769,7 +3979,7 @@ def main() -> int:
              *dna_serve_counts.values(), prot_counts, prot_ff_counts,
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
-             *stream_counts, append_counts, *fabric_counts]
+             *stream_counts, append_counts, *fabric_counts, *serial_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -22,13 +22,19 @@ build and extend a :class:`repro_torch.core.fabric.ShardedIndex`: the
 prepare over a mesh of devices, the leaf arrays cut into route-key
 shards.
 
+``EraConfig(construction="serial")`` makes :meth:`EraIndexer.build` the
+paper's serial engine (§4): one group at a time through
+:func:`repro_torch.core.prepare.subtree_prepare`, then the per-prefix
+builder ``build_impl`` names (``numpy``, ``scan`` or ``parallel``); the
+arrays equal the batched engine's.  :meth:`EraIndexer.process_groups`
+is the unit of work of the worker driver
+(:mod:`repro_torch.launch.era_run`).
+
 ``EraConfig.packing`` picks the text as in the JAX package: ``auto``
 packs alphabets below 8 bits (DNA, protein classes) dense and keeps
 protein, english and byte strings one byte per symbol; ``bytes`` keeps any
 alphabet byte per symbol.  Everything runs on the indexer's ``device``
-(``"cuda"`` by default; ``"cpu"`` runs every kernel's plain version).  The
-serial engine is a later slice of the port and is refused with
-``NotImplementedError`` naming its ROADMAP item (A14).
+(``"cuda"`` by default; ``"cpu"`` runs every kernel's plain version).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from repro_torch.core.prepare import (
     PrepareStats,
     StreamReport,
     segments_of,
+    subtree_prepare,
     subtree_prepare_batch,
     subtree_prepare_stream,
 )
@@ -60,7 +67,6 @@ from repro_torch.core.vertical import (
 from repro_torch.kernels import ops as kops
 
 NODE_BYTES = 16  # sizeof(tree_node): parent + depth + witness + pad (SoA)
-_BUILD_IMPLS = ("numpy", "scan", "parallel", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +82,10 @@ class EraConfig:
     static_w: int = 16             # used when elastic=False (Fig. 9b ablation)
     group: bool = True             # virtual trees on/off (Fig. 9a ablation)
     vertical_strategy: str = "histogram"  # or "positions" (beyond-paper)
-    build_impl: str = "numpy"      # "none" skips nodes; batched builds use the parallel builder
-    construction: str = "batched"  # batched (one (G,F) loop) | serial
+    build_impl: str = "numpy"      # numpy | scan | parallel: the serial engine's
+    #                                per-prefix builder; "none" skips nodes;
+    #                                batched builds use the parallel builder
+    construction: str = "batched"  # batched (one (G,F) loop) | serial (per group)
     packing: str = "auto"          # auto | dense | bytes (device string form)
     sort_fuse: bool | None = None  # None = REPRO_SORT (fused unless lexsort)
     compaction: bool | None = None  # None = REPRO_COMPACT (tail unless off)
@@ -180,6 +188,17 @@ def _terminal_affected_start(count_fn, s_new: np.ndarray, n_old_real: int,
     return 0
 
 
+# the serial engine's per-prefix builders (``repro.core.api._BUILDERS``):
+# host numpy, the scan's stack walk and the Cartesian-tree build, the last
+# two on the indexer's device
+_BUILDERS = {
+    "numpy": lambda ell, b, n, dev: build_mod.build_numpy(ell, b, n),
+    "scan": lambda ell, b, n, dev: build_mod.build_scan(ell, b, n, dev),
+    "parallel": lambda ell, b, n, dev: build_mod.build_parallel(
+        torch.from_numpy(ell).to(dev), torch.from_numpy(b).to(dev), n),
+}
+
+
 def _sorted_segments(groups):
     """(prefix, group_index, offset, freq) per sub-tree, sorted by prefix —
     prefix-freeness makes this the suffix-array order of the segments."""
@@ -230,18 +249,14 @@ class EraIndexer:
             raise ValueError(
                 f"unknown packing mode {config.packing!r}; "
                 "choose 'auto', 'dense' or 'bytes'")
-        if config.build_impl not in _BUILD_IMPLS:
+        if config.build_impl not in (*_BUILDERS, "none"):
             raise ValueError(
                 f"unknown build_impl {config.build_impl!r}; "
-                f"choose one of {sorted(_BUILD_IMPLS)}")
+                f"choose one of {sorted((*_BUILDERS, 'none'))}")
         if config.node_lcp not in ("state", "words"):
             raise ValueError(
                 f"unknown node_lcp {config.node_lcp!r}; "
                 "choose 'state' or 'words'")
-        if config.construction == "serial":
-            raise NotImplementedError(
-                "construction='serial' is not ported yet (ROADMAP A14); "
-                "the batched engine gives identical arrays")
         self.device = kops.resolve_device(device)
 
     def partition(self, s: np.ndarray, report: BuildReport | None = None):
@@ -307,6 +322,16 @@ class EraIndexer:
 
     # ---- sub-tree builds ---------------------------------------------------
 
+    def process_group(self, s_text, group, capacity: int,
+                      pstats: PrepareStats | None = None,
+                      group_index: int | None = None) -> list[SubTree]:
+        """SubTreePrepare + slicing for ONE virtual tree (the serial
+        engine's unit, ``repro.core.api.EraIndexer.process_group``)."""
+        state = subtree_prepare(s_text, group, capacity,
+                                self.config.elastic_config(), pstats,
+                                group_index=group_index)
+        return self._slice_subtrees(_HostState(state), group)
+
     def process_groups(self, s_text, groups, capacity: int,
                        pstats: PrepareStats | None = None
                        ) -> list[list[SubTree]]:
@@ -343,7 +368,38 @@ class EraIndexer:
         unless ``build_impl="none"``) on the indexer's device."""
         report = report if report is not None else BuildReport(
             VerticalStats(), PrepareStats())
-        return self._build_batched(s, report)
+        if self.config.construction == "batched":
+            return self._build_batched(s, report)
+        return self._build_serial(s, report)
+
+    def _build_serial(self, s: np.ndarray,
+                      report: BuildReport) -> SuffixTreeIndex:
+        """The paper's serial engine (``repro.core.api._build_serial``):
+        each group's own elastic loop, one after another, then each
+        sub-tree's nodes from ``build_impl``'s builder."""
+        groups = self.partition(s, report)
+        capacity = self._capacity(groups)
+        report.capacity = capacity
+        s_text = self._device_text(s)
+
+        t0 = time.perf_counter()
+        subtrees: dict[tuple, SubTree] = {}
+        for g_i, g in enumerate(groups):
+            for st in self.process_group(s_text, g, capacity, report.prepare,
+                                         group_index=g_i):
+                subtrees[st.prefix] = st
+        report.t_prepare = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        if self.config.build_impl != "none":
+            builder = _BUILDERS[self.config.build_impl]
+            for st in subtrees.values():
+                st.nodes = builder(st.ell.astype(np.int32),
+                                   st.b_off.astype(np.int32), len(s),
+                                   self.device)
+        report.t_build = time.perf_counter() - t0
+        return SuffixTreeIndex(s=np.asarray(s), alphabet=self.alphabet,
+                               subtrees=subtrees, device=self.device)
 
     def _build_batched(self, s: np.ndarray,
                        report: BuildReport) -> SuffixTreeIndex:
@@ -425,16 +481,20 @@ class EraIndexer:
                      **device_kwargs):
         """String → :class:`repro_torch.core.query.DeviceIndex`.
 
-        The leaf arrays go straight from the (G, F) prepare state into
-        suffix-array order with one device gather — no per-prefix sub-tree
-        dict and no node build.  ``device_kwargs``: ``route_cap``,
-        ``max_pattern_len``, ``packing`` (defaults to the config's).
+        With the batched engine the leaf arrays go straight from the
+        (G, F) prepare state into suffix-array order with one device
+        gather — no per-prefix sub-tree dict and no node build.  The
+        serial engine builds the full index first and flattens it.
+        ``device_kwargs``: ``route_cap``, ``max_pattern_len``,
+        ``packing`` (defaults to the config's).
         """
         from repro_torch.core.query import DeviceIndex  # local: import cycle
 
         report = report if report is not None else BuildReport(
             VerticalStats(), PrepareStats())
         device_kwargs.setdefault("packing", self.config.packing)
+        if self.config.construction != "batched":
+            return self.build(s, report).to_device(**device_kwargs)
         groups, states, _ = self._prepare_batched(s, report)
         if states is None:
             raise ValueError("cannot flatten an empty index")
@@ -862,7 +922,8 @@ class EraIndexer:
 
 
 class _HostState:
-    """One bulk device→host transfer of a (G, F) state, sliceable per group."""
+    """One bulk device→host transfer of a (G, F) state (or one group's
+    (F,) state), sliceable per group."""
 
     def __init__(self, states):
         self.L = states.L.cpu().numpy()

@@ -24,7 +24,10 @@ from ``F`` upward (at most ``F`` of them).
   rows recomputed from the text (``EraConfig(node_lcp="words")``) through
   :func:`repro_torch.kernels.ops.suffix_lcp_pairs`, on the device.
 
-The serial ``build_scan`` waits for the serial engine (ROADMAP A14).
+* :func:`build_scan` — the same stack builder written as the JAX
+  package's ``lax.scan``: a fixed-depth stack array and its pointer
+  carried leaf by leaf, on the host; the serial engine's
+  ``build_impl="scan"``.
 """
 
 from __future__ import annotations
@@ -112,6 +115,61 @@ def build_numpy(ell: np.ndarray, b_off: np.ndarray, n_total: int) -> SubTreeNode
         stack.append(i)
 
     return SubTreeNodes(parent, depth, witness, f + n_internal, f)
+
+
+# ---------------------------------------------------------------------------
+# Faithful builder as the JAX package's scan (explicit fixed-depth stack)
+# ---------------------------------------------------------------------------
+
+def build_scan(ell, b_off, n_total: int, device=None) -> SubTreeNodes:
+    """``repro.core.build.build_scan``: the carry of its ``lax.scan`` —
+    the node arrays, a fixed-depth stack of ``f + 2`` slots, its pointer
+    and the internal-node count — walked leaf by leaf on host copies of
+    ``ell`` and ``b_off``, the inner pops the scan's ``while_loop``.  The
+    arrays have the ``2f`` slots and ``-1`` fill of the JAX builder's and
+    come back as int32 tensors on ``device`` (default: ``ell``'s, or the
+    CPU); ``n_nodes`` is an int.  Not on any build's hot path."""
+    if device is None:
+        device = ell.device if isinstance(ell, torch.Tensor) else "cpu"
+    ell = _host(ell).astype(np.int64).tolist()  # Python ints: a fast walk
+    b_off = _host(b_off).astype(np.int64).tolist()
+    f = len(ell)
+    cap = 2 * f
+    root = f
+    parent = [-1] * cap
+    depth = [0] * cap
+    witness = [-1] * cap
+    parent[0] = root
+    depth[0] = n_total - ell[0]
+    witness[root] = witness[0] = ell[0]
+    stack = [-1] * (f + 2)
+    stack[0], stack[1] = root, 0
+    sp, n_int = 1, 1
+    for i in range(1, f):
+        off = b_off[i]
+        last = -1
+        while depth[stack[sp]] > off:  # the scan's inner while_loop
+            last = stack[sp]
+            sp -= 1
+        top = stack[sp]
+        u = top
+        if depth[top] != off:  # break edge (top -> last) at depth off
+            t = f + n_int
+            parent[t] = top
+            depth[t] = off
+            witness[t] = witness[last]
+            parent[last] = t
+            sp += 1
+            stack[sp] = t
+            n_int += 1
+            u = t
+        parent[i] = u
+        depth[i] = n_total - ell[i]
+        witness[i] = ell[i]
+        sp += 1
+        stack[sp] = i
+    return SubTreeNodes(*(torch.tensor(a, dtype=torch.int32, device=device)
+                          for a in (parent, depth, witness)), f + n_int, f)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +263,10 @@ def build_parallel(ell, b_off, n_total: int) -> SubTreeNodes:
     f = ell.shape[0]
     if f == 1:
         e0 = int(ell[0])
-        return SubTreeNodes(
-            parent=torch.tensor([1, -1], dtype=torch.int32),
-            depth=torch.tensor([n_total - e0, 0], dtype=torch.int32),
-            witness=torch.tensor([e0, e0], dtype=torch.int32),
-            n_nodes=2, n_leaves=1)
+        return SubTreeNodes(*(torch.tensor(v, dtype=torch.int32,
+                                           device=ell.device)
+                              for v in ([1, -1], [n_total - e0, 0],
+                                        [e0, e0])), n_nodes=2, n_leaves=1)
     nodes = build_parallel_batch(ell[None], b_off[None], n_total)
     return SubTreeNodes(nodes.parent[0], nodes.depth[0], nodes.witness[0],
                         int(nodes.n_nodes[0]), f)
@@ -495,33 +552,36 @@ def unpad_nodes_rows(nodes: SubTreeNodes, freqs) -> list[SubTreeNodes]:
 # ---------------------------------------------------------------------------
 
 def nodes_to_intervals(nodes: SubTreeNodes):
-    """Internal-node intervals (leftmost leaf, rightmost leaf + 1, depth)."""
+    """Internal-node intervals (leftmost leaf, rightmost leaf + 1, depth),
+    sorted.  Every leaf walks to the root, all leaves one level a pass
+    (a pass per level of the deepest leaf), each node keeping the least
+    and largest leaf that reached it."""
     nodes = nodes_to_host(nodes)
-    parent = nodes.parent
+    parent = np.asarray(nodes.parent, np.int64)
     depth = nodes.depth
     f = nodes.n_leaves
     cap = len(parent)
     lo = np.full(cap, np.iinfo(np.int64).max)
     hi = np.full(cap, -1)
-    used = np.zeros(cap, dtype=bool)
-    for leaf in range(f):
-        v = leaf
-        steps = 0
-        while v != -1:
-            if steps > cap:
-                raise RuntimeError(f"parent cycle detected at leaf {leaf}")
-            lo[v] = min(lo[v], leaf)
-            hi[v] = max(hi[v], leaf)
-            used[v] = True
-            v = int(parent[v])
-            steps += 1
-    out = []
-    for v in range(f, cap):
-        if used[v] and hi[v] >= lo[v] and (hi[v] > lo[v] or f == 1):
-            out.append((int(lo[v]), int(hi[v]) + 1, int(depth[v])))
+    leaf = np.arange(f)
+    v = leaf.copy()
+    for _ in range(cap + 1):
+        if v.size == 0:
+            break
+        np.minimum.at(lo, v, leaf)
+        np.maximum.at(hi, v, leaf)
+        up = parent[v]
+        walking = up != -1
+        v, leaf = up[walking], leaf[walking]
+    else:
+        raise RuntimeError(f"parent cycle detected at leaf {int(leaf[0])}")
+    used = np.nonzero((np.arange(cap) >= f) & (hi >= lo)
+                      & ((hi > lo) | (f == 1)))[0]
+    out = sorted(zip(lo[used].tolist(), (hi[used] + 1).tolist(),
+                     np.asarray(depth)[used].tolist()))
     # A depth-0 (0, f) node is an artificial unary super-root iff another
     # node also spans all leaves (at the true minimum divergence depth).
     has_real_root = any(l == 0 and r == f and d > 0 for (l, r, d) in out)
     if has_real_root:
         out = [iv for iv in out if iv != (0, f, 0)]
-    return sorted(out)
+    return out

@@ -39,6 +39,10 @@ torch has no ``lexsort``):
 The host loop reads back the per-group active counts once per iteration,
 as the reference does; nothing else syncs.
 
+:func:`subtree_prepare` is the paper's serial engine: one group's loop at
+its own elastic range, the (1, F) case of the same step, sorting on the
+oracle keys with no compaction, as the JAX package's per-group step does.
+
 :func:`subtree_prepare_stream` is the out-of-core engine: the same loop
 over contiguous chunks of groups sized to a device budget
 (:func:`repro_torch.core.iomodel.plan_stream`), each chunk's state built
@@ -64,7 +68,8 @@ DONE = -1
 
 
 class PrepareState(NamedTuple):
-    """(G, F) state of the batched engine; every field is int32."""
+    """(G, F) state of the batched engine, (F,) for one group's loop
+    (:func:`subtree_prepare`); every field is int32."""
 
     L: torch.Tensor      # leaf positions (suffix offsets), -1 pad
     start: torch.Tensor  # symbols consumed so far per element
@@ -448,6 +453,75 @@ class PrepareStats:
     ranges: list = dataclasses.field(default_factory=list)
     active_history: list = dataclasses.field(default_factory=list)
     symbols_fetched: int = 0
+    record_offsets: bool = False  # keep per-iteration offsets for iomodel
+    offsets_history: list = dataclasses.field(default_factory=list)
+
+
+def _record_offsets(stats: PrepareStats | None, state: PrepareState) -> None:
+    """Append the read offsets of every active row (``L + start``, int64,
+    in row order) when ``stats.record_offsets`` asks for them."""
+    if stats is not None and stats.record_offsets:
+        act = state.area >= 0
+        stats.offsets_history.append(
+            (state.L + state.start)[act].cpu().numpy().astype(np.int64))
+
+
+def init_state(group: VirtualTree, capacity: int,
+               device="cuda") -> PrepareState:
+    """One group's occurrence lists as padded (capacity,) state tensors
+    (``repro.core.prepare.init_state``): each prefix's segment gets its
+    own initial area, frequency-1 prefixes are born resolved."""
+    return PrepareState(*(t[0] for t in init_batch([group], capacity,
+                                                   device)))
+
+
+def subtree_prepare(
+    text,
+    group: VirtualTree,
+    capacity: int,
+    cfg: ElasticConfig = ElasticConfig(),
+    stats: PrepareStats | None = None,
+    max_iters: int = 10_000,
+    group_index: int | None = None,
+) -> PrepareState:
+    """Run SubTreePrepare to completion for ONE virtual tree — the paper's
+    serial engine (``repro.core.prepare.subtree_prepare``), on the device
+    that holds ``text``.
+
+    The group's own elastic range drives every iteration.  Like the JAX
+    package's per-group step, it sorts on the multi-lane oracle keys with
+    no compaction, whatever ``EraConfig.sort_fuse`` / ``compaction`` say;
+    ``REPRO_WORD_COMPARE=byte`` runs a dense text on byte keys.  The step
+    is :func:`prepare_step` on a (1, F) state; the host reads the active
+    count once per iteration.  Returns the (F,) state.
+    """
+    word_keys = kops._use_word_compare()
+    state = PrepareState(*(t[None] for t in init_state(group, capacity,
+                                                        text.device)))
+    n_active = int((state.area >= 0).sum())
+    it = 0
+    while n_active > 0:
+        w = elastic_range(cfg, n_active)
+        if it >= max_iters:
+            raise RuntimeError(
+                "SubTreePrepare failed to converge after "
+                f"{it} iterations: group="
+                f"{group_index if group_index is not None else '?'} "
+                f"({len(group.prefixes)} prefixes, "
+                f"total_freq={group.total_freq}), "
+                f"w={w}, n_active={n_active}")
+        _record_offsets(stats, state)
+        state, n_active_dev = prepare_step(text, state, w=w,
+                                           sort_fuse=False,
+                                           word_keys=word_keys)
+        if stats is not None:
+            stats.iterations += 1
+            stats.ranges.append(w)
+            stats.active_history.append(n_active)
+            stats.symbols_fetched += n_active * w
+        n_active = int(n_active_dev.cpu()[0])  # the one sync per iteration
+        it += 1
+    return PrepareState(*(t[0] for t in state))
 
 
 def subtree_prepare_batch(
@@ -490,6 +564,7 @@ def subtree_prepare_batch(
             raise RuntimeError(
                 f"SubTreePrepare failed to converge after {it} iterations "
                 f"(w={w}, {len(live)}/{len(groups)} groups active): {detail}")
+        _record_offsets(stats, states)
         f_prime = (compaction_width(int(n_active.max()), capacity)
                    if compact else None)
         if f_prime is not None:

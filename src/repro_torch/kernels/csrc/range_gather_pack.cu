@@ -41,7 +41,12 @@
 
 #include "byte_read.cuh"
 
-constexpr int kThreads = 256;
+// The threads a block.  launch/block_sweep.py builds this source at
+// other blocks (-DERA_BLOCK_THREADS) to time them; the port builds 256.
+#ifndef ERA_BLOCK_THREADS
+#define ERA_BLOCK_THREADS 256
+#endif
+constexpr int kThreads = ERA_BLOCK_THREADS;
 
 // __byte_perm selector of the key at byte k (0..3) of the lower word:
 // result byte 3 (most significant) = memory byte k, ..., byte 0 = k + 3

@@ -41,7 +41,12 @@
 
 #include "dense_read.cuh"
 
-constexpr int kThreads = 256;
+// The threads a block.  launch/block_sweep.py builds this source at
+// other blocks (-DERA_BLOCK_THREADS) to time them; the port builds 256.
+#ifndef ERA_BLOCK_THREADS
+#define ERA_BLOCK_THREADS 256
+#endif
+constexpr int kThreads = ERA_BLOCK_THREADS;
 
 __device__ __forceinline__ int clamp_rem(long long n_real, int off) {
   long long r = n_real - (long long)off;

@@ -45,6 +45,12 @@
 
 #include "byte_read.cuh"
 
+// The threads a block.  launch/block_sweep.py builds this source at
+// other blocks (-DERA_BLOCK_THREADS) to time them; the port builds 256.
+#ifndef ERA_BLOCK_THREADS
+#define ERA_BLOCK_THREADS 256
+#endif
+
 static constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // __byte_perm selector of the key at byte k (0..3) of the lower word:
@@ -101,7 +107,7 @@ __device__ __forceinline__ void read_keys(const uint8_t* __restrict__ s,
 // until one differs or w symbols agree.  Adjacent pairs of a warp read in
 // lock-step chunks so a shared suffix can be passed by shuffle.
 template <int NW>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(ERA_BLOCK_THREADS)
 suffix_lcp_pairs_kernel(const uint8_t* __restrict__ s, long long n_s,
                         const int32_t* __restrict__ pos_a,
                         const int32_t* __restrict__ pos_b, long long b,
@@ -155,7 +161,7 @@ template <int NW>
 static cudaError_t launch(const uint8_t* s, long long n_s, const int32_t* a,
                           const int32_t* b_, long long b, int nw,
                           int32_t* out, cudaStream_t st) {
-  const int threads = 256;
+  const int threads = ERA_BLOCK_THREADS;
   long long blocks = (b + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;  // grid-stride beyond this
   suffix_lcp_pairs_kernel<NW><<<(unsigned)blocks, threads, 0, st>>>(

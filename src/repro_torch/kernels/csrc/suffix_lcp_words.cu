@@ -51,6 +51,12 @@
 
 #include <cstdint>
 
+// The threads a block.  launch/block_sweep.py builds this source at
+// other blocks (-DERA_BLOCK_THREADS) to time them; the port builds 256.
+#ifndef ERA_BLOCK_THREADS
+#define ERA_BLOCK_THREADS 256
+#endif
+
 static constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // Output words j0 .. j0 + C - 1 of the suffix whose first symbol lies in
@@ -89,7 +95,7 @@ __device__ __forceinline__ void read_chunk(const uint32_t* __restrict__ words,
 // one differs or the pair's limit is reached.  Adjacent pairs of a warp
 // read in lock-step chunks so a shared suffix can be passed by shuffle.
 template <int BITS, int NW>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(ERA_BLOCK_THREADS)
 suffix_lcp_words_kernel(const uint32_t* __restrict__ words, long long n_words,
                         const int32_t* __restrict__ pos_a,
                         const int32_t* __restrict__ pos_b, long long b,
@@ -168,7 +174,7 @@ struct Args {
 
 template <int BITS, int NW>
 cudaError_t launch(const Args& a) {
-  const int threads = 256;
+  const int threads = ERA_BLOCK_THREADS;
   long long blocks = (a.b + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;
   const int vec = ((uintptr_t)a.words & 15) == 0;

@@ -119,40 +119,49 @@ def _ms(fn, reps: int = 5) -> list[float]:
     return out
 
 
-def _device_ms(fn, reps: int = 20, key: str = "range_gather") -> float:
-    """Device milliseconds per call of the kernels named ``key`` that
-    ``fn`` launches, from ``torch.profiler`` (kernel time only: a small
-    launch's event window also holds the host's time to launch it)."""
+def _device_ms(fn, reps: int = 20, key: str = "range_gather") -> float | None:
+    """Device milliseconds per call of the kernel named ``key`` that ``fn``
+    launches once, from ``torch.profiler`` (kernel time only: a small
+    launch's event window also holds the host's time to launch it).  A
+    session seen to record other than ``reps`` such launches, which would
+    misread, is run again, up to three sessions; None (not measured) when
+    none recorded them all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if key in e.key)
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if key in e.key]
+        if sum(e.count for e in rows) == reps:
+            return sum(getattr(e, "self_device_time_total", 0)
+                       for e in rows) / 1e3 / reps
+    return None
 
 
 def in_turns(calls: dict, reps: int = 5, device: bool = False,
              key: str = "range_gather") -> dict:
     """Median ms of each call, timed in turns A, B, …, …, B, A: CUDA-event
     windows, or with ``device`` the profiler's kernel time (of the
-    kernels named ``key``)."""
+    kernels named ``key``, one launch a call) over the sessions that
+    recorded every launch, None when none did."""
     order = list(calls) + list(reversed(calls))
     times = {k: [] for k in calls}
     for k in order:
-        times[k] += ([_device_ms(calls[k], key=key)] if device
-                     else _ms(calls[k], reps))
-    return {k: float(np.median(v)) for k, v in times.items()}
+        if not device:
+            times[k] += _ms(calls[k], reps)
+        elif (ms := _device_ms(calls[k], key=key)) is not None:
+            times[k].append(ms)
+    return {k: float(np.median(v)) if v else None for k, v in times.items()}
 
 
-def compile_baseline(src: Path, names) -> dict[str, ctypes.CDLL]:
+def compile_baseline(src: Path, names, flags=()) -> dict[str, ctypes.CDLL]:
     """``src/<name>.cu`` for each name compiled (headers found in ``src``
-    first, then in the package's csrc/), one ``nvcc`` each, loaded with
-    ctypes."""
-    h = hashlib.sha256()
+    first, then in the package's csrc/; ``flags`` added to the package's),
+    one ``nvcc`` each, loaded with ctypes."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(src.iterdir()):
         h.update(p.name.encode() + p.read_bytes())
     out = _build.BUILD_ROOT.parent / "baseline" / h.hexdigest()[:16]
@@ -162,8 +171,9 @@ def compile_baseline(src: Path, names) -> dict[str, ctypes.CDLL]:
         lib = out / f"{name}.so"
         if not lib.exists():
             procs[name] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-I",
-                 str(_build.CSRC), "-o", str(lib), str(src / f"{name}.cu")],
+                [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(src),
+                 "-I", str(_build.CSRC), "-o", str(lib),
+                 str(src / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         log, _ = proc.communicate()

@@ -130,13 +130,26 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(construction="serial"), NotImplementedError, "A14"),
+    (dict(construction="serial"), None, None),
     (dict(construction="bogus"), ValueError, "construction"),
     (dict(packing="bogus"), ValueError, "packing"),
     (dict(build_impl="bogus"), ValueError, "build_impl"),
     (dict(node_lcp="bogus"), ValueError, "node_lcp"),
 ])
 def test_config_rejections(kw, exc, match):
+    """Unknown knobs are refused; ``construction="serial"`` is accepted
+    and builds the serial engine's index, equal to JAX's."""
+    if exc is None:
+        s = ALPHABETS["dna"].random_string(800, seed=1)
+        cfg = dict(memory_bytes=2048, r_bytes=64, **kw)
+        tidx = EraIndexer(ALPHABETS["dna"], EraConfig(**cfg),
+                          device="cpu").build(s)
+        from repro.core.alphabet import DNA
+        jidx = JIndexer(DNA, JConfig(**cfg)).build(s)
+        assert list(tidx.subtrees) == list(jidx.subtrees)
+        for p, st in jidx.subtrees.items():
+            np.testing.assert_array_equal(tidx.subtrees[p].ell, st.ell)
+        return
     with pytest.raises(exc, match=match):
         EraIndexer(ALPHABETS["dna"], EraConfig(**kw), device="cpu")
 

@@ -1451,3 +1451,36 @@ def test_cuda_fabric_dispatch_never_syncs(cuda_device, monkeypatch, fetch):
         assert np.array_equal(wp, gp)
         if fetch:
             assert np.array_equal(ww, gw)
+
+
+# ---- the serial engine and the workers ----
+
+
+def _flat_fields(dev):
+    return {f: getattr(dev, f).cpu() for f in STREAM_FIELDS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["genome", "protein"])
+def test_cuda_serial_and_workers_equal_build_device(cuda_device, name):
+    """A 2^20 serial build (``construction="serial"``) and
+    ``build_distributed`` (4 workers, one failed after 2 groups) give the
+    sub-trees of ``build_device``."""
+    from repro_torch.launch.era_run import build_distributed
+    s, a, ix = _stream_indexer(name, 1 << 20)
+    want = _flat_fields(ix.build_device(s))
+    cfg = dataclasses.replace(ix.config, construction="serial",
+                              build_impl="none")
+    serial = EraIndexer(a, cfg, device="cuda").build(s)
+    got = _flat_fields(serial.to_device())
+    for f in STREAM_FIELDS:
+        assert torch.equal(got[f], want[f]), ("serial", f)
+    dist, qstats, workers = build_distributed(
+        s, a, dataclasses.replace(ix.config, build_impl="none"),
+        n_workers=4, fail_worker="w1", fail_after=2, device="cuda")
+    assert qstats["done"] == qstats["total"] and qstats["reattempts"] > 0
+    assert sorted(dist.subtrees) == sorted(serial.subtrees)
+    for p, st in serial.subtrees.items():
+        for f in ("ell", "b_off", "b_c1", "b_c2"):
+            assert np.array_equal(getattr(dist.subtrees[p], f),
+                                  getattr(st, f)), (p, f)
