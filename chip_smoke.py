@@ -194,6 +194,22 @@ Phases, each printing one JSON line:
               each worker's groups and seconds; ``python -m
               repro_torch.launch.era_run`` at 2^20 as a subprocess in the
               worker and ``--stream`` modes, each exiting 0;
+6g. trace  — the flight recorder (``repro_torch.obs``) on the card, on
+              and empty before anything is built: ``build_stream`` of the
+              genome at 2^22 in 4 chunks (its index checked against
+              brute force), ``build_sharded`` at 2^20 over
+              ``[cuda:0] * 2`` with one ``find_batch`` and one
+              ``find_fetch_batch`` of 256 patterns (equal to the one-shot
+              index), then the hot serving workload (16,384 requests,
+              cache 512): a sync-free warm-up, then 3 timed passes with
+              the recorder on and 3 off, in turns, the best of each; the
+              trace and metrics written to build/trace/ and checked: a
+              valid trace, the JAX package's required spans and the
+              fabric's, a process track per shard, every dispatch's link
+              joining a queue wait, the required metric series, every
+              kernel dispatch ``impl="cuda"`` and each label's count equal
+              to its kernels' launches while the recorder was on, and
+              ``qps_on >= 0.5 x qps_off``;
 7. byte_leg — build_device, find_batch and the analytics LCP array under
               ``REPRO_WORD_COMPARE=byte``, equal to the word leg; then a
               profiled warm byte-leg build (``build_profile``,
@@ -250,7 +266,7 @@ find_fetch phase, the fetch 0 and the fetch 32 passes of each
 serving_stack phase, each stream build, the append, each fabric build,
 each fabric_find batch, the fabric serving passes, the fabric append,
 each serial build, the serial node builds, ``build_distributed``,
-each tree path
+the trace phase's recorded window, each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run and the LM check) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
@@ -367,6 +383,39 @@ SERIAL_NODES_LOG2 = 20
 ERA_WORKERS, ERA_PULL, ERA_FAIL_AFTER = 4, 4, 2
 FETCH = 32          # symbols fetched per match on the find-and-fetch paths
 SERVE_REQUESTS = 1 << 14
+# the flight recorder (phase trace): the genome string streamed at 2^22
+# under a budget of a quarter of its double-buffered state (>= 4 chunks),
+# the fabric at 2^20 over [cuda:0] * 2, then the serving workload with a
+# 512-entry cache; the JAX package's required spans and Prometheus
+# needles (benchmarks/trace_smoke.py) with the fabric's spans; each
+# kernel-dispatch label (kernel, currency) with the port kernels whose
+# launches it counts (on the byte string a find-and-fetch launch counts as
+# the probe and the gather the JAX package composes there); and JAX's
+# overhead gate, recorder-on qps >= 0.5 x recorder-off qps
+TRACE_LOG2, TRACE_FABRIC_LOG2, TRACE_MESH = 22, 20, 2
+TRACE_CACHE, TRACE_TIMED = 512, 3
+TRACE_REQUIRED_SPANS = ("build/vertical", "prepare/step", "stream/pipeline",
+                        "stream/chunk", "serve/queue_wait", "serve/pad_pack",
+                        "serve/device_dispatch", "serve/consume_sync")
+TRACE_FABRIC_SPANS = ("fabric/shard_loop", "fabric/step", "fabric/find_batch",
+                      "fabric/find_fetch")
+TRACE_REQUIRED_PROM = ("serve_cache_hit_rate", "serve_batch_fill_bucket",
+                       "serve_queue_wait_ms_bucket",
+                       "serve_batch_age_ms_bucket", "kernel_dispatch_total",
+                       "prepare_group_iterations_bucket")
+DISPATCH_KERNELS = {
+    ("range_gather", "word"): ("range_gather_words",),
+    ("range_gather", "packed"): ("range_gather_packed",),
+    ("range_gather", "byte"): ("range_gather_pack", "search_fetch_bytes"),
+    ("suffix_lcp", "word"): ("suffix_lcp_words",),
+    ("suffix_lcp", "byte"): ("suffix_lcp_pairs",),
+    ("pattern_probe", "word"): ("search_bounds_words",),
+    ("pattern_probe", "packed"): ("search_bounds_packed",),
+    ("pattern_probe", "byte"): ("search_bounds_bytes", "search_fetch_bytes"),
+    ("probe_gather", "word"): ("search_fetch_words",),
+    ("probe_gather", "packed"): ("search_fetch_packed",),
+}
+TRACE_QPS_FLOOR = 0.5
 # Decode against prefill in float32 over 28 layers, as a share of the
 # largest logit: the decode's _sdpa and one-row products sum in another
 # order than the prefill's kernel and 513-row products (measured 6.4e-7).
@@ -1043,6 +1092,189 @@ def _to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return {k: _to_device(v, device) for k, v in tree.items()}
+
+
+# ---- the flight recorder ----------------------------------------------------
+
+def trace_phase(n_log2: int, cfg, sync_free_server) -> dict:
+    """The recorder on the card (``benchmarks/trace_smoke.py``'s checks):
+    with ``repro_torch.obs`` on and empty before anything is built,
+    ``build_stream`` of the genome at 2^min(22, n_log2) in >= 4 chunks,
+    ``build_sharded`` at 2^min(20, n_log2) over ``[cuda:0] * 2`` with one
+    ``find_batch`` and one ``find_fetch_batch`` of 256 patterns, then the
+    hot serving workload: a warm-up through ``sync_free_server`` (every
+    dispatch sync-free, one search launch a batch) and TRACE_TIMED timed
+    ``run_closed_loop`` passes with the recorder on and off in turns, the
+    best of each.  The trace and metrics go to build/trace/; the trace must
+    be valid, hold the required spans (and the shards' process tracks),
+    every dispatch's link must join a queue wait, the needles must be in
+    the metrics, every dispatch must be ``impl="cuda"`` and each label's
+    count equal the launches of its kernels while the recorder was on,
+    and qps_on >= TRACE_QPS_FLOOR x qps_off.  Returns the launch counts of
+    the recorded window (the path's)."""
+    from repro_torch import obs
+    from repro_torch.core import iomodel
+    from repro_torch.core.api import EraIndexer
+    from repro_torch.data.strings import dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.query_serve import make_workload
+    from repro_torch.launch.serving import (
+        ServeConfig,
+        make_hot_workload,
+        run_closed_loop,
+    )
+    t_phase = time.perf_counter()
+    s, ax = dataset("genome", 1 << min(TRACE_LOG2, n_log2), seed=0)
+    s_fab, _ = dataset("genome", 1 << min(TRACE_FABRIC_LOG2, n_log2), seed=0)
+    ix = EraIndexer(ax, cfg)
+    groups = ix.partition(s)  # sizes the budget; not recorded
+    budget = (len(groups) * iomodel.state_bytes_per_group(ix._capacity(groups))
+              // 4)
+    del groups
+    torch.cuda.synchronize()
+
+    obs.configure(trace=True, metrics_on=True, clear=True)
+    ops.reset_launch_counts()
+    off = {k: 0 for k in ops.KERNELS}  # launches with the recorder off
+    try:
+        t0 = time.perf_counter()
+        dev, srep = ix.build_stream(s, device_budget=budget)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        if srep.n_chunks < 4:
+            raise AssertionError(f"trace: build_stream ran {srep.n_chunks} "
+                                 f"chunks, not >= 4")
+        s_dev = torch.from_numpy(np.asarray(s)).to("cuda")
+        rng = np.random.default_rng(41)
+        check = check_index(dev, s, s_dev, make_workload(
+            s, rng, batch=64, min_len=4, max_len=24, planted_frac=0.7,
+            n_symbols=len(ax.symbols)), "trace build_stream")
+        del s_dev
+        mesh = [torch.device("cuda", 0)] * TRACE_MESH
+        sh = ix.build_sharded(s_fab, n_shards=TRACE_MESH, mesh=mesh)
+        pats = make_workload(s_fab, rng, batch=256, min_len=4, max_len=24,
+                             planted_frac=0.7, n_symbols=len(ax.symbols))
+        one = EraIndexer(ax, cfg).build_device(s_fab)
+        for a, b in zip(sh.find_batch(pats), one.find_batch(pats)):
+            if not np.array_equal(a, b):
+                raise AssertionError("trace: the sharded find differs")
+        (pos, win), (pos1, win1) = (sh.find_fetch_batch(pats, fetch=FETCH),
+                                    one.find_fetch_batch(pats, fetch=FETCH))
+        if not (np.array_equal(win, win1)
+                and all(np.array_equal(a, b) for a, b in zip(pos, pos1))):
+            raise AssertionError("trace: the sharded find-and-fetch differs")
+        del sh, one, pos, win, pos1, win1
+
+        hot = make_hot_workload(s, np.random.default_rng(29),
+                                n_requests=SERVE_REQUESTS, hot_pool=32,
+                                hot_frac=0.8, min_len=4, max_len=24,
+                                n_symbols=len(ax.symbols))
+        serve_cfg = ServeConfig(pipeline=True, cache_size=TRACE_CACHE,
+                                max_batch=256)
+        uniq = {}
+        for p in hot:
+            uniq.setdefault(p.tobytes(), p)
+        want = dict(zip(uniq, dev.find_batch(list(uniq.values()))))
+
+        def same(res, what: str) -> None:
+            seen = set()
+            for p, (got_pos, _) in zip(hot, res):
+                key = (id(got_pos), p.tobytes())
+                if key not in seen:
+                    seen.add(key)
+                    if not np.array_equal(got_pos, want[key[1]]):
+                        raise AssertionError(f"trace: a served result "
+                                             f"differs from find_batch "
+                                             f"({what})")
+
+        warm = sync_free_server(dev, serve_cfg, kernel="search_bounds_words")
+        same(warm.serve(hot), "warm-up")
+        del warm
+        qps = {"on": [], "off": []}
+        for _ in range(TRACE_TIMED):
+            for arm in ("on", "off"):
+                obs.configure(trace=arm == "on", metrics_on=arm == "on")
+                before = ops.launch_counts()
+                res, st = run_closed_loop(dev, hot, serve_cfg)
+                torch.cuda.synchronize()
+                if arm == "off":
+                    for k, v in ops.launch_counts().items():
+                        off[k] += v - before[k]
+                same(res, f"recorder {arm}")
+                del res
+                qps[arm].append(st["qps"])
+        obs.configure(trace=True, metrics_on=True)
+        got = counts_now()
+        recorded = {k: got[k] - off[k] for k in ops.KERNELS}
+
+        out_dir = ROOT / "build" / "trace"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        trace_path, prom_path = obs.export_all(
+            trace_path=str(out_dir / "era_trace.json"),
+            metrics_path=str(out_dir / "era_metrics.prom"))
+        trace = json.loads(Path(trace_path).read_text())
+        prom = Path(prom_path).read_text()
+        events = trace["traceEvents"]
+        problems = obs.validate_chrome_trace(trace)
+        names = {e["name"] for e in events if e["ph"] != "M"}
+        problems += [f"missing span {n}" for n in
+                     TRACE_REQUIRED_SPANS + TRACE_FABRIC_SPANS
+                     if n not in names]
+        tracks = {e["args"]["name"] for e in events if e["ph"] == "M"}
+        problems += [f"missing track repro-era shard {k}"
+                     for k in range(TRACE_MESH)
+                     if f"repro-era shard {k}" not in tracks]
+        link_of = lambda e: (e.get("args") or {}).get("link")
+        qw = {link_of(e) for e in events if e["name"] == "serve/queue_wait"}
+        dd = [link_of(e) for e in events
+              if e["name"] == "serve/device_dispatch"]
+        if not dd or None in dd or not set(dd) <= qw:
+            problems.append("a serve/device_dispatch link joins no "
+                            "serve/queue_wait")
+        problems += [f"metrics miss {n}" for n in TRACE_REQUIRED_PROM
+                     if n not in prom]
+        if 'impl="cuda"' not in prom or 'impl="ref"' in prom:
+            problems.append("a kernel dispatch ran the plain version")
+        m = obs.metrics()
+        labels = {}
+        for inst in m.instruments():
+            if inst.name == "kernel_dispatch_total":
+                key = (inst.labels["kernel"], inst.labels["currency"])
+                labels[f"{key[0]}/{key[1]}"] = int(inst.value)
+        for (kernel, currency), fns in DISPATCH_KERNELS.items():
+            n_rec = labels.get(f"{kernel}/{currency}", 0)
+            n_launch = sum(recorded[f] for f in fns)
+            if n_rec != n_launch:
+                problems.append(f"kernel_dispatch_total{{kernel={kernel},"
+                                f"currency={currency}}} {n_rec} != "
+                                f"{n_launch} launches of {fns}")
+        if obs.tracer().n_dropped:
+            problems.append(f"the ring buffer dropped "
+                            f"{obs.tracer().n_dropped} events")
+        qps_on, qps_off = max(qps["on"]), max(qps["off"])
+        if qps_on < TRACE_QPS_FLOOR * qps_off:
+            problems.append(f"qps_on {qps_on} < {TRACE_QPS_FLOOR} x "
+                            f"qps_off {qps_off}")
+        if problems:
+            raise AssertionError("trace: " + "; ".join(problems))
+        emit({"phase": "trace", "n": len(s) - 1,
+              "fabric_n": len(s_fab) - 1, "mesh": TRACE_MESH,
+              "chunks": srep.n_chunks, "t_build_stream_s": t_stream,
+              "check": check, "requests": len(hot),
+              "spans": sum(e["ph"] == "X" for e in events),
+              "events": len(events), "distinct_names": len(names),
+              "names": sorted(names), "links": len(set(dd)),
+              "qps_on": qps_on, "qps_off": qps_off,
+              "qps_ratio": qps_on / qps_off, "qps_on_all": qps["on"],
+              "qps_off_all": qps["off"],
+              "trace_bytes": Path(trace_path).stat().st_size,
+              "metrics_bytes": Path(prom_path).stat().st_size,
+              "dispatch_total": labels, "launches_recorded": recorded,
+              "launches_recorder_off": off, "sync_free_dispatch": True,
+              "t_phase_s": time.perf_counter() - t_phase})
+        return recorded
+    finally:
+        obs.configure(trace=False, metrics_on=False, clear=True)
 
 
 # ---- the serial engine and the worker driver ------------------------------
@@ -3532,6 +3764,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 6g. the flight recorder (counted: the recorded window) ------------
+    trace_counts = trace_phase(args.n_log2, cfg, SyncFreeServer)
+    require_launches(trace_counts, ("range_gather_words",
+                                    "search_bounds_words",
+                                    "search_fetch_words", "kmer_histogram"),
+                     "the traced path")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 6f. the serial engine and the worker driver ----------------------
     # (counted): the serial builds of both strings against the batched
     # engine's sub-trees, the node builders at 2^20, build_distributed
@@ -3979,7 +4220,8 @@ def main() -> int:
              *dna_serve_counts.values(), prot_counts, prot_ff_counts,
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
-             *stream_counts, append_counts, *fabric_counts, *serial_counts]
+             *stream_counts, append_counts, *fabric_counts, *serial_counts,
+             trace_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

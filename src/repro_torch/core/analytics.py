@@ -82,7 +82,7 @@ def _matching_stats(s_text, ell, win_lo, win_hi, pows, q_ext: torch.Tensor,
         # comparison limit is the first terminal (== n_q - i, clipped)
         lim_p = torch.clamp(n_q - idx, 0, w).to(torch.int32)
         w_arr = torch.full((b,), w, dtype=torch.int32, device=dev)
-        gather = kops.range_gather_words
+        gather = kops.gather_words
     else:
         pat_words = packing.pack_words(windows)
         mask_words = torch.full_like(pat_words, -1)  # full-width comparison

@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import build as build_mod
 from repro_torch.core import packing
 from repro_torch.core.alphabet import Alphabet
@@ -264,15 +265,18 @@ class EraIndexer:
         cfg = self.config
         vstats = report.vertical if report else VerticalStats()
         t0 = time.perf_counter()
-        groups = vertical_partition_grouped(
-            s,
-            base=self.alphabet.base,
-            f_max=cfg.f_max,
-            strategy=cfg.vertical_strategy,
-            group=cfg.group,
-            stats=vstats,
-            device=self.device,
-        )
+        with obs.tracer().span("build/vertical", n=len(s),
+                               f_max=cfg.f_max) as sp:
+            groups = vertical_partition_grouped(
+                s,
+                base=self.alphabet.base,
+                f_max=cfg.f_max,
+                strategy=cfg.vertical_strategy,
+                group=cfg.group,
+                stats=vstats,
+                device=self.device,
+            )
+            sp.set(groups=len(groups))
         if report:
             report.t_vertical = time.perf_counter() - t0
             report.n_groups = len(groups)
@@ -368,9 +372,11 @@ class EraIndexer:
         unless ``build_impl="none"``) on the indexer's device."""
         report = report if report is not None else BuildReport(
             VerticalStats(), PrepareStats())
-        if self.config.construction == "batched":
-            return self._build_batched(s, report)
-        return self._build_serial(s, report)
+        with obs.tracer().span("build/total", n=len(s),
+                               engine=self.config.construction):
+            if self.config.construction == "batched":
+                return self._build_batched(s, report)
+            return self._build_serial(s, report)
 
     def _build_serial(self, s: np.ndarray,
                       report: BuildReport) -> SuffixTreeIndex:
@@ -415,8 +421,11 @@ class EraIndexer:
 
             t0 = time.perf_counter()
             if self.config.build_impl != "none":
-                self._attach_nodes_batched(states, groups, subtrees, len(s),
-                                           s_text=s_text)
+                with obs.tracer().span("build/nodes",
+                                       subtrees=len(subtrees),
+                                       node_lcp=self.config.node_lcp):
+                    self._attach_nodes_batched(states, groups, subtrees,
+                                               len(s), s_text=s_text)
             report.t_build = time.perf_counter() - t0
         return SuffixTreeIndex(s=np.asarray(s), alphabet=self.alphabet,
                                subtrees=subtrees, device=self.device)
@@ -441,29 +450,41 @@ class EraIndexer:
         dev = states.L.device
         flat_L = states.L.reshape(-1)
         flat_b = states.b_off.reshape(-1)
+        fill_hist = obs.metrics().histogram(
+            "build_bucket_fill_ratio",
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+            help="real cells / padded cells per node-build bucket "
+                 "(low = the pow2 padding is wasting batched work)")
         for f_pad, rows in build_mod.bucket_pad_widths(
                 [e[3] for e in entries]):
-            idx = np.zeros((len(rows), f_pad), np.int64)
-            mask = np.zeros((len(rows), f_pad), bool)
-            for r, e_i in enumerate(rows):
-                freq = entries[e_i][3]
-                idx[r, :freq] = _entry_flat_idx(entries[e_i], f_cap)
-                mask[r, :freq] = True
-            idx = torch.from_numpy(idx).to(dev)
-            mask = torch.from_numpy(mask).to(dev)
-            ell_rows = torch.where(mask, flat_L[idx], n_total)
-            if use_words:
-                boff_rows = build_mod.boff_rows_from_text(s_text, ell_rows,
-                                                          n_total)
-            else:
-                boff_rows = torch.where(mask, flat_b[idx], 0)
-            del idx, mask
-            nodes = build_mod.build_parallel_batch(ell_rows, boff_rows,
-                                                   n_total)
-            compact = build_mod.unpad_nodes_rows(
-                nodes, [entries[e_i][3] for e_i in rows])
-            for e_i, node_set in zip(rows, compact):
-                subtrees[entries[e_i][0]].nodes = node_set
+            fill = 0.0
+            if obs.metrics_enabled() or obs.trace_enabled():
+                real_cells = sum(entries[e_i][3] for e_i in rows)
+                fill = real_cells / (len(rows) * f_pad)
+                fill_hist.observe(fill)
+            with obs.tracer().span("build/node_bucket", f_pad=f_pad,
+                                   rows=len(rows), fill=round(fill, 4)):
+                idx = np.zeros((len(rows), f_pad), np.int64)
+                mask = np.zeros((len(rows), f_pad), bool)
+                for r, e_i in enumerate(rows):
+                    freq = entries[e_i][3]
+                    idx[r, :freq] = _entry_flat_idx(entries[e_i], f_cap)
+                    mask[r, :freq] = True
+                idx = torch.from_numpy(idx).to(dev)
+                mask = torch.from_numpy(mask).to(dev)
+                ell_rows = torch.where(mask, flat_L[idx], n_total)
+                if use_words:
+                    boff_rows = build_mod.boff_rows_from_text(
+                        s_text, ell_rows, n_total)
+                else:
+                    boff_rows = torch.where(mask, flat_b[idx], 0)
+                del idx, mask
+                nodes = build_mod.build_parallel_batch(ell_rows, boff_rows,
+                                                       n_total)
+                compact = build_mod.unpad_nodes_rows(
+                    nodes, [entries[e_i][3] for e_i in rows])
+                for e_i, node_set in zip(rows, compact):
+                    subtrees[entries[e_i][0]].nodes = node_set
 
     def build_analytics(self, s: np.ndarray,
                         report: BuildReport | None = None, **device_kwargs):
@@ -731,23 +752,26 @@ class EraIndexer:
         old_map = {p: (int(f), int(o))
                    for p, f, o in zip(old_prefixes, old_freqs, old_offs)}
         affected = []
-        for i, p in enumerate(table):
-            old = old_map.get(p.symbols)
-            in_tail = lambda: bool(((p.positions >= b_star)
-                                    & (p.positions < n_old_real)).any())
-            if dirty_flags is not None:
-                # incremental table: leaf-set changes are already
-                # flagged; an unchanged set still rebuilds when any
-                # suffix lies in the terminal-comparison tail
-                changed = dirty_flags[i]
-                if not changed and in_tail():
-                    p.positions = np.sort(p.positions)
-                    changed = True
-            else:
-                changed = (old is None or old[0] != p.freq
-                           or terminal in p.symbols or in_tail())
-            if changed:
-                affected.append(p)
+        with obs.tracer().span("append/classify", prefixes=len(table),
+                               fallback=int(dirty_flags is None)) as sp:
+            for i, p in enumerate(table):
+                old = old_map.get(p.symbols)
+                in_tail = lambda: bool(((p.positions >= b_star)
+                                        & (p.positions < n_old_real)).any())
+                if dirty_flags is not None:
+                    # incremental table: leaf-set changes are already
+                    # flagged; an unchanged set still rebuilds when any
+                    # suffix lies in the terminal-comparison tail
+                    changed = dirty_flags[i]
+                    if not changed and in_tail():
+                        p.positions = np.sort(p.positions)
+                        changed = True
+                else:
+                    changed = (old is None or old[0] != p.freq
+                               or terminal in p.symbols or in_tail())
+                if changed:
+                    affected.append(p)
+            sp.set(affected=len(affected), b_star=b_star)
         arep.n_prefixes = len(table)
         arep.n_affected = len(affected)
 
@@ -757,11 +781,16 @@ class EraIndexer:
             re_groups = group_prefixes(affected, self.config.f_max)
             capacity = min(self.config.f_max,
                            max(g.total_freq for g in re_groups))
-            states = subtree_prepare_batch(
-                self._device_text(s_new), re_groups, capacity,
-                self.config.elastic_config(),
-                sort_fuse=self.config.sort_fuse,
-                compact=self.config.compaction)
+            s_text = self._device_text(s_new)
+            with obs.tracer().span("append/prepare",
+                                   groups=len(re_groups),
+                                   subtrees=len(affected)):
+                states = subtree_prepare_batch(
+                    s_text, re_groups, capacity,
+                    self.config.elastic_config(),
+                    sort_fuse=self.config.sort_fuse,
+                    compact=self.config.compaction)
+            del s_text
             L_host = states.L.cpu().numpy()
             del states
             for g_i, g in enumerate(re_groups):
@@ -827,16 +856,19 @@ class EraIndexer:
             _, cnt = dev.find_batch_ranges(padded, lengths, route)
             return cnt.cpu().numpy()
 
-        prefixes, freqs, ell = self._append_merge(
-            s_new, old_prefixes, old_freqs, old_offs, dev.ell_host,
-            count_fn, dev.max_pattern_len, arep)
-        device_kwargs.setdefault("packing", self.config.packing)
-        device_kwargs.setdefault("max_pattern_len", dev.max_pattern_len)
-        device_kwargs.setdefault("epoch", dev.epoch + 1)
-        device_kwargs.setdefault("device", self.device)
-        return DeviceIndex.from_prepare(
-            alphabet=self.alphabet, s=s_new, prefixes=prefixes,
-            freqs=freqs, ell=ell, **device_kwargs), arep
+        with obs.tracer().span("append/total", n_old=dev.n_leaves - 1,
+                               n_new=len(s_new) - 1):
+            prefixes, freqs, ell = self._append_merge(
+                s_new, old_prefixes, old_freqs, old_offs, dev.ell_host,
+                count_fn, dev.max_pattern_len, arep)
+            device_kwargs.setdefault("packing", self.config.packing)
+            device_kwargs.setdefault("max_pattern_len", dev.max_pattern_len)
+            device_kwargs.setdefault("epoch", dev.epoch + 1)
+            device_kwargs.setdefault("device", self.device)
+            new_dev = DeviceIndex.from_prepare(
+                alphabet=self.alphabet, s=s_new, prefixes=prefixes,
+                freqs=freqs, ell=ell, **device_kwargs)
+        return new_dev, arep
 
     def append_sharded(self, sharded, s_new: np.ndarray,
                        report: AppendReport | None = None, *,
@@ -865,18 +897,22 @@ class EraIndexer:
             return np.asarray([len(h) for h in sharded.find_batch(pats)],
                               np.int64)
 
-        prefixes, freqs, ell = self._append_merge(
-            s_new, old_prefixes, old_freqs, old_offs, old_ell, count_fn,
-            sharded.max_pattern_len, arep)
-        device_kwargs.setdefault("packing", self.config.packing)
-        device_kwargs.setdefault("max_pattern_len", sharded.max_pattern_len)
-        device_kwargs.setdefault("epoch", sharded.epoch + 1)
-        device_kwargs.setdefault("device", self.device)
-        device_kwargs.setdefault("mesh", sharded.mesh)
-        return fabric.ShardedIndex.from_flat(
-            alphabet=self.alphabet, s=s_new, prefixes=prefixes, freqs=freqs,
-            ell=ell, n_shards=n_shards or sharded.n_shards,
-            **device_kwargs), arep
+        with obs.tracer().span("append/total", n_old=sharded.n_leaves - 1,
+                               n_new=len(s_new) - 1, shards=sharded.n_shards):
+            prefixes, freqs, ell = self._append_merge(
+                s_new, old_prefixes, old_freqs, old_offs, old_ell, count_fn,
+                sharded.max_pattern_len, arep)
+            device_kwargs.setdefault("packing", self.config.packing)
+            device_kwargs.setdefault("max_pattern_len",
+                                     sharded.max_pattern_len)
+            device_kwargs.setdefault("epoch", sharded.epoch + 1)
+            device_kwargs.setdefault("device", self.device)
+            device_kwargs.setdefault("mesh", sharded.mesh)
+            new_idx = fabric.ShardedIndex.from_flat(
+                alphabet=self.alphabet, s=s_new, prefixes=prefixes,
+                freqs=freqs, ell=ell, n_shards=n_shards or sharded.n_shards,
+                **device_kwargs)
+        return new_idx, arep
 
     def build_sharded(self, s: np.ndarray, n_shards: int | None = None,
                       report: BuildReport | None = None, *,

@@ -46,6 +46,7 @@ import re
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packing as packing_mod
 from repro_torch.core.prepare import (
     ElasticConfig,
@@ -177,41 +178,48 @@ def sharded_prepare(
     n_active = torch.cat([(st.area >= 0).sum(dim=1).to(build_dev)
                           for st in states]).cpu().numpy()
     it = 0
-    while int(n_active.max()) > 0:
-        # the GLOBAL busiest group keys the range and the compaction
-        # width: the single-device schedule, step for step
-        w = elastic_range(cfg, int(n_active.max()))
-        if it >= max_iters:
-            raise RuntimeError(
-                f"sharded SubTreePrepare failed to converge after {it} "
-                f"iterations (w={w}, "
-                f"{int((n_active > 0).sum())}/{g} groups active)")
-        f_prime = compaction_width(int(n_active.max()), capacity)
-        live = [k for k in range(n_shards)
-                if n_active[k * block:(k + 1) * block].max() > 0]
-        counts = []
-        for k in live:
-            txt = texts[devices[k]]
-            if f_prime is not None:
-                states[k], cnt = compact_step_batch(
-                    txt, states[k], f_prime=f_prime, w=w,
-                    sort_fuse=sort_fuse, word_keys=word_keys)
-            else:
-                states[k], cnt = prepare_step(txt, states[k], w=w,
-                                              sort_fuse=sort_fuse,
-                                              word_keys=word_keys)
-            counts.append(cnt.to(build_dev, non_blocking=True))
-        if stats is not None:
-            total_active = int(n_active.sum())
-            stats.iterations += 1
-            stats.ranges.append(w)
-            stats.active_history.append(total_active)
-            stats.symbols_fetched += total_active * w
-        got = torch.cat(counts).cpu().numpy()  # the one sync per iteration
-        for j, k in enumerate(live):
-            n_active[k * block:(k + 1) * block] = got[j * block:
-                                                      (j + 1) * block]
-        it += 1
+    with obs.tracer().span("fabric/shard_loop", groups=g, shards=n_shards,
+                           capacity=capacity) as sp:
+        while int(n_active.max()) > 0:
+            # the GLOBAL busiest group keys the range and the compaction
+            # width: the single-device schedule, step for step
+            w = elastic_range(cfg, int(n_active.max()))
+            if it >= max_iters:
+                raise RuntimeError(
+                    f"sharded SubTreePrepare failed to converge after {it} "
+                    f"iterations (w={w}, "
+                    f"{int((n_active > 0).sum())}/{g} groups active)")
+            f_prime = compaction_width(int(n_active.max()), capacity)
+            live = [k for k in range(n_shards)
+                    if n_active[k * block:(k + 1) * block].max() > 0]
+            counts = []
+            with obs.tracer().span("fabric/step", w=w,
+                                   n_active=int(n_active.sum()),
+                                   shards_active=len(live),
+                                   f_prime=f_prime or capacity):
+                for k in live:
+                    txt = texts[devices[k]]
+                    if f_prime is not None:
+                        states[k], cnt = compact_step_batch(
+                            txt, states[k], f_prime=f_prime, w=w,
+                            sort_fuse=sort_fuse, word_keys=word_keys)
+                    else:
+                        states[k], cnt = prepare_step(txt, states[k], w=w,
+                                                      sort_fuse=sort_fuse,
+                                                      word_keys=word_keys)
+                    counts.append(cnt.to(build_dev, non_blocking=True))
+            if stats is not None:
+                total_active = int(n_active.sum())
+                stats.iterations += 1
+                stats.ranges.append(w)
+                stats.active_history.append(total_active)
+                stats.symbols_fetched += total_active * w
+            got = torch.cat(counts).cpu().numpy()  # the one sync an iteration
+            for j, k in enumerate(live):
+                n_active[k * block:(k + 1) * block] = got[j * block:
+                                                          (j + 1) * block]
+            it += 1
+        sp.set(iterations=it)
     # gather the blocks on the build device a field at a time, freeing
     # each shard's field as it goes (the peak holds one extra field)
     cols = [list(st) for st in states]
@@ -381,7 +389,9 @@ class ShardedIndex:
         only against its owning shard (one search launch)."""
         out: list = [None] * len(patterns)
         for k, idxs in sorted(self._split_batch(patterns).items()):
-            hits = self.shards[k].find_batch([patterns[i] for i in idxs])
+            with obs.tracer().span("fabric/find_batch", shard=k,
+                                   rows=len(idxs)):
+                hits = self.shards[k].find_batch([patterns[i] for i in idxs])
             for i, h in zip(idxs, hits):
                 out[i] = h if out[i] is None else np.sort(
                     np.concatenate([out[i], h]))
@@ -395,8 +405,10 @@ class ShardedIndex:
         wins = np.full((len(patterns), fetch), -1, np.int32)
         filled = [False] * len(patterns)
         for k, idxs in sorted(self._split_batch(patterns).items()):
-            hits, win = self.shards[k].find_fetch_batch(
-                [patterns[i] for i in idxs], fetch=fetch)
+            with obs.tracer().span("fabric/find_fetch", shard=k,
+                                   rows=len(idxs)):
+                hits, win = self.shards[k].find_fetch_batch(
+                    [patterns[i] for i in idxs], fetch=fetch)
             for j, i in enumerate(idxs):
                 out[i] = hits[j] if out[i] is None else np.sort(
                     np.concatenate([out[i], hits[j]]))

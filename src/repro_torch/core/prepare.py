@@ -59,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import iomodel, packing
 from repro_torch.core.packing import MASK32, PackedText, to_u64
 from repro_torch.core.vertical import VirtualTree
@@ -257,7 +258,7 @@ def _word_step(pt: PackedText, state: PrepareState, offs, major, active, *,
     flat_active = active.reshape(-1)
     keys, tie = packing.word_sort_keys(
         pt, offs.reshape(-1), w,
-        gather_words=lambda p, o, w_: kops.range_gather_words(
+        gather_words=lambda p, o, w_: kops.gather_words(
             p, o, w_, mask=flat_active))
     nw = keys.shape[1]
     keys = keys.view(g, f, nw)
@@ -457,6 +458,30 @@ class PrepareStats:
     offsets_history: list = dataclasses.field(default_factory=list)
 
 
+def _record_prepare_metrics(group_iters: list, wall_s: float,
+                            cfg: ElasticConfig) -> None:
+    """Registry rows for one completed prepare run
+    (``repro.core.prepare._record_prepare_metrics``): each group's elastic
+    iterations (a histogram, so skew shows), the loop's wall time, the run
+    count and the |R| budget."""
+    if not obs.metrics_enabled():
+        return
+    m = obs.metrics()
+    h = m.histogram("prepare_group_iterations",
+                    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+                    help="elastic-range iterations until each virtual "
+                         "tree converged")
+    for it in group_iters:
+        h.observe(it)
+    m.counter("prepare_convergence_seconds_total",
+              "wall time spent in elastic-range loops").inc(wall_s)
+    m.counter("prepare_runs_total",
+              "completed SubTreePrepare loops").inc()
+    m.gauge("prepare_r_budget_symbols",
+            "|R| read-buffer budget of the last run").set(
+        cfg.r_budget_symbols)
+
+
 def _record_offsets(stats: PrepareStats | None, state: PrepareState) -> None:
     """Append the read offsets of every active row (``L + start``, int64,
     in row order) when ``stats.record_offsets`` asks for them."""
@@ -500,27 +525,34 @@ def subtree_prepare(
                                                         text.device)))
     n_active = int((state.area >= 0).sum())
     it = 0
-    while n_active > 0:
-        w = elastic_range(cfg, n_active)
-        if it >= max_iters:
-            raise RuntimeError(
-                "SubTreePrepare failed to converge after "
-                f"{it} iterations: group="
-                f"{group_index if group_index is not None else '?'} "
-                f"({len(group.prefixes)} prefixes, "
-                f"total_freq={group.total_freq}), "
-                f"w={w}, n_active={n_active}")
-        _record_offsets(stats, state)
-        state, n_active_dev = prepare_step(text, state, w=w,
-                                           sort_fuse=False,
-                                           word_keys=word_keys)
-        if stats is not None:
-            stats.iterations += 1
-            stats.ranges.append(w)
-            stats.active_history.append(n_active)
-            stats.symbols_fetched += n_active * w
-        n_active = int(n_active_dev.cpu()[0])  # the one sync per iteration
-        it += 1
+    t0 = time.perf_counter()
+    with obs.tracer().span("prepare/group",
+                           group=-1 if group_index is None else group_index,
+                           capacity=capacity) as sp:
+        while n_active > 0:
+            w = elastic_range(cfg, n_active)
+            if it >= max_iters:
+                raise RuntimeError(
+                    "SubTreePrepare failed to converge after "
+                    f"{it} iterations: group="
+                    f"{group_index if group_index is not None else '?'} "
+                    f"({len(group.prefixes)} prefixes, "
+                    f"total_freq={group.total_freq}), "
+                    f"w={w}, n_active={n_active}")
+            _record_offsets(stats, state)
+            with obs.tracer().span("prepare/step", w=w, n_active=n_active):
+                state, n_active_dev = prepare_step(text, state, w=w,
+                                                   sort_fuse=False,
+                                                   word_keys=word_keys)
+            if stats is not None:
+                stats.iterations += 1
+                stats.ranges.append(w)
+                stats.active_history.append(n_active)
+                stats.symbols_fetched += n_active * w
+            n_active = int(n_active_dev.cpu()[0])  # the one sync an iteration
+            it += 1
+        sp.set(iterations=it)
+    _record_prepare_metrics([it], time.perf_counter() - t0, cfg)
     return PrepareState(*(t[0] for t in state))
 
 
@@ -552,37 +584,51 @@ def subtree_prepare_batch(
     if compact is None:
         compact = kops._use_compaction()
     n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
+    group_iters = np.zeros(len(groups), np.int64)
     it = 0
-    while int(n_active.max()) > 0:
-        w = elastic_range(cfg, int(n_active.max()))
-        if it >= max_iters:
-            live = np.nonzero(n_active > 0)[0]
-            detail = "; ".join(
-                f"group {g}: {len(groups[g].prefixes)} prefixes, "
-                f"total_freq={groups[g].total_freq}, n_active={int(n_active[g])}"
-                for g in live[:8])
-            raise RuntimeError(
-                f"SubTreePrepare failed to converge after {it} iterations "
-                f"(w={w}, {len(live)}/{len(groups)} groups active): {detail}")
-        _record_offsets(stats, states)
-        f_prime = (compaction_width(int(n_active.max()), capacity)
-                   if compact else None)
-        if f_prime is not None:
-            states, n_active_dev = compact_step_batch(
-                text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse,
-                word_keys=word_keys)
-        else:
-            states, n_active_dev = prepare_step(text, states, w=w,
-                                                sort_fuse=sort_fuse,
-                                                word_keys=word_keys)
-        if stats is not None:
-            total_active = int(n_active.sum())
-            stats.iterations += 1
-            stats.ranges.append(w)
-            stats.active_history.append(total_active)
-            stats.symbols_fetched += total_active * w
-        n_active = n_active_dev.cpu().numpy()  # the one sync per iteration
-        it += 1
+    t0 = time.perf_counter()
+    with obs.tracer().span("prepare/batch_loop", groups=len(groups),
+                           capacity=capacity) as sp:
+        while int(n_active.max()) > 0:
+            w = elastic_range(cfg, int(n_active.max()))
+            if it >= max_iters:
+                live = np.nonzero(n_active > 0)[0]
+                detail = "; ".join(
+                    f"group {g}: {len(groups[g].prefixes)} prefixes, "
+                    f"total_freq={groups[g].total_freq}, "
+                    f"n_active={int(n_active[g])}"
+                    for g in live[:8])
+                raise RuntimeError(
+                    f"SubTreePrepare failed to converge after {it} "
+                    f"iterations (w={w}, {len(live)}/{len(groups)} groups "
+                    f"active): {detail}")
+            _record_offsets(stats, states)
+            group_iters += n_active > 0
+            f_prime = (compaction_width(int(n_active.max()), capacity)
+                       if compact else None)
+            with obs.tracer().span("prepare/step", w=w,
+                                   n_active=int(n_active.sum()),
+                                   groups_active=int((n_active > 0).sum()),
+                                   f_prime=f_prime or capacity):
+                if f_prime is not None:
+                    states, n_active_dev = compact_step_batch(
+                        text, states, f_prime=f_prime, w=w,
+                        sort_fuse=sort_fuse, word_keys=word_keys)
+                else:
+                    states, n_active_dev = prepare_step(
+                        text, states, w=w, sort_fuse=sort_fuse,
+                        word_keys=word_keys)
+            if stats is not None:
+                total_active = int(n_active.sum())
+                stats.iterations += 1
+                stats.ranges.append(w)
+                stats.active_history.append(total_active)
+                stats.symbols_fetched += total_active * w
+            n_active = n_active_dev.cpu().numpy()  # the one sync an iteration
+            it += 1
+        sp.set(iterations=it)
+    _record_prepare_metrics(group_iters.tolist(), time.perf_counter() - t0,
+                            cfg)
     return states
 
 
@@ -710,70 +756,99 @@ def subtree_prepare_stream(
             done.record(side)
         return staged, done
 
-    lo0, hi0 = chunks[0]
-    states = copy_sync(host_state(lo0, hi0))
-    for ci, (lo, hi) in enumerate(chunks):
-        nxt = chunks[ci + 1] if ci + 1 < len(chunks) else None
-        host_next = host_state(*nxt) if nxt is not None else None
-        standby = None
-        n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
-        it = 0
-        while int(n_active.max()) > 0:
-            w = elastic_range(cfg, int(n_active.max()))
-            if it >= max_iters:
-                raise RuntimeError(
-                    f"SubTreePrepare (stream chunk {ci}, groups [{lo}, {hi}))"
-                    f" failed to converge after {it} iterations (w={w})")
-            f_prime = (compaction_width(int(n_active.max()), capacity)
-                       if compact else None)
-            if f_prime is not None:
-                states, n_active_dev = compact_step_batch(
-                    text, states, f_prime=f_prime, w=w, sort_fuse=sort_fuse,
-                    word_keys=word_keys)
-            else:
-                states, n_active_dev = prepare_step(text, states, w=w,
-                                                    sort_fuse=sort_fuse,
-                                                    word_keys=word_keys)
-            if overlap and standby is None and host_next is not None:
-                # the step above is queued on the compute stream: the
-                # standby copy transfers behind the chunk's loop
-                standby = copy_async(host_next)
-            if stats is not None:
-                total_active = int(n_active.sum())
-                stats.iterations += 1
-                stats.ranges.append(w)
-                stats.active_history.append(total_active)
-                stats.symbols_fetched += total_active * w
-            n_active = n_active_dev.cpu().numpy()  # the one sync per step
-            it += 1
-        rep.iterations += it
-        rep.chunk_iters.append(it)
-        # drain this chunk to its host slice (waits on the chunk's compute
-        # stream, not on the standby copy)
-        for o, d in zip(out, states):
-            o[lo:hi].copy_(d)
-        if host_next is None:
-            continue
-        if standby is None:
-            # synchronous mode, or a chunk that converged at init (no
-            # step to hide the copy behind)
-            states = copy_sync(host_next)
-            continue
-        nb = _state_nbytes(host_next)
-        staged, done = standby
-        t_wait = time.perf_counter()
-        if on_card:
-            done.synchronize()
-            compute.wait_stream(side)
-            for t in staged:
-                t.record_stream(compute)
-        wait = time.perf_counter() - t_wait
-        states = staged
-        est = max(nb / copy_rate, wait)  # >= the observed blocking time
-        rep.bytes_copied += nb
-        rep.copy_s += est
-        rep.copy_wait_s += wait
-        rep.copy_hidden_s += est - wait
+    group_iters = np.zeros(g_total, np.int64)
+    t0 = time.perf_counter()
+    with obs.tracer().span("stream/pipeline", chunks=plan.n_chunks,
+                           groups=g_total, capacity=capacity,
+                           overlap=overlap) as sp_pipe:
+        lo0, hi0 = chunks[0]
+        states = copy_sync(host_state(lo0, hi0))
+        for ci, (lo, hi) in enumerate(chunks):
+            nxt = chunks[ci + 1] if ci + 1 < len(chunks) else None
+            host_next = host_state(*nxt) if nxt is not None else None
+            standby = None
+            t_issue = 0.0
+            n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
+            it = 0
+            with obs.tracer().span("stream/chunk", chunk=ci,
+                                   groups=hi - lo) as sp:
+                while int(n_active.max()) > 0:
+                    w = elastic_range(cfg, int(n_active.max()))
+                    if it >= max_iters:
+                        raise RuntimeError(
+                            f"SubTreePrepare (stream chunk {ci}, groups "
+                            f"[{lo}, {hi})) failed to converge after {it} "
+                            f"iterations (w={w})")
+                    group_iters[lo:hi] += n_active > 0
+                    f_prime = (compaction_width(int(n_active.max()),
+                                                capacity)
+                               if compact else None)
+                    with obs.tracer().span(
+                            "prepare/step", w=w,
+                            n_active=int(n_active.sum()),
+                            groups_active=int((n_active > 0).sum()),
+                            f_prime=f_prime or capacity):
+                        if f_prime is not None:
+                            states, n_active_dev = compact_step_batch(
+                                text, states, f_prime=f_prime, w=w,
+                                sort_fuse=sort_fuse, word_keys=word_keys)
+                        else:
+                            states, n_active_dev = prepare_step(
+                                text, states, w=w, sort_fuse=sort_fuse,
+                                word_keys=word_keys)
+                    if overlap and standby is None and host_next is not None:
+                        # the step above is queued on the compute stream:
+                        # the standby copy transfers behind the chunk's loop
+                        t_issue = time.perf_counter()
+                        standby = copy_async(host_next)
+                    if stats is not None:
+                        total_active = int(n_active.sum())
+                        stats.iterations += 1
+                        stats.ranges.append(w)
+                        stats.active_history.append(total_active)
+                        stats.symbols_fetched += total_active * w
+                    n_active = n_active_dev.cpu().numpy()  # one sync a step
+                    it += 1
+                sp.set(iterations=it)
+            rep.iterations += it
+            rep.chunk_iters.append(it)
+            # drain this chunk to its host slice (waits on the chunk's
+            # compute stream, not on the standby copy)
+            for o, d in zip(out, states):
+                o[lo:hi].copy_(d)
+            if host_next is None:
+                continue
+            if standby is None:
+                # synchronous mode, or a chunk that converged at init (no
+                # step to hide the copy behind)
+                states = copy_sync(host_next)
+                continue
+            nb = _state_nbytes(host_next)
+            staged, done = standby
+            t_wait = time.perf_counter()
+            if on_card:
+                done.synchronize()
+                compute.wait_stream(side)
+                for t in staged:
+                    t.record_stream(compute)
+            wait = time.perf_counter() - t_wait
+            states = staged
+            est = max(nb / copy_rate, wait)  # >= the observed blocking time
+            rep.bytes_copied += nb
+            rep.copy_s += est
+            rep.copy_wait_s += wait
+            rep.copy_hidden_s += est - wait
+            obs.tracer().complete(
+                "stream/standby_copy", int(t_issue * 1e9),
+                int(max(time.perf_counter() - t_issue, 1e-9) * 1e9),
+                chunk=ci + 1, bytes=nb, wait_ms=round(wait * 1e3, 3),
+                hidden_frac=round((est - wait) / est, 4) if est > 0 else 1.0)
+        sp_pipe.set(iterations=rep.iterations,
+                    copy_ms=round(rep.copy_s * 1e3, 3),
+                    hidden_ms=round(rep.copy_hidden_s * 1e3, 3),
+                    overlap_frac=round(rep.overlap_frac, 4))
+    _record_prepare_metrics(group_iters.tolist(), time.perf_counter() - t0,
+                            cfg)
     return out, rep
 
 

@@ -41,10 +41,21 @@ call.  This module is the tier users put in front of a
   first shard in route order with a hit, so results equal the
   single-index server's.  ``--shards`` turns it on.
 
+* **Observability** — with ``REPRO_TRACE=1`` / ``REPRO_METRICS=1`` (or
+  :func:`repro_torch.obs.configure` before the server is made) each batch
+  records the JAX server's spans (``serve/queue_wait``, ``serve/pad_pack``,
+  ``serve/device_dispatch`` — the dispatch carrying the ``link`` of its
+  queue wait, and ``shard=k`` on a sharded index — and
+  ``serve/consume_sync``), the ``serve/index_swap`` instant, and its
+  ``serve_*`` counters, histograms and callback gauges, bound once at
+  construction.  A span reads the host clock only, so a dispatch stays
+  free of host syncs with the recorder on.  ``--metrics-port`` serves the
+  live registry as Prometheus text (:func:`start_metrics_server`), and the
+  driver writes the trace and metrics files at exit when enabled.
+
 Every :class:`ServeConfig` field defaults from a ``REPRO_SERVE_*``
-variable, with the JAX package's names and defaults.  The spans, metrics
-and ``--metrics-port`` wait for the port's tracing (ROADMAP A16);
-``stats()`` reports every counter the JAX server reports.
+variable, with the JAX package's names and defaults; ``stats()`` reports
+every counter the JAX server reports.
 
   PYTHONPATH=src python -m repro_torch.launch.serving --dataset dna \\
       --n 100000 --requests 4096 --mode all        # --device cpu: plain path
@@ -55,11 +66,13 @@ from __future__ import annotations
 import argparse
 import collections
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.api import EraConfig, EraIndexer
 from repro_torch.core.fabric import ShardedIndex
 from repro_torch.core.query import DeviceIndex, RouteCache
@@ -181,7 +194,65 @@ class AsyncServer:
         self.n_rows_padded = 0
         self.shapes: set[tuple[int, int]] = set()
         self.n_index_swaps = 0
+        # span links: each taken batch gets a fresh link id, stamped on its
+        # serve/queue_wait span and on the serve/device_dispatch span(s) it
+        # becomes, so a trace viewer joins the wait to the work it fed
+        self._link_seq = 0
+        self._cur_link = 0
         self._width_cap = max(4, dev.max_pattern_len - dev.max_pattern_len % 4)
+        self._bind_obs()
+
+    def _bind_obs(self) -> None:
+        """Bind the tracer and the registry's instruments once, at
+        construction (``repro.launch.serving.AsyncServer._bind_obs``): a
+        batch then pays an attribute access and, with the recorder off, a
+        no-op call."""
+        tr, m = obs.tracer(), obs.metrics()
+        self._tr = tr
+        self._trace_on = tr.enabled
+        self._metrics_on = m.enabled
+        self._m_requests = m.counter(
+            "serve_requests_total", "requests admitted")
+        self._m_rejected = m.counter(
+            "serve_rejected_total", "requests rejected at admission")
+        self._m_batches = m.counter(
+            "serve_batches_total", "padded batches dispatched")
+        self._m_rows_real = m.counter(
+            "serve_rows_real_total", "real (non-padding) batch rows")
+        self._m_rows_padded = m.counter(
+            "serve_rows_padded_total", "batch rows incl. pow2 padding")
+        self._m_cache_hits = m.counter(
+            "serve_cache_hits_total", "route-cache hits at admission")
+        self._m_cache_misses = m.counter(
+            "serve_cache_misses_total", "route-cache misses at admission")
+        self._m_index_swaps = m.counter(
+            "serve_index_swaps_total", "live index generation swaps")
+        self._m_cache_flushes = m.counter(
+            "serve_cache_flushes_total",
+            "route-cache flushes forced by an index epoch change")
+        self._h_queue_depth = m.histogram(
+            "serve_queue_depth",
+            buckets=obs.pow2_buckets(1, self.config.queue_depth),
+            help="admission-queue depth sampled at each pump")
+        self._h_batch_fill = m.histogram(
+            "serve_batch_fill", buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+            help="real rows / padded rows per dispatched batch")
+        self._h_queue_wait = m.histogram(
+            "serve_queue_wait_ms",
+            help="per-request wait from admission to batch dispatch")
+        self._h_batch_age = m.histogram(
+            "serve_batch_age_ms",
+            help="oldest queued request's age at dispatch (the "
+                 "max_wait_ms batch-aging signal)")
+        # callback gauges read the live server when a snapshot is taken;
+        # on re-registration the newest server's callbacks win
+        m.gauge("serve_cache_size",
+                fn=lambda: sum(len(c) for c in self.caches),
+                help="route-cache entries (all shards)")
+        m.gauge("serve_cache_hit_rate", fn=lambda: self._cache_hit_rate(),
+                help="route-cache lifetime hit rate (all shards)")
+        m.gauge("serve_queue_depth_now", fn=lambda: len(self.queue),
+                help="admission-queue depth right now")
 
     # ---- admission --------------------------------------------------------
 
@@ -189,10 +260,12 @@ class AsyncServer:
         """Admit one request; False (and a count) when the queue is full."""
         if len(self.queue) >= self.config.queue_depth:
             self.n_rejected += 1
+            self._m_rejected.inc()
             return False
         self.queue.append(_Request(rid, pattern,
                                    time.perf_counter() if now is None else now))
         self.n_admitted += 1
+        self._m_requests.inc()
         return True
 
     # ---- batching ---------------------------------------------------------
@@ -232,11 +305,24 @@ class AsyncServer:
         if not self.queue:
             return None
         cfg = self.config
-        oldest_age_ms = (time.perf_counter() - self.queue[0].t_admit) * 1e3
+        now = time.perf_counter()
+        oldest_age_ms = (now - self.queue[0].t_admit) * 1e3
         if len(self.queue) < cfg.max_batch and oldest_age_ms < cfg.max_wait_ms:
             return None
-        return [self.queue.popleft()
-                for _ in range(min(len(self.queue), cfg.max_batch))]
+        requests = [self.queue.popleft()
+                    for _ in range(min(len(self.queue), cfg.max_batch))]
+        self._link_seq += 1
+        self._cur_link = self._link_seq
+        if self._metrics_on:
+            self._h_batch_age.observe(oldest_age_ms)
+            for r in requests:
+                self._h_queue_wait.observe((now - r.t_admit) * 1e3)
+        if self._trace_on:
+            self._tr.complete("serve/queue_wait",
+                              int(requests[0].t_admit * 1e9),
+                              int(oldest_age_ms * 1e6),
+                              rows=len(requests), link=self._cur_link)
+        return requests
 
     @staticmethod
     def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -266,27 +352,41 @@ class AsyncServer:
         flight.ready.append(ready)
         return tuple(host)
 
-    def _launch(self, dev: DeviceIndex, flight: _InFlight, reqs) -> tuple:
+    def _launch(self, dev: DeviceIndex, flight: _InFlight, reqs,
+                shard: int | None = None) -> tuple:
         """Pad, pack and upload one (sub-)batch next to ``dev``'s arrays,
         launch its search (or find-and-fetch) and start the copies back;
-        returns the host tensors."""
+        returns the host tensors.  ``shard`` (a sharded index's sub-batch)
+        goes on the spans."""
         cfg = self.config
+        at = {} if shard is None else {"shard": shard}
+        n = len(reqs)
         pats = [r.pattern for r in reqs]
         m_pad = self._bucket_width(-(-max(len(p) for p in pats) // 4) * 4)
-        b_pad = self._bucket_rows(len(reqs))
-        padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad, b_pad=b_pad)
-        self.shapes.add((m_pad, b_pad))
-        self.n_rows_padded += b_pad
-        padded, lengths, route = (self._upload(a, dev.device)
-                                  for a in (padded, lengths, route))
+        b_pad = self._bucket_rows(n)
+        with self._tr.span("serve/pad_pack", **at, rows=n, b_pad=b_pad,
+                           m_pad=m_pad):
+            padded, lengths, route = dev.pad_batch(pats, m_pad=m_pad,
+                                                   b_pad=b_pad)
+            self.shapes.add((m_pad, b_pad))
+            self.n_rows_padded += b_pad
+            padded, lengths, route = (self._upload(a, dev.device)
+                                      for a in (padded, lengths, route))
+        self._m_rows_real.inc(n)
+        self._m_rows_padded.inc(b_pad)
+        self._h_batch_fill.observe(n / b_pad)
         pat_max = max(r.pat_max for r in reqs)
-        if cfg.fetch:
-            outs = dev.find_fetch_ranges(padded, lengths, route,
-                                         fetch=cfg.fetch, pat_max=pat_max)[:3]
-        else:
-            outs = dev.find_batch_ranges(padded, lengths, route,
-                                         pat_max=pat_max)
-        return self._download(flight, outs, len(reqs), dev.device)
+        with self._tr.span("serve/device_dispatch", **at, rows=n,
+                           b_pad=b_pad, m_pad=m_pad, fetch=cfg.fetch,
+                           link=self._cur_link):
+            if cfg.fetch:
+                outs = dev.find_fetch_ranges(padded, lengths, route,
+                                             fetch=cfg.fetch,
+                                             pat_max=pat_max)[:3]
+            else:
+                outs = dev.find_batch_ranges(padded, lengths, route,
+                                             pat_max=pat_max)
+            return self._download(flight, outs, n, dev.device)
 
     def _dispatch(self) -> _InFlight | None:
         """Coalesce up to ``max_batch`` queued requests into one padded
@@ -318,9 +418,11 @@ class AsyncServer:
                     continue
                 val = self.cache.get(key)
                 if val is not None:
+                    self._m_cache_hits.inc()
                     hit_vals[key] = val
                     row_of.append(None)
                     continue
+                self._m_cache_misses.inc()
                 key_row[key] = len(miss_req)
             row_of.append(len(miss_req))
             miss_req.append(req)
@@ -329,6 +431,7 @@ class AsyncServer:
         if miss_req:
             flight.out = self._launch(self.dev, flight, miss_req)
         self.n_batches += 1
+        self._m_batches.inc()
         return flight
 
     def _dispatch_sharded(self, requests: list[_Request]) -> _InFlight:
@@ -359,9 +462,11 @@ class AsyncServer:
             if caching:
                 val = self.caches[lo].get(key)
                 if val is not None:
+                    self._m_cache_hits.inc()
                     hit_vals[key] = val
                     row_of.append(None)
                     continue
+                self._m_cache_misses.inc()
             rows = []
             for k in range(lo, hi + 1):
                 local = shard_req.setdefault(k, [])
@@ -373,9 +478,11 @@ class AsyncServer:
 
         flight = _InFlight(requests, keys, row_of, hit_vals,
                            sum(len(r) for r in shard_req.values()))
-        flight.out = {k: self._launch(self.dev.shards[k], flight, reqs)
+        flight.out = {k: self._launch(self.dev.shards[k], flight, reqs,
+                                      shard=k)
                       for k, reqs in sorted(shard_req.items())}
         self.n_batches += 1
+        self._m_batches.inc()
         return flight
 
     def _consume(self, flight: _InFlight) -> None:
@@ -387,11 +494,12 @@ class AsyncServer:
         if self.sharded:
             return self._consume_sharded(flight)
         cfg = self.config
-        flight.wait()
         if flight.n_rows:
-            start = flight.out[0].numpy()
-            count = flight.out[1].numpy()
-            win = flight.out[2].numpy() if cfg.fetch else None
+            with self._tr.span("serve/consume_sync", rows=flight.n_rows):
+                flight.wait()
+                start = flight.out[0].numpy()
+                count = flight.out[1].numpy()
+                win = flight.out[2].numpy() if cfg.fetch else None
         done: dict[int, tuple] = {}
         by_bounds: dict[tuple[int, int], tuple] = {}
         caching = cfg.cache_size > 0
@@ -422,9 +530,13 @@ class AsyncServer:
         with a hit — the rule of :meth:`ShardedIndex.find_fetch_batch`.
         Misses fill their primary shard's cache."""
         cfg = self.config
-        flight.wait()
-        mats = {k: tuple(t.numpy() for t in host)
-                for k, host in flight.out.items()}
+        mats = {}
+        for i, (k, host) in enumerate(sorted(flight.out.items())):
+            with self._tr.span("serve/consume_sync", shard=k,
+                               rows=host[0].shape[0]):
+                if flight.ready:  # one event per sub-batch on the card
+                    flight.ready[i].synchronize()
+                mats[k] = tuple(t.numpy() for t in host)
         done: dict[tuple, tuple] = {}
         caching = cfg.cache_size > 0
         now = time.perf_counter()
@@ -484,6 +596,12 @@ class AsyncServer:
         self.cache = self.caches[0]
         self._width_cap = max(4, dev.max_pattern_len - dev.max_pattern_len % 4)
         self.n_index_swaps += 1
+        self._m_index_swaps.inc()
+        if flushed:
+            self._m_cache_flushes.inc()
+        if self._trace_on:
+            self._tr.instant("serve/index_swap", epoch=new_epoch,
+                             flushed=int(flushed), shards=n_caches)
         return {"epoch": new_epoch, "flushed": flushed, "shards": n_caches}
 
     # ---- the serving loop -------------------------------------------------
@@ -492,6 +610,8 @@ class AsyncServer:
         """One loop turn: dispatch the next batch, then consume the previous
         one.  False means the loop is idle (empty, or holding a partial
         batch open for aging)."""
+        if self.queue:
+            self._h_queue_depth.observe(len(self.queue))
         nxt = self._dispatch()
         did = nxt is not None
         if self.inflight is not None:
@@ -534,6 +654,39 @@ class AsyncServer:
             "lat_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
             "cache": self._cache_stats(),
         }
+
+
+def start_metrics_server(port: int, host: str = "127.0.0.1"):
+    """A pull-based metrics endpoint on a standard-library ``http.server``
+    daemon thread (``repro.launch.serving.start_metrics_server``): GET
+    ``/`` or ``/metrics`` returns the live registry as Prometheus text
+    (the payload ``obs.export_all`` writes to ``era_metrics.prom``), any
+    other path 404.  ``port=0`` binds a free port
+    (``server.server_address[1]``).  Returns the server; ``shutdown()``
+    stops it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            if self.path.split("?", 1)[0].rstrip("/") not in ("", "/metrics"):
+                self.send_error(404)
+                return
+            body = obs.metrics().to_prometheus().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # keep the serving loop's stdout clean
+            pass
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    thread = threading.Thread(target=server.serve_forever,
+                              name="era-metrics", daemon=True)
+    thread.start()
+    return server
 
 
 def make_hot_workload(s: np.ndarray, rng: np.random.Generator, *,
@@ -656,7 +809,15 @@ def main():
                          "shards (0 = single DeviceIndex)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand kernels) or cpu (plain PyTorch versions)")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="expose the live metrics registry as a Prometheus "
+                         "text endpoint on this port (0 = off)")
     args = ap.parse_args()
+    metrics_srv = None
+    if args.metrics_port:
+        metrics_srv = start_metrics_server(args.metrics_port)
+        print(f"metrics: http://127.0.0.1:"
+              f"{metrics_srv.server_address[1]}/metrics")
     report = serve_stream(args.dataset, n=args.n, requests=args.requests,
                           hot_frac=args.hot_frac, hot_pool=args.hot_pool,
                           min_len=args.min_len, max_len=args.max_len,
@@ -664,6 +825,10 @@ def main():
                           shards=args.shards, device=args.device)
     for key, val in report.items():
         print(f"{key}: {val}")
+    for path in obs.export_all():
+        print(f"wrote {path}")
+    if metrics_srv is not None:
+        metrics_srv.shutdown()
 
 
 if __name__ == "__main__":

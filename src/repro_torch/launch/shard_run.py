@@ -65,6 +65,15 @@ def _parse_args(argv=None):
     ap.add_argument("--no-compact", action="store_true",
                     help="disable tail compaction (REPRO_COMPACT=off) in "
                          "the baseline; the sharded prepare always compacts")
+    # JAX's tile selection: accepted so its command lines run, without
+    # effect, since the card's kernels have one launch shape (as era_run)
+    ap.add_argument("--autotune", default=None,
+                    choices=["off", "table", "model"],
+                    help="accepted for the JAX driver's command lines; no "
+                         "effect on the port")
+    ap.add_argument("--autotune-table", default=None,
+                    help="accepted for the JAX driver's command lines; no "
+                         "effect on the port")
     ap.add_argument("--json", action="store_true",
                     help="emit one machine-readable JSON object on stdout")
     return ap.parse_args(argv)

@@ -243,6 +243,8 @@ def test_port_imports_no_jax():
             "import repro_torch.launch.analytics_serve\n"
             "import repro_torch.launch.serving, repro_torch.kernels.probe_gather\n"
             "import repro_torch.launch.serve, repro_torch.models.transformer\n"
+            "import repro_torch.obs, repro_torch.obs.trace\n"
+            "import repro_torch.obs.metrics, repro_torch.launch.shard_run\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

@@ -1453,6 +1453,65 @@ def test_cuda_fabric_dispatch_never_syncs(cuda_device, monkeypatch, fetch):
             assert np.array_equal(ww, gw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", [0, 32])
+def test_cuda_traced_build_and_serving(cuda_device, monkeypatch, fetch):
+    """With ``repro_torch.obs`` on: ``build_device`` at 2^20 equals the
+    untraced build; the single and the sharded ``AsyncServer`` dispatch
+    every batch sync-free (``set_sync_debug_mode("error")``,
+    ``torch.cuda.synchronize`` patched to raise) and answer as untraced
+    servers; every recorded kernel dispatch is ``impl="cuda"`` and the
+    serving spans carry their links and shards."""
+    from repro_torch import obs
+    from repro_torch.launch.serving import AsyncServer, ServeConfig
+
+    s, a, one_shot, sh, _ = _fabric_pair("genome")
+    _, _, ix = _stream_indexer("genome", 1 << 20)
+    pats = _fabric_patterns(s, a, sh.k_route) * 3
+    cfg = ServeConfig(pipeline=True, cache_size=256, max_batch=64,
+                      fetch=fetch)
+    want = AsyncServer(one_shot, cfg).serve(pats)
+
+    class Checked(AsyncServer):
+        def _dispatch(self):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return super()._dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def no_sync(*args, **kw):
+        raise AssertionError("torch.cuda.synchronize in the serving loop")
+
+    was = obs.trace_enabled(), obs.metrics_enabled()
+    obs.configure(trace=True, metrics_on=True, clear=True)
+    try:
+        traced = ix.build_device(s)
+        _assert_same_index(one_shot, traced)
+        got = {}
+        for name, dev in (("single", traced), ("sharded", sh)):
+            monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+            got[name] = Checked(dev, cfg).serve(pats)
+            monkeypatch.undo()
+        prom = obs.metrics().to_prometheus()
+        events = obs.tracer().events()
+    finally:
+        obs.configure(trace=was[0], metrics_on=was[1], clear=True)
+    for res in got.values():
+        for (wp, ww), (gp, gw) in zip(want, res):
+            assert np.array_equal(wp, gp)
+            if fetch:
+                assert np.array_equal(ww, gw)
+    assert 'impl="cuda"' in prom and 'impl="ref"' not in prom
+    dispatch = [e["args"] for e in events
+                if e["name"] == "serve/device_dispatch"]
+    links = {e["args"]["link"] for e in events
+             if e["name"] == "serve/queue_wait"}
+    assert dispatch and {d["link"] for d in dispatch} <= links
+    assert {d["shard"] for d in dispatch if "shard" in d} == set(
+        range(sh.n_shards))
+
+
 # ---- the serial engine and the workers ----
 
 

@@ -520,3 +520,22 @@ def test_shard_run_equal(capsys):
     assert got["probe_hits"] == want["probe_hits"]
     assert (got["mesh"], got["devices"], got["backend"]) == (3, 1, "cpu")
     assert set(want) - {"devices", "backend"} <= set(got)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--devices", "3", "--shards", "2", "--dataset", "protein", "--n", "9000",
+     "--seed", "4", "--memory-bytes", "4096", "--mode", "bench",
+     "--repeats", "2", "--sort", "lexsort", "--no-compact", "--json",
+     "--autotune", "model", "--autotune-table", "build/tiles.json"],
+    ["--mode", "save", "--index-path", "build/idx", "--autotune", "off"],
+])
+def test_shard_run_accepts_jax_command_lines(argv):
+    """Every command line of JAX's ``shard_run``, its ``--autotune`` and
+    ``--autotune-table`` included, parses in the port's, to the same value
+    on every key the two share (the autotune flags have no effect)."""
+    want = vars(j_shard_run._parse_args(argv))
+    got = vars(shard_run._parse_args(argv))
+    assert set(want) <= set(got)
+    for key in want:
+        assert got[key] == want[key], key

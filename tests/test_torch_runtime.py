@@ -338,7 +338,8 @@ def test_new_modules_import_no_jax():
             "import repro_torch.launch.era_run, repro_torch.runtime.scheduler\n"
             "import repro_torch.core.branch_edge, repro_torch.roofline.hopper\n"
             "import repro_torch.launch.block_sweep\n"
-            "for name in ('torch_genome_indexing', 'torch_distributed_build'):\n"
+            "for name in ('torch_genome_indexing', 'torch_distributed_build',\n"
+            "             'torch_quickstart'):\n"
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'examples/{name}.py')\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
