@@ -52,6 +52,13 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   bf16, prefilling 4 prompts of 2048 tokens through the hand-written
   ``flash_attention`` kernel (its bf16 design, ``wgmma_tma``: tensor-core
   tiles fed by TMA), then decoding 32 tokens greedily.
+* LM training — ``repro_torch.launch.train.train("qwen3-1.7b",
+  smoke=False)``: all 28 layers at full width in float32 (TF32 off, torch's
+  default), 4 x 2048 tokens a step, AdamW, each layer under remat; a
+  2-layer step on the card against the CPU, a checkpoint and resume, and
+  the ERA dedup filter (``data.tokens.dedup_mask``: an ``EraIndexer``
+  build of the token stream through ``range_gather_words`` and
+  ``kmer_histogram``).
 
 Phases, each printing one JSON line:
 
@@ -228,6 +235,17 @@ Phases, each printing one JSON line:
               against fresh prefills (the kernel) within ``LM_TOL`` of the
               largest logit, and a 2-layer prefill on the card against the
               CPU's plain versions within ``CPU_TOL``;
+   lm_train — ``train`` at full width, 6 steps (each step's loss, grad
+              norm, lr and seconds between two synchronizes, the median of
+              steps 2-6, tokens/s, peak memory above what earlier phases
+              hold, TF32 state, then one more step under
+              ``torch.profiler``: busy share and top kernels); a 2-layer
+              ``train_step`` on the card against the CPU (``TRAIN_*``
+              tolerances); 4 straight steps against 2 + a checkpoint + a
+              resumed ``train`` (``RESUME_RTOL``); ``dedup_mask`` on the
+              card equal to the CPU's on the planted example batch and a
+              4 x 2048 training batch, ``range_gather_words`` launched;
+              no training launch of ``flash_attention``;
 9. kernels  — each kernel at the main path's shapes: time, plain-version
               time, bound, and its launches on the paths above
               (``flash_attention``: the warm ``lm_serving`` run; the fused
@@ -268,7 +286,8 @@ each fabric_find batch, the fabric serving passes, the fabric append,
 each serial build, the serial node builds, ``build_distributed``,
 the trace phase's recorded window, each tree path
 from build to the end of its serving loop, each leg
-of the byte-leg phase, each LM serving run and the LM check) and read
+of the byte-leg phase, each LM serving run, the LM check, each training
+run and each dedup call) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -428,6 +447,26 @@ CPU_TOL = (1e-4, 2e-5)
 # the float32 atol for outputs near 0 (measured 1.95e-3 = 2^-9, one ulp
 # of an output in [0.25, 0.5), at the prefill shape).
 BF16_TOL = (2.0 ** -7, 2e-5)
+# lm_train, card against CPU (float32, TF32 off, 2 layers at full width,
+# one train_step from the same parameters): the loss rtol; the gradient
+# norm rtol; the moments m and v each within TRAIN_MOMENT_TOL of the
+# leaf's largest CPU entry plus that share of each entry (sums in another
+# order, the embedding backward's atomics on the card).  Adam's first step
+# moves a parameter by lr * g / (|g| + eps) ~ lr * sign(g): where |g| lies
+# within the gradient's noise (the m tolerance over 1 - b1) or below
+# 2e-7 (20 eps) the two sides may step opposite ways, so such entries may
+# differ by 2 lr; elsewhere the ratio moves by at most eps * noise / g^2 <
+# 0.05, so by 0.05 lr; both plus 1e-6 for the float32 rounding of
+# parameters of magnitude ~1.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_MOMENT_TOL = 1e-4
+TRAIN_NEAR_ZERO_G = 2e-7
+# lm_train resume: steps 3-4 after a checkpoint against the same steps
+# run straight, losses rtol (the card's embedding backward accumulates
+# with atomics, so the two runs need not agree to the bit).
+RESUME_RTOL = 1e-5
+TRAIN_STEPS = 6  # full-width steps; the step time is the median of 2-6
 LM_ARCH = "qwen3-1.7b"  # the LM phases' model, at full width and depth
 
 
@@ -1039,6 +1078,295 @@ def lm_check(cuda):
           "rel_err": err / scale, "rtol": CPU_TOL[0], "atol_rel": CPU_TOL[1]})
     torch.testing.assert_close(got, want, rtol=CPU_TOL[0],
                                atol=CPU_TOL[1] * scale)
+
+
+def _planted_token_batch() -> np.ndarray:
+    """``examples/corpus_index.py``'s batch (16 x 256 tokens, vocab
+    32,000): rows 5 and 11 copy a 128-token block of row 2."""
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+    cfg = TokenPipelineConfig(vocab=32_000, batch=16, seq_len=256, seed=0)
+    seqs = batch_at_step(cfg, 0)["tokens"].copy()
+    seqs[5, 50:178] = seqs[2, 50:178]
+    seqs[11, 0:128] = seqs[2, 50:178]
+    return seqs
+
+
+def train_batch_rows(cfg, seq: int, free_bytes: int) -> tuple[int, str]:
+    """The full-width batch (rows of ``seq`` tokens) that fits in
+    ``free_bytes``: 4 unless the reckoning says otherwise.  Parameters,
+    gradients and the two float32 moments take 16 B a parameter; a row
+    takes its float32 logits about 4 times (the logits, logsumexp's
+    backward, the gathered label's scatter and their sum), one remat
+    checkpoint a layer and about 4 copies of one layer's attention
+    scores (``_sdpa``'s logits, mask, softmax and their gradient)."""
+    fixed = 16 * cfg.param_count()
+    per_row = (4 * seq * cfg.vocab * 4 + cfg.n_layers * seq * cfg.d_model * 4
+               + 4 * cfg.n_heads * seq * seq * 4)
+    for rows in (4, 2, 1):
+        need = fixed + rows * per_row
+        if need <= 0.9 * free_bytes:
+            why = ("" if rows == 4 else
+                   f"4 rows need ~{(fixed + 4 * per_row) / 1e9:.1f} GB, "
+                   f"{free_bytes / 1e9:.1f} GB free")
+            return rows, why
+    raise AssertionError(f"lm_train: one row needs ~{need / 1e9:.1f} GB, "
+                         f"{free_bytes / 1e9:.1f} GB free")
+
+
+def lm_train(cuda) -> list[dict]:
+    """LM training on the card (``repro_torch.launch.train``), float32,
+    TF32 at torch's default (off):
+
+    (a) ``train(LM_ARCH, smoke=False)``: all 28 layers at published
+        widths, TRAIN_STEPS steps of 4 x 2048 tokens (fewer rows only if
+        ``train_batch_rows`` says they do not fit), ``log_every=1``, no
+        checkpoint; the train step is wrapped to time each call between
+        two ``torch.cuda.synchronize`` and to read its metrics (the path
+        is unchanged); then one more step of the same shapes under
+        ``torch.profiler`` for the device's busy share and top kernels;
+    (b) a 2-layer full-width ``train_step`` (batch 2 x 128) on the card
+        against the same step on the CPU (plain versions): loss, grad
+        norm, lr, m, v and the new parameters (see TRAIN_*);
+    (c) at the same 2 layers (the registry's config swapped, as
+        ``examples/torch_train_lm.py --hundred-m`` does), 4 straight
+        steps against 2 steps + a checkpoint + a resumed ``train`` to 4;
+    (d) ``dedup_mask`` on the card, on the planted example batch and on a
+        4 x 2048 training batch with one planted 256-token repeat, equal
+        to the CPU's; its launches counted from 0 (``range_gather_words``
+        required).
+
+    No training launch may reach ``flash_attention``.  Returns the
+    launch counts of the dedup runs (main-path launches)."""
+    import dataclasses
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.configs.qwen3_1_7b as arch_mod
+    from repro_torch import pytree
+    from repro_torch.data import tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim import adamw
+
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32["matmul_allow_tf32"]:
+        raise AssertionError("lm_train: TF32 is on; torch's default is off")
+    cfg = get_config(LM_ARCH)
+    if arch_mod.CONFIG is not cfg:
+        raise AssertionError("lm_train: the registry does not read the "
+                             "config module")
+
+    # ---- (a) full width --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = 2048
+    held = torch.cuda.memory_allocated()
+    rows, why = train_batch_rows(cfg, seq, torch.cuda.mem_get_info()[0])
+    real_make = step_lib.make_train_step
+    seen = []
+
+    def timed_make(cfg_, opt_cfg, **kw):
+        step = real_make(cfg_, opt_cfg, **kw)
+
+        def run(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            seen.append({"s": time.perf_counter() - t0,
+                         "loss": float(out[2]["loss"]),
+                         "grad_norm": float(out[2]["grad_norm"]),
+                         "lr": float(out[2]["lr"])})
+            return out
+        return run
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.step_lib.make_train_step = timed_make
+    try:
+        t0 = time.perf_counter()
+        params, losses = train_mod.train(
+            LM_ARCH, smoke=False, steps=TRAIN_STEPS, batch=rows, seq=seq,
+            log_every=1, device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_mod.step_lib.make_train_step = real_make
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = counts_now()
+    step_s = float(np.median([r["s"] for r in seen[1:]]))
+    row = {"phase": "lm_train", "what": "full width", "arch": LM_ARCH,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": cfg.param_count(),
+           "dtype": "float32", **tf32, "batch": rows, "seq": seq,
+           "batch_cut": why or None, "steps": TRAIN_STEPS,
+           "per_step": seen, "losses": losses, "wall_s": wall,
+           "step_s_median_2_6": step_s, "tokens_per_s": rows * seq / step_s,
+           "peak_memory_gb": peak / 1e9, "held_before_gb": held / 1e9,
+           "flash_launches": counts["flash_attention"],
+           "launches": {k: v for k, v in counts.items() if v}}
+    if (len(seen) != TRAIN_STEPS or len(losses) != TRAIN_STEPS
+            or not all(np.isfinite([r["loss"] for r in seen]))
+            or not all(np.isfinite([r["grad_norm"] for r in seen]))
+            or [r["loss"] for r in seen] != losses):
+        emit(row)
+        raise AssertionError("lm_train: a full-width step was not finite, "
+                             "or the driver's losses are not its steps'")
+    if counts["flash_attention"]:
+        raise AssertionError("lm_train: training launched flash_attention")
+
+    # one more step of the same shapes under the profiler (device events)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                                warmup_steps=max(10, TRAIN_STEPS // 20))
+    opt_state = adamw.init(params)
+    pipe = tokens.TokenPipelineConfig(vocab=cfg.vocab, batch=rows, seq_len=seq)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in tokens.batch_at_step(pipe, TRAIN_STEPS).items()}
+    step = step_lib.make_train_step(cfg, opt_cfg, donate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    row.update(profiled_step_s=prof_s,
+               **device_breakdown(prof, prof_s, top=10))
+    emit(row)
+    del params, opt_state, batch, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) card against CPU, 2 layers at full width ---------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=4, warmup_steps=10)
+    step = step_lib.make_train_step(cfg2, opt_cfg)
+    pipe = tokens.TokenPipelineConfig(vocab=cfg.vocab, batch=2, seq_len=128)
+    b_np = tokens.batch_at_step(pipe, 0)
+    p_card = T.init_params(3, cfg2, torch.float32, cuda)
+    p_cpu = pytree.tree_map(lambda t: t.cpu(), p_card)
+    ops.reset_launch_counts()
+    gp, go, gm = step(p_card, adamw.init(p_card),
+                      {k: torch.from_numpy(v).to(cuda) for k, v in b_np.items()})
+    torch.cuda.synchronize()
+    if ops.launch_counts()["flash_attention"]:
+        raise AssertionError("lm_train: training launched flash_attention")
+    cp, co, cm = step(p_cpu, adamw.init(p_cpu),
+                      {k: torch.from_numpy(v) for k, v in b_np.items()})
+    lr = float(cm["lr"])
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0}
+    flipped = 0
+    for (path, p_new), p_want, m_got, m_want, v_got, v_want in zip(
+            pytree.leaves_with_paths(gp), pytree.leaves(cp),
+            pytree.leaves(go.m), pytree.leaves(co.m),
+            pytree.leaves(go.v), pytree.leaves(co.v)):
+        name = "/".join(path)
+        tols = {}
+        for key, got, want in (("m", m_got, m_want), ("v", v_got, v_want)):
+            got = got.cpu()
+            tol = TRAIN_MOMENT_TOL * (float(want.abs().max()) + want.abs())
+            err = (got - want).abs()
+            worst[key] = max(worst[key], float((err / tol.clamp(min=1e-30)).max()))
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"lm_train: {key} of {name} differs by "
+                                     f"{float(err.max())} (card against CPU)")
+            tols[key] = TRAIN_MOMENT_TOL * float(want.abs().max())
+        g_noise = max(tols["m"] / (1 - opt_cfg.b1), TRAIN_NEAR_ZERO_G)
+        near0 = (m_want.abs() / (1 - opt_cfg.b1)) <= g_noise
+        allowed = 1e-6 + lr * torch.where(near0, 2.0, 0.05)
+        err = (p_new.cpu() - p_want).abs()
+        worst["params"] = max(worst["params"], float((err / allowed).max()))
+        flipped += int(((err > 1e-6 + 0.05 * lr) & near0).sum())
+        if not bool((err <= allowed).all()):
+            raise AssertionError(f"lm_train: the new {name} differs by "
+                                 f"{float(err.max())} (card against CPU)")
+    card_cpu = {"phase": "lm_train", "what": "card vs cpu", "arch": LM_ARCH,
+                "n_layers": 2, "dtype": "float32", **tf32, "batch": 2,
+                "seq": 128, "loss_card": float(gm["loss"]),
+                "loss_cpu": float(cm["loss"]),
+                "grad_norm_card": float(gm["grad_norm"]),
+                "grad_norm_cpu": float(cm["grad_norm"]),
+                "lr_card": float(gm["lr"]), "lr_cpu": lr,
+                "worst_share_of_tolerance": worst,
+                "params_stepped_opposite": flipped,
+                "tolerances": {"loss_rtol": TRAIN_LOSS_RTOL,
+                               "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                               "moment_tol": TRAIN_MOMENT_TOL,
+                               "near_zero_g": TRAIN_NEAR_ZERO_G}}
+    emit(card_cpu)
+    if (abs(card_cpu["loss_card"] - card_cpu["loss_cpu"])
+            > TRAIN_LOSS_RTOL * abs(card_cpu["loss_cpu"])
+            or abs(card_cpu["grad_norm_card"] - card_cpu["grad_norm_cpu"])
+            > TRAIN_GNORM_RTOL * card_cpu["grad_norm_cpu"]
+            or card_cpu["lr_card"] != lr):
+        raise AssertionError("lm_train: the card's loss, grad norm or lr "
+                             "differs from the CPU's")
+    del p_card, p_cpu, gp, go, cp, co
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) resume, 2 layers at full width --------------------------------
+    kw = dict(smoke=False, steps=4, batch=2, seq=128, log_every=1, device=cuda)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_ckpt_", dir=ROOT / "build")
+    arch_mod.CONFIG = cfg2  # the driver reads the registry fresh
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, straight = train_mod.train(LM_ARCH, **kw)
+        _, first = train_mod.train(LM_ARCH, **{**kw, "steps": 2},
+                                   ckpt_dir=ckpt_dir, ckpt_every=2)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir())
+        _, resumed = train_mod.train(LM_ARCH, **kw, ckpt_dir=ckpt_dir,
+                                     ckpt_every=100)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        arch_mod.CONFIG = cfg
+        shutil.rmtree(ckpt_dir)
+    got = first + resumed
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, straight))
+    res_row = {"phase": "lm_train", "what": "resume", "arch": LM_ARCH,
+               "n_layers": 2, "batch": 2, "seq": 128,
+               "straight": straight, "first": first, "resumed": resumed,
+               "max_rel_err": err, "rtol": RESUME_RTOL,
+               "checkpoint_gb": ckpt_bytes / 1e9, "wall_s": resume_s,
+               "flash_launches": ops.launch_counts()["flash_attention"]}
+    emit(res_row)
+    if (len(got) != 4 or len(straight) != 4 or err > RESUME_RTOL
+            or res_row["flash_launches"]):
+        raise AssertionError("lm_train: the resumed losses differ from the "
+                             "straight run's")
+
+    # ---- (d) the ERA dedup filter on the card ------------------------------
+    big_cfg = tokens.TokenPipelineConfig(vocab=cfg.vocab, batch=4, seq_len=2048)
+    big = tokens.batch_at_step(big_cfg, 0)["tokens"].copy()
+    big[3, 100:356] = big[1, 1000:1256]
+    dedup_counts = []
+    for name, seqs, kw in (("planted", _planted_token_batch(),
+                            dict(min_repeat=64)),
+                           ("train_batch", big, {})):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        keep = tokens.dedup_mask(seqs, device=cuda, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts_now()
+        want = tokens.dedup_mask(seqs, device="cpu", **kw)
+        emit({"phase": "lm_train", "what": "dedup", "batch": name,
+              "shape": list(seqs.shape), **kw,
+              "flagged": np.nonzero(~keep)[0].tolist(),
+              "flagged_cpu": np.nonzero(~want)[0].tolist(), "s": dt,
+              "launches": {k: v for k, v in c.items() if v}})
+        if not np.array_equal(keep, want) or keep.all():
+            raise AssertionError(f"lm_train: dedup_mask on {name} differs "
+                                 "from the CPU's or flags nothing")
+        require_launches(c, ("range_gather_words",), f"dedup {name}")
+        dedup_counts.append(c)
+    return dedup_counts
 
 
 def flash_row(cuda, cases: list) -> dict:
@@ -4211,6 +4539,7 @@ def main() -> int:
     flash_cases = flash_parity(cuda)
     lm_runs = lm_serving(cuda)
     lm_check(cuda)
+    dedup_counts = lm_train(cuda)
 
     rows += fetch_rows
     rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
@@ -4221,7 +4550,7 @@ def main() -> int:
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
              *stream_counts, append_counts, *fabric_counts, *serial_counts,
-             trace_counts]
+             trace_counts, *dedup_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -11,21 +11,23 @@ Entry points:
 * ``init_params``            — random parameters on a device
 * ``params_from_numpy``      — a JAX parameter tree (as numpy) → the port's
 * ``init_cache(cfg, B, S)``  — the KV cache
+* ``forward_train``          — full-sequence logits (+ the aux loss, zero)
 * ``forward_prefill``        — logits for the last position + filled cache
 * ``forward_decode``         — one-token step against the cache
 
 The other families (moe and MLA, ssm, hybrid, encdec) raise
-``NotImplementedError`` naming ROADMAP item A15c; ``forward_train`` waits
-for A15b.
+``NotImplementedError`` naming ROADMAP item A15c.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import nn
@@ -158,6 +160,73 @@ def _frontend(params, batch, cfg: ModelConfig, dtype):
                           params["frontend_proj"].to(dtype))
         emb = torch.cat([fr, emb], dim=1)
     return emb
+
+
+# ---------------------------------------------------------------------------
+# Training forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _unstack(stacked: Any, n: int) -> list:
+    """Per-layer parameter trees from the stacked tensors, through one
+    ``torch.unbind`` per leaf: its backward stacks the layers' gradients
+    once, where indexing each layer would scatter every layer's gradient
+    into a zero tensor of the whole stack."""
+    if isinstance(stacked, torch.Tensor):
+        return list(torch.unbind(stacked, 0))
+    per_key = {k: _unstack(v, n) for k, v in stacked.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy, the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions (``torch.einsum`` runs a
+    weight product as a ``bmm`` over one batch; attention's products have
+    (B, KV) batches) and recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _train_layer(x, lp, cfg: ModelConfig, q_pos, is_global: bool):
+    y, _ = _dense_block(lp, x, cfg, q_pos=q_pos, window=cfg.sliding_window,
+                        is_global=is_global)
+    return y
+
+
+def forward_train(params, batch, cfg: ModelConfig, *, remat: bool = True,
+                  remat_policy: str = "none"):
+    """Returns (logits, aux_loss); aux is a float32 zero for these
+    families, as in the JAX package.
+
+    With ``remat`` each layer body runs under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): only its input
+    is kept for the backward, which recomputes the rest
+    (``jax.checkpoint``); ``remat_policy="dots"`` keeps the weight
+    products' outputs too (:func:`_saves_dots`).  Attention is
+    :func:`nn._sdpa` (no cache: never the ``flash_attention`` kernel,
+    which has no backward), differentiated by autograd."""
+    _require_family(cfg)
+    dtype = params["final_norm"].dtype
+    x = _frontend(params, batch, cfg, dtype)
+    b, s, _ = x.shape
+    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    context_fn = ckpt.noop_context_fn
+    if remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _saves_dots)
+    flags = _is_global_flags(cfg, cfg.n_layers)
+    for lp, is_g in zip(_unstack(params["layers"], cfg.n_layers), flags):
+        if remat:
+            x = ckpt.checkpoint(_train_layer, x, lp, cfg, q_pos, is_g,
+                                use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _train_layer(x, lp, cfg, q_pos, is_g)
+
+    return _logits(params, x, cfg), aux_total
 
 
 # ---------------------------------------------------------------------------

@@ -1543,3 +1543,53 @@ def test_cuda_serial_and_workers_equal_build_device(cuda_device, name):
         for f in ("ell", "b_off", "b_c1", "b_c2"):
             assert np.array_equal(getattr(dist.subtrees[p], f),
                                   getattr(st, f)), (p, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_cuda_train_step_matches_cpu(cuda_device, policy):
+    """One smoke-width ``train_step`` on the card against the CPU's plain
+    path from the same parameters (float32, TF32 at torch's default, off):
+    loss rtol 1e-5, grad norm rtol 1e-4, the new parameters within 2 lr
+    (Adam's first step is about lr * sign(g), and a gradient within float
+    noise of 0 may step the other way) + 1e-6; no ``flash_attention``
+    launch."""
+    from repro_torch import pytree
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.optim import adamw
+    cfg = smoke_config(get_config("qwen3-1.7b"))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = step_lib.make_train_step(cfg, opt_cfg, remat_policy=policy)
+    b = batch_at_step(TokenPipelineConfig(vocab=cfg.vocab, batch=2, seq_len=64), 0)
+    p_card = T.init_params(0, cfg, torch.float32, cuda_device)
+    p_cpu = pytree.tree_map(lambda t: t.cpu(), p_card)
+    ops.reset_launch_counts()
+    gp, _, gm = step(p_card, adamw.init(p_card),
+                     {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    cp, _, cm = step(p_cpu, adamw.init(p_cpu),
+                     {k: torch.from_numpy(v) for k, v in b.items()})
+    torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(gm["grad_norm"].cpu(), cm["grad_norm"],
+                               rtol=1e-4, atol=0)
+    assert float(gm["lr"]) == float(cm["lr"])
+    for got, want in zip(pytree.leaves(gp), pytree.leaves(cp)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2 * float(cm["lr"]) + 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_mask_matches_cpu(cuda_device):
+    """``dedup_mask`` on the card (the ERA build through the gather
+    kernels) equals the CPU's on ``examples/corpus_index.py``'s batch."""
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step, dedup_mask
+    seqs = batch_at_step(TokenPipelineConfig(vocab=32_000, batch=16, seq_len=256), 0)["tokens"].copy()
+    seqs[5, 50:178] = seqs[2, 50:178]
+    seqs[11, 0:128] = seqs[2, 50:178]
+    ops.reset_launch_counts()
+    keep = dedup_mask(seqs, min_repeat=64, device=cuda_device)
+    assert ops.launch_counts()["range_gather_words"] > 0
+    np.testing.assert_array_equal(keep, dedup_mask(seqs, min_repeat=64, device="cpu"))
+    assert not keep[5] or not keep[11]

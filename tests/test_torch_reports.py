@@ -7,16 +7,35 @@ timing (hits, ``mean_match_len``, ``distinct_substrings``,
 ``longest_repeat``, counts, batch shapes, cache counters) is equal
 exactly, and every timing field is rounded to the places JAX rounds it
 to.  The port's extra keys (``device``, ``n_iter``) are its only others.
+
+The training driver's ``main`` prints the JAX driver's lines from the
+same parameters: the step exactly, the loss and the gradient norm within
+one unit of their last printed place (float32 sums in another order), and
+``tok/s`` in JAX's format; its parser takes JAX's command lines to the
+same ``train`` arguments, and ``--mesh prod`` / ``multipod`` raise,
+naming ROADMAP A15d.
 """
 
+import re
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from repro.launch import analytics_serve as j_analytics
 from repro.launch import query_serve as j_query
 from repro.launch import serving as j_serving
+from repro.launch import train as j_train
+from repro.models import transformer as JT
+from repro.models.config import smoke_config as j_smoke
+from repro.models.registry import get_config as j_get
 from repro_torch.launch import analytics_serve as t_analytics
 from repro_torch.launch import query_serve as t_query
 from repro_torch.launch import serving as t_serving
+from repro_torch.launch import train as t_train
+from repro_torch.models import transformer as T
 
 # the timing fields of the JAX reports and the places each is rounded to
 TIMING = {"t_build_s": 3, "qps": 1, "batch_p50_ms": 3, "batch_p99_ms": 3,
@@ -59,3 +78,76 @@ def test_launch_report_equals_jax(module):
     want = jax_fn(dataset, **kw)
     _assert_report(got, want, module)
     assert got["device"] == "cpu"
+
+
+# ---- the training driver --------------------------------------------------
+
+TRAIN_LINE = re.compile(
+    r"step +(\d+)  loss (\d+\.\d{4})  gnorm (\d+\.\d{3})  "
+    r"tok/s (\d{1,3}(?:,\d{3})*)")
+
+
+def _step_lines(out: str) -> list[tuple]:
+    rows = []
+    for line in out.splitlines():
+        m = TRAIN_LINE.fullmatch(line)
+        assert m, f"not a driver line: {line!r}"
+        rows.append((int(m[1]), float(m[2]), float(m[3])))
+    return rows
+
+
+def test_train_main_lines_equal_jax(monkeypatch, capsys):
+    def init(seed, cfg, dtype, device):  # the JAX driver's parameters
+        jp = JT.init_params(jax.random.PRNGKey(0), j_smoke(j_get(cfg.name)),
+                            jnp.float32)
+        return T.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device)
+    monkeypatch.setattr(t_train.T, "init_params", init)
+    argv = ["--steps", "11", "--batch", "2", "--seq", "16"]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    j_train.main()
+    want = _step_lines(capsys.readouterr().out)
+    t_train.main(argv + ["--device", "cpu"])
+    got = _step_lines(capsys.readouterr().out)
+    assert [r[0] for r in got] == [r[0] for r in want] == [1, 10]
+    for (_, loss, gnorm), (_, jloss, jgnorm) in zip(got, want):
+        assert abs(loss - jloss) <= 1e-4 + 1e-9
+        assert abs(gnorm - jgnorm) <= 1e-3 + 1e-9
+
+
+JAX_COMMAND_LINES = [
+    [],
+    ["--full"],
+    ["--arch", "gemma3-4b", "--smoke", "--steps", "5", "--batch", "4",
+     "--seq", "64", "--lr", "1e-3", "--ckpt-dir", "ck", "--mesh", "host"],
+    ["--mesh", "prod"],
+    ["--mesh", "multipod", "--full", "--steps", "7"],
+]
+
+
+@pytest.mark.parametrize("argv", JAX_COMMAND_LINES, ids=lambda a: " ".join(a) or "defaults")
+def test_train_parser_takes_jax_command_lines(argv, monkeypatch):
+    seen = {}
+    monkeypatch.setattr(j_train, "train",
+                        lambda arch, **kw: seen.setdefault("jax", dict(arch=arch, **kw)))
+    monkeypatch.setattr(j_train, "make_host_mesh", lambda: "host")
+    monkeypatch.setattr(j_train, "make_production_mesh",
+                        lambda multi_pod=False: "multipod" if multi_pod else "prod")
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    j_train.main()
+    want = dict(seen["jax"])
+    parsed = vars(t_train.build_parser().parse_args(argv))
+    assert parsed.pop("device") == "cuda"
+    assert parsed == {"arch": want["arch"], "smoke": want["smoke"],
+                      "steps": want["steps"], "batch": want["batch"],
+                      "seq": want["seq"], "lr": want["lr"],
+                      "ckpt_dir": want["ckpt_dir"], "mesh": want["mesh"]}
+    if want["mesh"] != "host":  # the real driver, before it reads a device
+        with pytest.raises(NotImplementedError, match="A15d"):
+            t_train.main(argv)
+        return
+    monkeypatch.setattr(t_train, "train",
+                        lambda arch, **kw: seen.setdefault("port", dict(arch=arch, **kw)))
+    t_train.main(argv)
+    got = seen["port"]
+    assert got.pop("device") == "cuda"
+    assert got == want
