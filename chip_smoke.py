@@ -59,6 +59,15 @@ calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
   the ERA dedup filter (``data.tokens.dedup_mask``: an ``EraIndexer``
   build of the token stream through ``range_gather_words`` and
   ``kmer_histogram``).
+* LM serving of the other families — ``serve(arch, smoke=False)`` in bf16,
+  4 prompts of 2048 tokens and 32 generated, at published widths:
+  ``falcon-mamba-7b`` (ssm, 64 layers), ``zamba2-2.7b`` (hybrid, 54
+  Mamba-2 layers and 9 calls of the shared block, D 80 through
+  ``flash_attention``), ``seamless-m4t-medium`` (encdec, 12 + 12 layers,
+  1024 frontend frames; the encoder through the kernel's full mode),
+  ``phi3.5-moe-42b-a6.6b`` (moe, GQA; cut to 4 of 32 layers) and
+  ``deepseek-v2-236b`` (moe, MLA; cut to 3 of 60 layers: its dense first
+  layer and 2 MoE layers of 160 experts, top 6, 2 shared).
 
 Phases, each printing one JSON line:
 
@@ -246,9 +255,26 @@ Phases, each printing one JSON line:
               card equal to the CPU's on the planted example batch and a
               4 x 2048 training batch, ``range_gather_words`` launched;
               no training launch of ``flash_attention``;
+   lm_families — per ``FAMILY_RUNS`` entry ``serve`` cold and warm
+              (times, prompt tokens/s, decode tokens/s, peak memory above
+              what earlier phases hold, ``flash_attention`` launches per
+              prefill equal to ``FAMILY_FLASH`` and none in the decode,
+              finite logits, tokens in the vocabulary, the cache at
+              2048 + 31), the cold run's prefill under
+              ``torch.profiler`` (busy share, top kernels, device ms by
+              ``FAMILY_KERNEL_CLASSES``: the SSM scan, the MoE router and
+              scatter, softmaxes, products);
+              then in float32 (TF32 off) at 2 layers (hybrid 4 in 2
+              chunks), full width: decode steps 1 and 8 against fresh
+              prefills (``FAMILY_DECODE_TOL``) and a 2 x 64 prefill on
+              the card against the CPU, MoE expert ids equal
+              (``FAMILY_CPU_TOL``); ``parity`` adds ``flash_attention`` at
+              D 80 causal (H 32 = KV 32, S 2048) and D 64 full (H 16, S
+              1024), bf16 and float32;
 9. kernels  — each kernel at the main path's shapes: time, plain-version
               time, bound, and its launches on the paths above
-              (``flash_attention``: the warm ``lm_serving`` run; the fused
+              (``flash_attention``: the warm ``lm_serving`` and
+              ``lm_families`` runs; the fused
               kernels also at 2^20 rows, beside the time of the two ported
               kernels they fuse; the fused find-and-fetch kernels beside
               ``unfused_ms`` (the search and epilogue kernels they replace)
@@ -262,7 +288,9 @@ Phases, each printing one JSON line:
               name the kernel that took their search in ``fused_into``;
               the two that took it are timed again on 256 distinct
               patterns, ``distinct``); ``flash_attention`` beside
-              SDPA's time as ``library_ms``, with its bf16 ``design``;
+              SDPA's time as ``library_ms``, with its bf16 ``design``,
+              and both again at zamba2's D 80 (``ms_d80``,
+              ``library_ms_d80``);
               the two elastic-range gathers with the rows and words their
               counted launches gathered, the excess weighted by those
               rows, their ms in the profiled builds, the gather on sorted
@@ -287,7 +315,7 @@ each serial build, the serial node builds, ``build_distributed``,
 the trace phase's recorded window, each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run, the LM check, each training
-run and each dedup call) and read
+run, each dedup call and each lm_families serving run) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -468,6 +496,45 @@ TRAIN_NEAR_ZERO_G = 2e-7
 RESUME_RTOL = 1e-5
 TRAIN_STEPS = 6  # full-width steps; the step time is the median of 2-6
 LM_ARCH = "qwen3-1.7b"  # the LM phases' model, at full width and depth
+# lm_families: one serving run per family at published widths, (run, arch,
+# layers): None keeps the published depth; phi3.5-moe (42 B parameters)
+# and deepseek-v2 (236 B) are cut to what one card holds, deepseek to its
+# dense first layer and two MoE layers
+FAMILY_RUNS = (("ssm", "falcon-mamba-7b", None),
+               ("hybrid", "zamba2-2.7b", None),
+               ("encdec", "seamless-m4t-medium", None),
+               ("moe_gqa", "phi3.5-moe-42b-a6.6b", 4),
+               ("moe_mla", "deepseek-v2-236b", 3))
+# flash_attention launches a full-depth prefill makes: every global
+# self-attention from the empty cache (phi 4 of the cut model, zamba2's
+# shared block after each of its 9 chunks, seamless' 12 decoder and 12
+# encoder layers), none for MLA or an SSM
+FAMILY_FLASH = {"ssm": 0, "hybrid": 9, "encdec": 24, "moe_gqa": 4,
+                "moe_mla": 0}
+# Decode against a fresh prefill, float32, 2 layers (hybrid 4: 2 chunks),
+# as a share of the largest logit: the decode's _sdpa, MLA softmax or SSM
+# recurrence sums in another order than the prefill's kernel or doubling
+# scan, and the encdec decoder's cross-attention over encoder states of
+# magnitude ~35 is near one-hot, so small differences grow (on the CPU the
+# port and JAX differ by up to 5e-5 there: tests/test_torch_families.py).
+FAMILY_DECODE_TOL = 1e-4
+# Card against CPU, float32, the same layers: rtol and atol as a share of
+# the largest logit, those of tests/test_torch_families.py.
+FAMILY_CPU_TOL = (1e-4, 1e-4)
+# seamless has no qk-norm: at full width q and k entries have a std of ~8
+# (scale 1/sqrt(fan_in), fan_in the head count, as in the JAX package), so
+# its logits' std is ~64, every softmax is near one-hot and each float32
+# rounding of q or k grows ~100-fold.  The card's products round
+# differently from the CPU's, so its float32 logits and encoder output
+# stray from a float64 run several times further than the CPU's float32
+# do, with the plain attention as with the kernel (the phase line's
+# ``vs_float64``).  So seamless' card run is held against a float64 CPU
+# run: its logits and encoder output no further from it than this factor
+# times the same card path's with the plain versions
+# (``flash_attention_ref``) in place of the kernel, plus FAMILY_CPU_TOL's
+# atol; the two card runs share every product, so a fault in the kernel
+# shows as the difference.
+FAMILY_F64_FACTOR = 2.0
 
 
 T_START = time.perf_counter()
@@ -847,6 +914,12 @@ def flash_parity(cuda) -> list:
         (2, 300, 300, 8, 2, 128, True, bf16, 8.0),  # q x 8: the max moves
         (4, 2048, 2048, 16, 8, 128, True, bf16),  # qwen3-1.7b's prefill
         (4, 2048, 2048, 16, 8, 128, True, f32),
+        # lm_families: zamba2's shared block (D 80, padded to the DC = 2
+        # template) and seamless' encoder (D 64, the full mode)
+        (4, 2048, 2048, 32, 32, 80, True, bf16),
+        (4, 2048, 2048, 32, 32, 80, True, f32),
+        (4, 1024, 1024, 16, 16, 64, False, bf16),
+        (4, 1024, 1024, 16, 16, 64, False, f32),
     ]
     gen = torch.Generator(device=cuda).manual_seed(5)
     out = []
@@ -1373,7 +1446,9 @@ def flash_row(cuda, cases: list) -> dict:
     """``flash_attention`` at the prefill shape of qwen3-1.7b (bf16, B 4,
     S 2048, H 16, KV 8, D 128, causal): its time, the plain version's, SDPA's
     on the same inputs, and the bound (FLOPs over the bf16 tensor-core
-    peak, or bytes over the memory rate, whichever is larger)."""
+    peak, or bytes over the memory rate, whichever is larger); then its
+    time and SDPA's at zamba2's shared-block shape (D 80, H 32 = KV 32) as
+    ``ms_d80`` and ``library_ms_d80``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
@@ -1392,6 +1467,16 @@ def flash_row(cuda, cases: list) -> dict:
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), inner=10)
     if ops.flash_attention.route != "wgmma_tma":
         raise AssertionError("bf16 flash_attention did not run wgmma_tma")
+    # zamba2's shared block: D 80 (H 32 = KV 32), beside SDPA there
+    q8, k8, v8 = (torch.randn((b, s, 32, 80), generator=gen, device=cuda
+                              ).to(torch.bfloat16) for _ in range(3))
+    d80 = {"shape_d80": f"B={b} S={s} H=32 KV=32 D=80 causal bf16",
+           "ms_d80": cuda_ms(lambda: ops.flash_attention(q8, k8, v8),
+                             inner=10),
+           "library_ms_d80": cuda_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q8.transpose(1, 2), k8.transpose(1, 2),
+                   v8.transpose(1, 2), is_causal=True), inner=10)}
     return {"name": "flash_attention",
             "replaces": "src/repro/kernels/flash_attention.py:73",
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -1407,7 +1492,373 @@ def flash_row(cuda, cases: list) -> dict:
                        "(is_causal=True, enable_gqa=True)",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": path[0]["max_abs_err"]}
+            "max_abs_err": path[0]["max_abs_err"], **d80}
+
+
+# device kernels of a family's prefill by what they do: the first class
+# whose pattern occurs in a kernel's (lower-cased) name takes it.  "mul"
+# holds the scan's decay products and every other product of elements.
+FAMILY_KERNEL_CLASSES = (
+    ("flash_attention", ("flash_attention",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("scan_addcmul", ("addcmul",)),
+    ("mul", ("mulfunctor",)),
+    ("exp", ("exp_kernel",)),
+    ("softmax", ("softmax",)),
+    ("moe_scatter_gather", ("index_put", "indexing", "index_elementwise")),
+    ("sort", ("sort",)),
+    ("cumsum", ("scan",)),
+    ("conv", ("conv",)),
+    ("copy_cast", ("copy", "memcpy")),
+)
+
+
+def kernel_classes(prof) -> dict:
+    """Device ms and launches of a profile's kernels by
+    ``FAMILY_KERNEL_CLASSES`` (the rest as "other")."""
+    out = {}
+    for ms, name, calls in device_events(prof):
+        low = name.lower()
+        cls = next((c for c, pats in FAMILY_KERNEL_CLASSES
+                    if any(p in low for p in pats)), "other")
+        ms0, n0 = out.get(cls, (0.0, 0))
+        out[cls] = (ms0 + ms, n0 + calls)
+    return {c: {"ms": ms, "calls": n} for c, (ms, n) in
+            sorted(out.items(), key=lambda kv: -kv[1][0])}
+
+
+def _family_check_cfg(full):
+    """The family's check model: 2 layers at published widths (encdec 2 +
+    2, deepseek its dense layer and one MoE layer), hybrid 4 in 2 chunks
+    of 2 (the published chunk of 6 would take 12)."""
+    import dataclasses
+    if full.family == "encdec":
+        return dataclasses.replace(full, n_enc_layers=2, n_dec_layers=2)
+    if full.family == "hybrid":
+        return dataclasses.replace(full, n_layers=4, attn_every=2)
+    return dataclasses.replace(full, n_layers=2)
+
+
+def family_checks(cuda, run: str, full) -> None:
+    """Float32, TF32 off, the check model of ``_family_check_cfg``:
+    (a) decode steps 1 and 8 against fresh prefills over the prompt (2 x
+    256) and the tokens decoded before it, within ``FAMILY_DECODE_TOL`` of
+    the largest logit; a moe model runs it at a capacity of every token
+    (``capacity_factor`` E / k), since the capacity drops assignments by
+    the batch's token count, which differs between a decode step and a
+    prefill; (b) a prefill of a 2 x 64 prompt on the card against the same
+    parameters on the CPU (plain versions), each MoE layer's expert ids
+    equal first (a flip on a near-tie shows as a flip), then the logits
+    within ``FAMILY_CPU_TOL``; encdec's logits and encoder output instead
+    against a float64 CPU run, beside the card path run with the plain
+    versions (``FAMILY_F64_FACTOR``)."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _family_check_cfg(full)
+    moe = cfg.family == "moe"
+    cfg_d = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k) if moe else cfg)
+    params = T.init_params(7, cfg, torch.float32, cuda)
+    rng = np.random.default_rng(31)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 256),
+                                           dtype=np.int32)).to(cuda)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frontend"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_len, cfg.frontend_dim)
+        ).astype(np.float32)).to(cuda)
+    steps, results = (1, 8), []
+    cache = T.init_cache(cfg_d, 2, 256 + max(steps) + 1, torch.float32, cuda)
+    logits, cache = T.forward_prefill(params, {"tokens": prompt, **extra},
+                                      cfg_d, cache)
+    fed = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
+    for j in range(1, max(steps) + 1):
+        dec, cache = T.forward_decode(params, fed[-1], cfg_d, cache)
+        if j in steps:
+            seq = torch.cat([prompt] + fed, dim=1)
+            want, _ = T.forward_prefill(
+                params, {"tokens": seq, **extra}, cfg_d,
+                T.init_cache(cfg_d, 2, seq.shape[1], torch.float32, cuda))
+            got, want = dec[:, -1], want[:, -1]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            results.append({"step": j, "prefill_len": seq.shape[1],
+                            "max_abs_err": err, "max_abs_logit": scale,
+                            "rel_err": err / scale,
+                            "argmax_equal": bool(torch.equal(
+                                got.argmax(-1), want.argmax(-1)))})
+            if not torch.isfinite(got).all() or err > FAMILY_DECODE_TOL * scale:
+                raise AssertionError(f"lm_families {run}: decode step {j} "
+                                     f"differs from the prefill by {err} "
+                                     f"(max |logit| {scale}, tolerance "
+                                     f"{FAMILY_DECODE_TOL} of it)")
+        fed.append(torch.argmax(dec[:, -1], -1).to(torch.int32)[:, None])
+    emit({"phase": "lm_families", "what": "decode vs prefill", "run": run,
+          "arch": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
+          "config": _layer_shape(cfg), "batch": 2, "prompt_len": 256,
+          "capacity_factor": cfg_d.capacity_factor if moe else None,
+          "steps": results, "tolerance": FAMILY_DECODE_TOL})
+    del cache, logits, dec
+
+    # (b) card against CPU on a 2 x 64 prompt, the routing recorded
+    real_moe, routed = tnn.moe, []
+
+    def recording(p, x, cfg_):
+        probs, _, ids = tnn.moe_route(p, x.reshape(-1, x.shape[-1]), cfg_)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        routed.append((ids.cpu(), float((top[:, cfg_.top_k - 1]
+                                         - top[:, cfg_.top_k]).min())))
+        return real_moe(p, x, cfg_)
+
+    short = {"tokens": prompt[:, :64], **extra}
+    tnn.moe = recording
+    try:
+        got, got_cache = T.forward_prefill(params, short, cfg, T.init_cache(
+            cfg, 2, 64, torch.float32, cuda))
+        got = got.cpu()
+        got_enc = got_cache["enc"].cpu() if "enc" in got_cache else None
+        del got_cache
+        if cfg.family == "encdec":  # the same card path, plain attention
+            real_flash = ops.flash_attention
+            ops.flash_attention = (lambda q, k, v, *, causal=True:
+                                   kref.flash_attention_ref(q, k, v, causal))
+            try:
+                plain, plain_cache = T.forward_prefill(
+                    params, short, cfg,
+                    T.init_cache(cfg, 2, 64, torch.float32, cuda))
+            finally:
+                ops.flash_attention = real_flash
+            plain, plain_enc = plain.cpu(), plain_cache["enc"].cpu()
+            del plain_cache
+        p_cpu = _to_device(params, "cpu")
+        del params
+        torch.cuda.empty_cache()
+        short = _to_device(short, "cpu")
+        want, want_cache = T.forward_prefill(
+            p_cpu, short, cfg, T.init_cache(cfg, 2, 64, torch.float32, "cpu"))
+    finally:
+        tnn.moe = real_moe
+    half = len(routed) // 2
+    ids_equal = all(torch.equal(a[0], b[0])
+                    for a, b in zip(routed[:half], routed[half:]))
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    row = {"phase": "lm_families", "what": "card vs cpu", "run": run,
+           "arch": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
+           "batch": 2, "prompt_len": 64, "moe_layers": half,
+           "expert_ids_equal": ids_equal if moe else None,
+           "min_top_k_margin": min((m for _, m in routed), default=None),
+           "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+           "rtol": FAMILY_CPU_TOL[0], "atol_rel": FAMILY_CPU_TOL[1]}
+    if moe and not ids_equal:
+        emit(row)
+        raise AssertionError(f"lm_families {run}: the card's MoE routing "
+                             "differs from the CPU's (a flip on a near-tie)")
+    if cfg.family != "encdec":
+        emit(row)
+        torch.testing.assert_close(got, want, rtol=FAMILY_CPU_TOL[0],
+                                   atol=FAMILY_CPU_TOL[1] * scale)
+        return
+    # encdec: the card's runs and the CPU's float32 run each against a
+    # float64 CPU run, on the logits and the encoder's output
+    want64, cache64 = T.forward_prefill(
+        _to_device(p_cpu, torch.float64),
+        {"tokens": short["tokens"], "frontend": short["frontend"].double()},
+        cfg, T.init_cache(cfg, 2, 64, torch.float64, "cpu"))
+    ok, row["vs_float64"] = True, {}
+    for key, g, gp, w, w64 in (
+            ("logits", got, plain, want, want64),
+            ("enc", got_enc, plain_enc, want_cache["enc"], cache64["enc"])):
+        sc = float(w64.abs().max())
+        err_of = {name: float((t.double() - w64).abs().max())
+                  for name, t in (("card", g), ("card_plain", gp),
+                                  ("cpu", w))}
+        row["vs_float64"][key] = {**{k: v / sc for k, v in err_of.items()},
+                                  "max_abs": sc}
+        ok &= (err_of["card"] <= FAMILY_F64_FACTOR * err_of["card_plain"]
+               + FAMILY_CPU_TOL[1] * sc)
+    row["f64_factor"] = FAMILY_F64_FACTOR
+    emit(row)
+    if not ok:
+        raise AssertionError(f"lm_families {run}: with the kernel the card "
+                             f"is further from a float64 run than "
+                             f"{FAMILY_F64_FACTOR} x with the plain "
+                             f"versions: {row['vs_float64']}")
+
+
+def _layer_shape(cfg) -> dict:
+    """The widths that set a family's layers (for the phase lines)."""
+    keys = ("d_model", "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab",
+            "n_layers", "n_enc_layers", "n_dec_layers", "n_dense_layers",
+            "n_experts", "top_k", "n_shared_experts", "d_ff_expert",
+            "kv_lora", "q_lora", "rope_dims", "ssm", "d_state", "d_conv",
+            "expand", "ssm_heads", "attn_every", "frontend_len",
+            "frontend_dim")
+    return {k: getattr(cfg, k) for k in keys if getattr(cfg, k)}
+
+
+def lm_families(cuda) -> list[dict]:
+    """LM serving of the moe (GQA, MLA), ssm, hybrid and encdec families at
+    published widths in bf16 on the card (``FAMILY_RUNS``): per run
+    ``serve(arch, smoke=False)`` with 4 prompts of 2048 tokens and 32
+    generated, cold then warm; the cold run's prefill under
+    ``torch.profiler`` (device activity: ms by kernel and by
+    ``FAMILY_KERNEL_CLASSES``, busy share of the profiled window, which
+    the profiler's host work stretches; the warm row's
+    ``device_busy_share_est`` divides the same device ms by the warm
+    prefill's seconds).  A run
+    whose depth is cut swaps its config module's ``CONFIG`` for
+    ``dataclasses.replace(CONFIG, n_layers=...)`` while it runs, so the cut
+    model too goes through ``serve`` (the registry reads the module).  The
+    prefill and decode steps are wrapped to read the flash launches after
+    the prefill, the logits' finiteness and the cache position; the path
+    is unchanged.  Each run then goes through ``family_checks``.  Returns
+    the warm runs' launch counts (main-path launches)."""
+    import dataclasses
+    import importlib
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.registry import ARCHS
+    t_phase = time.perf_counter()
+    batch, prompt_len, gen = 4, 2048, 32
+    step_lib = serve_mod.step_lib
+    real_prefill, real_decode = (step_lib.make_prefill_step,
+                                 step_lib.make_decode_step)
+    seen = {}
+
+    def prefill_maker(cfg_):
+        step = real_prefill(cfg_)
+
+        def run(params, batch_in, cache):
+            prof = None
+            if seen["profile"]:
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    logits, cache = step(params, batch_in, cache)
+                    torch.cuda.synchronize()
+                seen["prof_s"] = time.perf_counter() - t0
+            else:
+                logits, cache = step(params, batch_in, cache)
+            seen.update(prof=prof, finite=bool(torch.isfinite(logits).all()),
+                        prefill_flash=ops.launch_counts()["flash_attention"])
+            return logits, cache
+        return run
+
+    def decode_maker(cfg_, **kw):
+        step = real_decode(cfg_, **kw)
+
+        def run(params, tokens, cache):
+            nxt, cache = step(params, tokens, cache)
+            seen["pos"] = cache["pos"]
+            return nxt, cache
+        return run
+
+    out = []
+    for run, arch, layers in FAMILY_RUNS:
+        mod = importlib.import_module(ARCHS[arch])
+        full = mod.CONFIG
+        cfg = (full if layers is None
+               else dataclasses.replace(full, n_layers=layers))
+        depth = ((cfg.n_enc_layers, cfg.n_dec_layers)
+                 if cfg.family == "encdec" else cfg.n_layers)
+        reduced = (None if layers is None else
+                   f"n_layers {full.n_layers} -> {layers}: "
+                   f"{full.param_count() / 1e9:.1f} B parameters in bf16 "
+                   f"do not fit one 80 GB card")
+        mod.CONFIG = cfg
+        step_lib.make_prefill_step = prefill_maker
+        step_lib.make_decode_step = decode_maker
+        try:
+            for name in ("cold", "warm"):
+                gc.collect()
+                torch.cuda.empty_cache()
+                ops.reset_launch_counts()
+                seen.update(profile=name == "cold", pos=None)
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                tokens, st = serve_mod.serve(
+                    arch, smoke=False, batch=batch, prompt_len=prompt_len,
+                    gen=gen, dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = counts_now()
+                toks = tokens.cpu()
+                flash = counts["flash_attention"]
+                row = {"phase": "lm_families", "what": "serve", "run": run,
+                       "name": name, "arch": arch, "family": cfg.family,
+                       "layers": depth, "reduced": reduced,
+                       "config": _layer_shape(cfg),
+                       "params": cfg.param_count(),
+                       "active_params": cfg.active_param_count(),
+                       "dtype": "bfloat16", "batch": batch,
+                       "prompt_len": prompt_len, "gen": gen, **st,
+                       "wall_s": wall,
+                       "prefill_tok_s": batch * prompt_len / st["t_prefill_s"],
+                       "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                          - held) / 1e9,
+                       "held_before_gb": held / 1e9,
+                       "flash_launches_prefill": seen["prefill_flash"],
+                       "flash_launches_decode": flash - seen["prefill_flash"],
+                       "flash_design": ops.flash_attention.route,
+                       "logits_finite": seen["finite"],
+                       "tokens_in_vocab": bool(
+                           toks.shape == (batch, gen)
+                           and toks.dtype == torch.int32
+                           and int(toks.min()) >= 0
+                           and int(toks.max()) < cfg.vocab),
+                       "pos": seen["pos"],
+                       "launches": {k: v for k, v in counts.items() if v}}
+                if name == "cold":
+                    row.update(profiled_prefill_s=seen["prof_s"],
+                               kernel_classes=kernel_classes(seen["prof"]),
+                               **device_breakdown(seen["prof"],
+                                                  seen["prof_s"], top=10))
+                    seen["prof"] = None
+                    prefill_device_ms = row["device_ms"]
+                else:  # the profiler's host work stretches its window
+                    row["device_busy_share_est"] = (
+                        prefill_device_ms / (st["t_prefill_s"] * 1e3))
+                emit(row)
+                want = FAMILY_FLASH[run]
+                if (row["flash_launches_prefill"] != want
+                        or row["flash_launches_decode"]
+                        or (want and row["flash_design"] != "wgmma_tma")):
+                    raise AssertionError(
+                        f"lm_families {run}: flash_attention launched "
+                        f"{row['flash_launches_prefill']} times in the "
+                        f"prefill (want {want}) and "
+                        f"{row['flash_launches_decode']} in the decode "
+                        f"(want 0), the last through {row['flash_design']}")
+                if not (row["logits_finite"] and row["tokens_in_vocab"]):
+                    raise AssertionError(f"lm_families {run}: logits not "
+                                         "finite or tokens out of the "
+                                         "vocabulary")
+                if seen["pos"] != prompt_len + gen - 1:
+                    raise AssertionError(f"lm_families {run}: cache pos "
+                                         f"{seen['pos']}, want "
+                                         f"{prompt_len + gen - 1}")
+                if name == "warm":
+                    out.append(counts)
+        finally:
+            mod.CONFIG = full
+            step_lib.make_prefill_step = real_prefill
+            step_lib.make_decode_step = real_decode
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_checks(cuda, run, full)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_families", "what": "total",
+          "s": time.perf_counter() - t_phase})
+    return out
 
 
 def _slice_tree(tree, n: int):
@@ -4540,6 +4991,9 @@ def main() -> int:
     lm_runs = lm_serving(cuda)
     lm_check(cuda)
     dedup_counts = lm_train(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_counts = lm_families(cuda)
 
     rows += fetch_rows
     rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
@@ -4550,7 +5004,7 @@ def main() -> int:
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
              *stream_counts, append_counts, *fabric_counts, *serial_counts,
-             trace_counts, *dedup_counts]
+             trace_counts, *dedup_counts, *family_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:
@@ -4627,7 +5081,8 @@ def main() -> int:
                                     "search_device_ms", "baseline_ms",
                                     "baseline_design", "loop_device_ms",
                                     "fused_into", "distinct",
-                                    "patterns_distinct")}})
+                                    "patterns_distinct", "ms_d80",
+                                    "library_ms_d80", "shape_d80")}})
     if sorted(k["name"] for k in kernels) != sorted(ops.KERNELS):
         raise AssertionError("the kernels line misses a kernel")
     print(nvidia_smi(), flush=True)

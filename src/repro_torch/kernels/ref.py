@@ -241,17 +241,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, Sq, H, D) attention of q (B, Sq, H, D) over k/v (B, Sk, KV, D)
     with GQA (query head h reads KV head ``h // (H // KV)``), scale
     1/sqrt(D), row i seeing keys j <= i when ``causal``: the einsum/softmax
-    of ``tests/test_flash_and_packed.py:ref_attn``, in float32 with the
-    mask value -1e30, cast back to ``q.dtype``."""
+    of ``tests/test_flash_and_packed.py:ref_attn``, in float32 (float64
+    for float64 inputs) with the mask value -1e30, cast back to
+    ``q.dtype``."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, kv, h // kv, d).to(torch.float32)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg,
-                          k.to(torch.float32)) / math.sqrt(d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, sq, kv, h // kv, d).to(ct)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(ct)) / math.sqrt(d)
     if causal:
         rows = torch.arange(sq, device=q.device)
         mask = rows[:, None] >= torch.arange(sk, device=q.device)[None, :]
         logits = torch.where(mask, logits, -1e30)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(ct))
     return out.reshape(b, sq, h, d).to(q.dtype)

@@ -5,8 +5,11 @@ CPU example (smoke model):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch qwen3-1.7b --batch 4 --prompt-len 32 --gen 16
 
-On the card (the default device), every prefill layer's attention runs
-the hand-written ``flash_attention`` kernel.  As in the JAX CLI,
+Every family runs: dense, vlm, moe (GQA or MLA), ssm, hybrid and
+encdec.  On the card (the default device), a prefill's global
+self-attention from the empty cache runs the hand-written
+``flash_attention`` kernel (causal), and so does the encdec encoder's
+bidirectional attention (its full mode).  As in the JAX CLI,
 ``--smoke`` is on and cannot be switched off from the command line; the
 full-width model is ``serve(arch, smoke=False)``.
 """
@@ -46,7 +49,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     batch_in = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)
     ).to(dev)}
-    if cfg.frontend:
+    if cfg.family == "encdec" or cfg.frontend:
         batch_in["frontend"] = torch.from_numpy(
             rng.normal(size=(batch, cfg.frontend_len, cfg.frontend_dim))
         ).to(dev, dtype)

@@ -8,10 +8,14 @@ JAX package's layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), activations
 (B, S, d)), so a parameter tree converted from the JAX package runs
 unchanged.
 
-The prefill self-attention of a global layer from an empty cache runs the
+The prefill self-attention of a global layer from an empty cache, and a
+bidirectional self-attention with no cache (the encdec encoder), run the
 hand-written ``flash_attention`` kernel (:func:`attention`); everything
 else attends through :func:`_sdpa`, the counterpart of the JAX
-package's plain attention.  ``mla_*`` and ``moe`` wait for ROADMAP A15c.
+package's plain attention.  :func:`mla_attention` keeps JAX's
+up-projected form (its qk width differs from its v width, so it attends
+through its own masked softmax), and :func:`moe` is JAX's capacity-based,
+sort-free scatter with the expert products as batched einsums.
 """
 
 from __future__ import annotations
@@ -189,8 +193,10 @@ def attention(
     the cache's memory here.  A prefill self-attention from an empty cache
     (``cache_index == 0``) of a global or unwindowed layer attends through
     the ``flash_attention`` kernel over the keys just written; its mask
-    then equals the causal mask over the valid cache.  The choice reads
-    host values only, never a build or launch error.
+    then equals the causal mask over the valid cache.  A bidirectional
+    self-attention with no cache (the encdec encoder) runs the kernel's
+    full mode, where the JAX package masks nothing.  The choice reads host
+    values only, never a build or launch error.
     """
     b, sq, d = x.shape
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -213,6 +219,10 @@ def attention(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+    if cache is None and bidirectional and kv_source is None:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=False)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
     flash = (cache is not None and cache_index == 0 and kv_source is None
              and not bidirectional and (is_global or window <= 0))
     if cache is not None:
@@ -266,3 +276,191 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"])
     return torch.einsum("bsf,fd->bsd", g * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+# Above this many bytes of float32 logits for the whole batch, MLA attends
+# one batch row at a time (rows are independent: the same result).
+MLA_LOGIT_BYTES = 2 << 30
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    ql, kvl, rd = cfg.q_lora, cfg.kv_lora, cfg.rope_dims
+    s = {
+        "w_dkv": Spec((d, kvl), ("embed", "kv_lora")),
+        "kv_norm": Spec((kvl,), (None,), "zeros"),
+        "w_uk": Spec((kvl, h, hd), ("kv_lora", "heads", "head")),
+        "w_uv": Spec((kvl, h, hd), ("kv_lora", "heads", "head")),
+        "w_kr": Spec((d, rd), ("embed", None)),
+        "wo": Spec((h, hd, d), ("heads", "head", "embed")),
+    }
+    if ql:
+        s["w_dq"] = Spec((d, ql), ("embed", None))
+        s["q_norm"] = Spec((ql,), (None,), "zeros")
+        s["w_uq"] = Spec((ql, h, hd), (None, "heads", "head"))
+        s["w_uqr"] = Spec((ql, h, rd), (None, "heads", None))
+    else:
+        s["w_uq"] = Spec((d, h, hd), ("embed", "heads", "head"))
+        s["w_uqr"] = Spec((d, h, rd), ("embed", "heads", None))
+    return s
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, scale):
+    """JAX's up-projected ("naive") MLA attention of (B, Sq) queries over
+    (B, Sk) cached latents: ``k_nope`` and ``v`` from ``c_kv``, float32
+    logits masked to the float32 minimum, softmax, back to ``v.dtype``."""
+    k_nope = torch.einsum("btl,lhk->bthk", c_kv, p["w_uk"])
+    v = torch.einsum("btl,lhk->bthk", c_kv, p["w_uv"])
+    logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshr,btr->bhst", q_rope, k_rope)) * scale
+    logits = logits.to(torch.float32)
+    neg = torch.finfo(torch.float32).min
+    logits = torch.where(mask[:, None, :, :], logits, neg)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def mla_attention(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    q_pos: torch.Tensor,
+    cache: tuple | None = None,  # (c_kv (B,S,kvl), k_rope (B,S,rd))
+    cache_index: int | None = None,
+):
+    """Returns (y, new_cache); the cache tensors are written in place at a
+    start clamped as :func:`attention` clamps it.  The logits are
+    (B, H, Sq, Sk) float32; past ``MLA_LOGIT_BYTES`` for the whole batch
+    the batch rows attend one at a time."""
+    b, sq, d = x.shape
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_dims
+
+    if cfg.q_lora:
+        cq = rms_norm(torch.einsum("bsd,dq->bsq", x, p["w_dq"]), p["q_norm"],
+                      cfg.norm_eps)
+    else:
+        cq = x
+    q_nope = torch.einsum("bsq,qhk->bshk", cq, p["w_uq"])
+    q_rope = torch.einsum("bsq,qhr->bshr", cq, p["w_uqr"])
+    cos, sin = rope_tables(q_pos, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    c_kv = rms_norm(torch.einsum("bsd,dl->bsl", x, p["w_dkv"]), p["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["w_kr"])
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is not None:
+        ckv_cache, kr_cache = cache
+        start = max(0, min(cache_index, ckv_cache.shape[1] - sq))
+        ckv_cache[:, start:start + sq] = c_kv.to(ckv_cache.dtype)
+        kr_cache[:, start:start + sq] = k_rope.to(kr_cache.dtype)
+        c_kv, k_rope = ckv_cache, kr_cache
+        k_pos = torch.arange(c_kv.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :]
+        valid = k_pos <= (cache_index + sq - 1)
+        mask = causal_mask(q_pos, k_pos) & valid[:, None, :]
+        new_cache = (ckv_cache, kr_cache)
+    else:
+        mask = causal_mask(q_pos, q_pos)
+        new_cache = None
+
+    scale = 1.0 / math.sqrt(hd + rd)
+    sk = c_kv.shape[1]
+    rows = b if b * h * sq * sk * 4 <= MLA_LOGIT_BYTES else 1
+    out = torch.cat([
+        _mla_attend(p, q_nope[i:i + rows], q_rope[i:i + rows],
+                    c_kv[i:i + rows], k_rope[i:i + rows], mask[i:i + rows],
+                    scale)
+        for i in range(0, b, rows)])
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Top-k routed MoE (capacity-based, sort-free scatter)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    e = cfg.n_experts
+    fe = cfg.d_ff_expert or cfg.d_ff
+    s = {
+        "router": Spec((d, e), ("embed", None)),
+        "w_gate": Spec((e, d, fe), ("experts", "embed", "mlp")),
+        "w_up": Spec((e, d, fe), ("experts", "embed", "mlp")),
+        "w_down": Spec((e, fe, d), ("experts", "mlp", "embed")),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_specs(cfg, d_ff=fe * cfg.n_shared_experts)
+    return s
+
+
+def moe_route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """The router of :func:`moe` on tokens ``xt`` (T, d): float32 softmax
+    probabilities (T, E), and the top-k gates and expert ids (T, k).  The
+    top k come from a stable descending sort, so equal probabilities keep
+    the lower expert first, as ``jax.lax.top_k`` does (``torch.topk``'s tie
+    order on the card is not JAX's)."""
+    logits = torch.einsum("td,de->te", xt, p["router"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, vals[:, :cfg.top_k], ids[:, :cfg.top_k]
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routed MoE with fixed expert capacity (sort-free scatter).
+
+    Returns (y, aux_loss).  Each assignment's slot is its rank among the
+    assignments to its expert in token-major order (an exclusive cumsum
+    of the (T*k, E) one-hot); those at or past the capacity are dropped
+    and add zeros to slot (0, 0), as in the JAX package.  The expert
+    products are batched einsums over the leading E axis, and the k
+    outputs of a token are summed through a (T, k, d) view (the JAX
+    package's scatter-add onto ``repeat(arange(T), k)``; no atomics)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(t, d)
+
+    probs, gate_vals, ids = moe_route(p, xt, cfg)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # load-balancing aux loss (Switch-style)
+    density = torch.mean(F.one_hot(ids[:, 0], e).to(torch.float32), dim=0)
+    router_mean = torch.mean(probs, dim=0)
+    aux = e * torch.sum(density * router_mean)
+
+    cap = max(int(math.ceil(t * k / e * cfg.capacity_factor)), 4)
+
+    flat_ids = ids.reshape(-1)                                  # (T*k,)
+    flat_gate = gate_vals.reshape(-1)
+    onehot = F.one_hot(flat_ids, e).to(torch.int32)             # (T*k, E)
+    ranks = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    slot = torch.gather(ranks, 1, flat_ids[:, None])[:, 0]      # (T*k,)
+    keep = slot < cap
+    token_of = torch.arange(t, device=x.device).repeat_interleave(k)
+
+    eids = torch.where(keep, flat_ids, 0)
+    slts = torch.where(keep, slot.to(torch.int64), 0)
+    contrib = torch.where(keep[:, None], xt[token_of], 0)
+    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    buf.index_put_((eids, slts), contrib, accumulate=True)
+
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))
+    u = torch.einsum("ecd,edf->ecf", buf, p["w_up"])
+    y_e = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
+
+    out_flat = torch.where(keep[:, None], y_e[eids, slts], 0)
+    out_flat = out_flat * flat_gate[:, None].to(xt.dtype)
+    y = out_flat.view(t, k, d).sum(1)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x).reshape(t, d)
+    return y.reshape(b, s, d), aux

@@ -1,0 +1,226 @@
+"""Selective state-space blocks (the port of ``repro.models.ssm``): Mamba-1
+(falcon-mamba) and the multi-head scalar-decay Mamba-2 (zamba2's
+backbone, the JAX package's SSD simplification: scalar decay per head,
+shared B/C of width ``d_state``).
+
+A full sequence runs the recurrence ``h_t = a_t * h_{t-1} + b_t`` as a
+log-depth doubling scan of the JAX package's associative ``combine`` in
+torch ops (:func:`_ssm_scan`); decode is the O(1) single-step update
+carrying ``(conv_state, ssm_state)``.  The (B, S, ..., N) float32
+transients of a full sequence are built, scanned and contracted a group
+of batch rows at a time, each tensor at most ``SCAN_BYTES`` (the rows are
+independent, so the result is the same).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.nn import Spec
+
+# Largest float32 (B, S, ..., N) tensor of one row group (zamba2 at 4 x 2048
+# would take 10.7 GB a tensor for the whole batch, falcon-mamba 4.3 GB).
+SCAN_BYTES = 4 << 30
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def mamba1_specs(cfg: ModelConfig) -> dict:
+    d, di, n, k = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
+    r = _dt_rank(cfg)
+    return {
+        "in_proj": Spec((d, 2 * di), ("embed", "inner")),
+        "conv_w": Spec((k, di), (None, "inner")),
+        "conv_b": Spec((di,), ("inner",), "zeros"),
+        "x_proj": Spec((di, r + 2 * n), ("inner", None)),
+        "dt_proj": Spec((r, di), (None, "inner")),
+        "dt_bias": Spec((di,), ("inner",), "zeros"),
+        "A_log": Spec((di, n), ("inner", None), "ones"),
+        "D": Spec((di,), ("inner",), "ones"),
+        "out_proj": Spec((di, d), ("inner", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d.  x: (B,S,C); w: (K,C): ``F.conv1d`` with
+    ``groups=C`` (a cross-correlation, as ``conv_general_dilated``) over
+    the input left-padded with K-1 zeros."""
+    k, c = w.shape
+    xp = F.pad(x.transpose(1, 2), (k - 1, 0))
+    out = F.conv1d(xp, w.t()[:, None, :], groups=c)
+    return out.transpose(1, 2) + b
+
+
+def _ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along axis 1; returns all h_t.
+
+    The JAX package's ``associative_scan`` of ``combine((al, bl), (ar,
+    br)) = (al * ar, br + ar * bl)`` as a doubling scan: pass j combines
+    each element with the one 2^j before it (the identity (1, 0) before
+    the start), ceil(log2 S) passes, so the sums group like a tree.  ``a``
+    may broadcast against ``b`` after axis 1.  Each pass writes one of two
+    buffers (the inputs are only read); ``a`` is not combined in the last
+    pass, which needs only ``b``."""
+    s = b.shape[1]
+    bufs_a = [torch.empty_like(a), torch.empty_like(a)] if s > 2 else []
+    bufs_b = [torch.empty_like(b), torch.empty_like(b)] if s > 1 else []
+    shift, j = 1, 0
+    while shift < s:
+        nb = bufs_b[j % 2]
+        nb[:, :shift] = b[:, :shift]
+        torch.addcmul(b[:, shift:], a[:, shift:], b[:, :-shift],
+                      out=nb[:, shift:])
+        if 2 * shift < s:
+            na = bufs_a[j % 2]
+            na[:, :shift] = a[:, :shift]
+            torch.mul(a[:, :-shift], a[:, shift:], out=na[:, shift:])
+            a = na
+        b = nb
+        shift, j = 2 * shift, j + 1
+    return b
+
+
+def _by_rows(fn, b: int, row_bytes: int):
+    """``fn(rows)`` → (y, h_last) over groups of batch rows whose float32
+    transients stay within ``SCAN_BYTES`` a tensor, concatenated."""
+    n = max(1, min(b, SCAN_BYTES // max(row_bytes, 1)))
+    parts = [fn(slice(i, i + n)) for i in range(0, b, n)]
+    return (torch.cat([y for y, _ in parts]),
+            torch.cat([h for _, h in parts]))
+
+
+def _conv_window(xs, p, state, k: int, return_state: bool):
+    """The causal conv of the pre-conv inputs ``xs`` (B,S,di) and the conv
+    state for later decode steps: in full-sequence mode the last K-1
+    inputs (zero-padded in front when S < K-1) if ``return_state``; in
+    decode the window over ``state``'s K-1 inputs and the new one."""
+    b, s, di = xs.shape
+    if state is None:
+        new_conv = None
+        if return_state:
+            pad = torch.zeros((b, max(0, (k - 1) - s), di), dtype=xs.dtype,
+                              device=xs.device)
+            new_conv = torch.cat([pad, xs[:, -(k - 1):, :]], dim=1)
+        return _causal_conv(xs, p["conv_w"], p["conv_b"]), new_conv
+    conv_state = state[0]
+    window = torch.cat([conv_state, xs], dim=1)  # (B, K, di) for S=1
+    out = torch.einsum("bkc,kc->bc", window[:, -k:], p["conv_w"])
+    return out[:, None, :] + p["conv_b"], window[:, -(k - 1):, :]
+
+
+def mamba1(p: dict, x: torch.Tensor, cfg: ModelConfig,
+           state: tuple | None = None, return_state: bool = False):
+    """x: (B,S,d).  state (decode): (conv_state (B,K-1,di), h (B,di,N)).
+
+    Returns (y, new_state).  ``return_state=True`` in full-sequence mode
+    extracts the final (conv, h) state — the SSM prefill path.
+    """
+    b, s, d = x.shape
+    di, n, k = cfg.d_inner, cfg.d_state, cfg.d_conv
+    r = _dt_rank(cfg)
+
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, new_conv = _conv_window(xs, p, state, k, return_state)
+    xs = F.silu(xs)
+
+    proj = torch.einsum("bsc,ce->bse", xs, p["x_proj"])
+    dt_r, bc, cc = torch.split(proj, [r, n, n], dim=-1)
+    dt = F.softplus(torch.einsum("bsr,rc->bsc", dt_r, p["dt_proj"])
+                    + p["dt_bias"])
+    a_mat = -torch.exp(p["A_log"].to(torch.float32))  # (di, N)
+
+    def terms(rows):
+        decay = torch.exp(dt[rows, ..., None].to(torch.float32) * a_mat)
+        drive = (dt[rows, ..., None] * bc[rows, :, None, :]
+                 * xs[rows, ..., None]).to(torch.float32)
+        return decay, drive                                  # (B,S,di,N)
+
+    if state is None:
+        def rows_out(rows):
+            h = _ssm_scan(*terms(rows))
+            y = torch.einsum("bsdn,bsn->bsd", h.to(x.dtype), cc[rows])
+            return y, h[:, -1].clone()
+
+        y, h_last = _by_rows(rows_out, b, s * di * n * 4)
+        new_h = h_last if return_state else None
+    else:
+        decay, drive = terms(slice(None))
+        h = decay * state[1][:, None] + drive
+        new_h = h[:, 0]
+        y = torch.einsum("bsdn,bsn->bsd", h.to(x.dtype), cc)
+
+    y = y + p["D"] * xs
+    y = y * F.silu(z)
+    out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])
+    new_state = None if new_h is None else (new_conv, new_h)
+    return out, new_state
+
+
+def mamba2_specs(cfg: ModelConfig) -> dict:
+    d, di, n, k = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
+    nh = cfg.ssm_heads
+    return {
+        "in_proj": Spec((d, 2 * di), ("embed", "inner")),
+        "conv_w": Spec((k, di), (None, "inner")),
+        "conv_b": Spec((di,), ("inner",), "zeros"),
+        "bc_proj": Spec((d, 2 * n), ("embed", None)),
+        "dt_proj": Spec((d, nh), ("embed", None)),
+        "dt_bias": Spec((nh,), (None,), "zeros"),
+        "A_log": Spec((nh,), (None,), "ones"),
+        "D": Spec((di,), ("inner",), "ones"),
+        "out_proj": Spec((di, d), ("inner", "embed")),
+    }
+
+
+def mamba2(p: dict, x: torch.Tensor, cfg: ModelConfig,
+           state: tuple | None = None, return_state: bool = False):
+    """Multi-head scalar-decay SSD block.  state: (conv (B,K-1,di), h
+    (B,NH,HD,N))."""
+    b, s, d = x.shape
+    di, n, k, nh = cfg.d_inner, cfg.d_state, cfg.d_conv, cfg.ssm_heads
+    hd = di // nh
+
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, new_conv = _conv_window(xs, p, state, k, return_state)
+    xs = F.silu(xs)
+
+    bc = torch.einsum("bsd,dn->bsn", x, p["bc_proj"])
+    b_in, c_out = torch.chunk(bc, 2, dim=-1)                  # (B,S,N) each
+    dt = F.softplus(torch.einsum("bsd,dh->bsh", x, p["dt_proj"])
+                    + p["dt_bias"])
+    a = -torch.exp(p["A_log"].to(torch.float32))              # (NH,)
+
+    xh = xs.reshape(b, s, nh, hd)
+    decay = torch.exp(dt.to(torch.float32) * a)               # (B,S,NH)
+
+    def drive(rows):                                          # (B,S,NH,HD,N)
+        return (dt[rows, ..., None, None] * xh[rows, ..., None]
+                * b_in[rows, :, None, None, :]).to(torch.float32)
+
+    if state is None:
+        def rows_out(rows):
+            h = _ssm_scan(decay[rows, ..., None, None], drive(rows))
+            y = torch.einsum("bshdn,bsn->bshd", h.to(x.dtype), c_out[rows])
+            return y, h[:, -1].clone()
+
+        y, h_last = _by_rows(rows_out, b, s * nh * hd * n * 4)
+        new_h = h_last if return_state else None
+    else:
+        h = decay[..., None, None] * state[1][:, None] + drive(slice(None))
+        new_h = h[:, 0]
+        y = torch.einsum("bshdn,bsn->bshd", h.to(x.dtype), c_out)
+
+    y = y.reshape(b, s, di)
+    y = y + p["D"] * xs
+    y = y * F.silu(z)
+    out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])
+    new_state = None if new_h is None else (new_conv, new_h)
+    return out, new_state

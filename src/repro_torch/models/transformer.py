@@ -1,5 +1,8 @@
-"""Model assembly for the dense and vlm families (the port of
-``repro.models.transformer``).
+"""Model assembly for every family (the port of
+``repro.models.transformer``): dense and vlm, moe (GQA or MLA attention,
+optional leading dense layers), ssm (Mamba-1), hybrid (Mamba-2 chunks,
+each followed by ONE shared attention block) and encdec (a bidirectional
+encoder over the frontend, a decoder with cross-attention).
 
 The layer stack is a Python loop over the stacked per-layer tensors (the
 JAX package scans them); the cache is a dictionary of stacked tensors
@@ -10,13 +13,13 @@ Entry points:
 * ``model_specs(cfg)``       — the parameter Spec tree
 * ``init_params``            — random parameters on a device
 * ``params_from_numpy``      — a JAX parameter tree (as numpy) → the port's
-* ``init_cache(cfg, B, S)``  — the KV cache
+* ``init_cache(cfg, B, S)``  — the cache, with the JAX package's keys
 * ``forward_train``          — full-sequence logits (+ the aux loss, zero)
 * ``forward_prefill``        — logits for the last position + filled cache
 * ``forward_decode``         — one-token step against the cache
 
-The other families (moe and MLA, ssm, hybrid, encdec) raise
-``NotImplementedError`` naming ROADMAP item A15c.
+``forward_train`` runs the dense and vlm families; the others raise
+``NotImplementedError`` naming ROADMAP item A15c2.
 """
 
 from __future__ import annotations
@@ -30,19 +33,19 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
-from repro_torch.models import nn
+from repro_torch.models import nn, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import Spec
 
-_FAMILIES = ("dense", "vlm")
+_TRAIN_FAMILIES = ("dense", "vlm")
 
 
-def _require_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
+def _require_train_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet: "
-            f"ROADMAP A15c (the moe/MLA, ssm, hybrid and encdec families); "
-            f"the port runs {', '.join(_FAMILIES)}")
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"yet: ROADMAP A15c2 (training of the moe/MLA, ssm, hybrid and "
+            f"encdec families); the port trains {', '.join(_TRAIN_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,23 +56,63 @@ def _ln(cfg: ModelConfig) -> Spec:
     return Spec((cfg.d_model,), (None,), "zeros")
 
 
-def _dense_block_specs(cfg: ModelConfig) -> dict:
-    return {"ln1": _ln(cfg), "attn": nn.attention_specs(cfg), "ln2": _ln(cfg),
-            "mlp": nn.mlp_specs(cfg)}
+def _dense_block_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    s = {"ln1": _ln(cfg), "attn": nn.attention_specs(cfg), "ln2": _ln(cfg),
+         "mlp": nn.mlp_specs(cfg)}
+    if cross:
+        s["lnx"] = _ln(cfg)
+        s["xattn"] = nn.attention_specs(cfg, cross=True)
+    return s
+
+
+def _attn_specs(cfg: ModelConfig) -> dict:
+    return nn.mla_specs(cfg) if cfg.mla else nn.attention_specs(cfg)
+
+
+def _moe_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": _ln(cfg), "attn": _attn_specs(cfg), "ln2": _ln(cfg),
+            "moe": nn.moe_specs(cfg)}
+
+
+def _mamba_block_specs(cfg: ModelConfig) -> dict:
+    mk = ssm.mamba2_specs if cfg.ssm == "mamba2" else ssm.mamba1_specs
+    return {"ln": _ln(cfg), "ssm": mk(cfg)}
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    _require_family(cfg)
     d = cfg.d_model
     specs: dict[str, Any] = {
         "embed": Spec((cfg.vocab, d), ("vocab", "embed"), scale=1.0),
         "final_norm": _ln(cfg),
-        "layers": nn.stack_specs(_dense_block_specs(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = Spec((d, cfg.vocab), ("embed", "vocab"))
     if cfg.frontend:
         specs["frontend_proj"] = Spec((cfg.frontend_dim, d), (None, "embed"))
+
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        specs["layers"] = nn.stack_specs(_dense_block_specs(cfg), cfg.n_layers)
+    elif fam == "moe":
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        if cfg.n_dense_layers:
+            dense = {"ln1": _ln(cfg), "ln2": _ln(cfg),
+                     "mlp": nn.mlp_specs(cfg), "attn": _attn_specs(cfg)}
+            specs["dense_layers"] = nn.stack_specs(dense, cfg.n_dense_layers)
+        specs["layers"] = nn.stack_specs(_moe_block_specs(cfg), n_moe)
+    elif fam == "ssm":
+        specs["layers"] = nn.stack_specs(_mamba_block_specs(cfg), cfg.n_layers)
+    elif fam == "hybrid":
+        assert cfg.attn_every and cfg.n_layers % cfg.attn_every == 0
+        specs["layers"] = nn.stack_specs(_mamba_block_specs(cfg), cfg.n_layers)
+        specs["shared_attn"] = _dense_block_specs(cfg)  # ONE shared block
+    elif fam == "encdec":
+        specs["enc_layers"] = nn.stack_specs(_dense_block_specs(cfg),
+                                             cfg.n_enc_layers)
+        specs["dec_layers"] = nn.stack_specs(
+            _dense_block_specs(cfg, cross=True), cfg.n_dec_layers)
+    else:
+        raise ValueError(fam)
     return specs
 
 
@@ -116,15 +159,56 @@ def _layer(stacked: Any, i: int) -> Any:
 # ---------------------------------------------------------------------------
 
 def _dense_block(p, x, cfg: ModelConfig, *, q_pos, window, is_global,
-                 cache=None, cache_index=None):
+                 cache=None, cache_index=None, enc_out=None,
+                 bidirectional=False):
     h, kv = nn.attention(
         p["attn"], nn.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
         q_pos=q_pos, window=window, is_global=is_global,
-        cache=cache, cache_index=cache_index,
+        cache=cache, cache_index=cache_index, bidirectional=bidirectional,
     )
+    x = x + h
+    if enc_out is not None:
+        hx, _ = nn.attention(
+            p["xattn"], nn.rms_norm(x, p["lnx"], cfg.norm_eps), cfg,
+            q_pos=q_pos, kv_source=enc_out,
+        )
+        x = x + hx
+    x = x + nn.mlp(p["mlp"], nn.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def _moe_attention(p, x, cfg: ModelConfig, *, q_pos, cache, cache_index):
+    """The moe family's attention: MLA, or GQA over the whole cache."""
+    xn = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        return nn.mla_attention(p["attn"], xn, cfg, q_pos=q_pos, cache=cache,
+                                cache_index=cache_index)
+    return nn.attention(p["attn"], xn, cfg, q_pos=q_pos, window=0,
+                        is_global=True, cache=cache, cache_index=cache_index)
+
+
+def _moe_block(p, x, cfg: ModelConfig, *, q_pos, cache=None, cache_index=None):
+    h, kv = _moe_attention(p, x, cfg, q_pos=q_pos, cache=cache,
+                           cache_index=cache_index)
+    x = x + h
+    y, aux = nn.moe(p["moe"], nn.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, kv, aux
+
+
+def _moe_dense_block(p, x, cfg: ModelConfig, *, q_pos, cache, cache_index):
+    """A leading dense layer of the moe family (deepseek's first)."""
+    h, kv = _moe_attention(p, x, cfg, q_pos=q_pos, cache=cache,
+                           cache_index=cache_index)
     x = x + h
     x = x + nn.mlp(p["mlp"], nn.rms_norm(x, p["ln2"], cfg.norm_eps))
     return x, kv
+
+
+def _mamba_block(p, x, cfg: ModelConfig, state=None, return_state=False):
+    fn = ssm.mamba2 if cfg.ssm == "mamba2" else ssm.mamba1
+    h, new_state = fn(p["ssm"], nn.rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                      state, return_state=return_state)
+    return x + h, new_state
 
 
 def _is_global_flags(cfg: ModelConfig, n: int) -> list[bool]:
@@ -197,8 +281,9 @@ def _train_layer(x, lp, cfg: ModelConfig, q_pos, is_global: bool):
 
 def forward_train(params, batch, cfg: ModelConfig, *, remat: bool = True,
                   remat_policy: str = "none"):
-    """Returns (logits, aux_loss); aux is a float32 zero for these
-    families, as in the JAX package.
+    """Returns (logits, aux_loss) for the dense and vlm families; aux is a
+    float32 zero for them, as in the JAX package.  Any other family raises
+    ``NotImplementedError`` naming ROADMAP A15c2 before anything runs.
 
     With ``remat`` each layer body runs under
     ``torch.utils.checkpoint.checkpoint`` (non-reentrant): only its input
@@ -207,7 +292,7 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: bool = True,
     products' outputs too (:func:`_saves_dots`).  Attention is
     :func:`nn._sdpa` (no cache: never the ``flash_attention`` kernel,
     which has no backward), differentiated by autograd."""
-    _require_family(cfg)
+    _require_train_family(cfg)
     dtype = params["final_norm"].dtype
     x = _frontend(params, batch, cfg, dtype)
     b, s, _ = x.shape
@@ -235,46 +320,155 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: bool = True,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    _require_family(cfg)
+    """The cache of ``cfg``'s family with the JAX package's keys, shapes and
+    dtypes: ``k``/``v`` (and a moe model's ``d_k``/``d_v`` for its leading
+    dense layers) or MLA's ``ckv``/``kr`` (``d_ckv``/``d_kr``); the SSM
+    states ``conv`` in ``dtype`` and ``h`` in float32, with a hybrid's
+    ``k``/``v`` per chunk; encdec's ``enc``; ``pos`` a host int."""
     dev = ops.resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    fam = cfg.family
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    if fam in ("dense", "vlm"):
+        shape = (cfg.n_layers, batch, max_len, kvh, hd)
+        return {"k": zeros(*shape), "v": zeros(*shape), "pos": 0}
+    if fam == "moe":
+        n_moe, n_dense = cfg.n_layers - cfg.n_dense_layers, cfg.n_dense_layers
+        if cfg.mla:
+            c = {"ckv": zeros(n_moe, batch, max_len, cfg.kv_lora),
+                 "kr": zeros(n_moe, batch, max_len, cfg.rope_dims), "pos": 0}
+            if n_dense:
+                c["d_ckv"] = zeros(n_dense, batch, max_len, cfg.kv_lora)
+                c["d_kr"] = zeros(n_dense, batch, max_len, cfg.rope_dims)
+            return c
+        c = {"k": zeros(n_moe, batch, max_len, kvh, hd),
+             "v": zeros(n_moe, batch, max_len, kvh, hd), "pos": 0}
+        if n_dense:
+            c["d_k"] = zeros(n_dense, batch, max_len, kvh, hd)
+            c["d_v"] = zeros(n_dense, batch, max_len, kvh, hd)
+        return c
+    if fam in ("ssm", "hybrid"):
+        di, n, k = cfg.d_inner, cfg.d_state, cfg.d_conv
+        c = {"conv": zeros(cfg.n_layers, batch, k - 1, di), "pos": 0}
+        if fam == "ssm":
+            c["h"] = zeros(cfg.n_layers, batch, di, n, dt=torch.float32)
+            return c
+        nh = cfg.ssm_heads
+        n_chunk = cfg.n_layers // cfg.attn_every
+        c["h"] = zeros(cfg.n_layers, batch, nh, di // nh, n, dt=torch.float32)
+        c["k"] = zeros(n_chunk, batch, max_len, kvh, hd)
+        c["v"] = zeros(n_chunk, batch, max_len, kvh, hd)
+        return c
+    if fam == "encdec":
+        shape = (cfg.n_dec_layers, batch, max_len, kvh, hd)
+        return {"k": zeros(*shape), "v": zeros(*shape),
+                "enc": zeros(batch, cfg.frontend_len, cfg.d_model), "pos": 0}
+    raise ValueError(fam)
 
 
-def _run_layers(params, x, cfg: ModelConfig, cache, q_pos, idx: int):
-    flags = _is_global_flags(cfg, cfg.n_layers)
-    for i in range(cfg.n_layers):
-        x, _ = _dense_block(_layer(params["layers"], i), x, cfg, q_pos=q_pos,
-                            window=cfg.sliding_window, is_global=flags[i],
-                            cache=(cache["k"][i], cache["v"][i]),
-                            cache_index=idx)
+def _run_layers(params, x, cfg: ModelConfig, cache, q_pos, idx: int, *,
+                prefill: bool, enc=None):
+    """Every decoder layer of ``cfg``'s family over ``x``, writing the cache
+    in place.  An SSM layer starts from no state in a prefill (the JAX
+    package's full-sequence scan, its final state written to the cache)
+    and from the cached state in decode.  A hybrid layer ``i`` belongs to
+    chunk ``i // attn_every``; the shared block runs after each chunk with
+    that chunk's KV cache."""
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        flags = _is_global_flags(cfg, cfg.n_layers)
+        for i in range(cfg.n_layers):
+            x, _ = _dense_block(_layer(params["layers"], i), x, cfg,
+                                q_pos=q_pos, window=cfg.sliding_window,
+                                is_global=flags[i],
+                                cache=(cache["k"][i], cache["v"][i]),
+                                cache_index=idx)
+    elif fam == "encdec":
+        for i in range(cfg.n_dec_layers):
+            x, _ = _dense_block(_layer(params["dec_layers"], i), x, cfg,
+                                q_pos=q_pos, window=0, is_global=True,
+                                enc_out=enc,
+                                cache=(cache["k"][i], cache["v"][i]),
+                                cache_index=idx)
+    elif fam == "moe":
+        k1, k2 = ("ckv", "kr") if cfg.mla else ("k", "v")
+        for i in range(cfg.n_dense_layers):
+            x, _ = _moe_dense_block(
+                _layer(params["dense_layers"], i), x, cfg, q_pos=q_pos,
+                cache=(cache["d_" + k1][i], cache["d_" + k2][i]),
+                cache_index=idx)
+        for i in range(cfg.n_layers - cfg.n_dense_layers):
+            x, _, _ = _moe_block(_layer(params["layers"], i), x, cfg,
+                                 q_pos=q_pos,
+                                 cache=(cache[k1][i], cache[k2][i]),
+                                 cache_index=idx)
+    elif fam in ("ssm", "hybrid"):
+        every = cfg.attn_every if fam == "hybrid" else 0
+        for i in range(cfg.n_layers):
+            state = None if prefill else (cache["conv"][i], cache["h"][i])
+            x, (conv, h) = _mamba_block(_layer(params["layers"], i), x, cfg,
+                                        state, return_state=prefill)
+            cache["conv"][i].copy_(conv)
+            cache["h"][i].copy_(h)
+            if every and (i + 1) % every == 0:
+                c = i // every
+                x, _ = _dense_block(params["shared_attn"], x, cfg,
+                                    q_pos=q_pos, window=0, is_global=True,
+                                    cache=(cache["k"][c], cache["v"][c]),
+                                    cache_index=idx)
     return x
+
+
+def _encode(params, frontend, cfg: ModelConfig, dtype):
+    """The encdec encoder: ``frontend @ frontend_proj``, then every encoder
+    layer bidirectional with no cache (the kernel's full mode)."""
+    enc = torch.einsum("btf,fd->btd", frontend.to(dtype),
+                       params["frontend_proj"].to(dtype))
+    b, t, _ = enc.shape
+    pos = torch.arange(t, dtype=torch.int32, device=enc.device)[None].expand(b, t)
+    for i in range(cfg.n_enc_layers):
+        enc, _ = _dense_block(_layer(params["enc_layers"], i), enc, cfg,
+                              q_pos=pos, window=0, is_global=True,
+                              bidirectional=True)
+    return enc
 
 
 def forward_prefill(params, batch, cfg: ModelConfig, cache):
     """Fill the cache with the prompt; return (last-position logits, cache).
-    The cache's tensors are written in place."""
-    _require_family(cfg)
+    The cache's tensors are written in place.  For encdec the encoder runs
+    over ``batch["frontend"]``, the decoder's positions start at 0 (as in
+    the JAX package) and the cache keeps the encoder's output as
+    ``enc``."""
     dtype = params["final_norm"].dtype
     idx = int(cache["pos"])
-    x = _frontend(params, batch, cfg, dtype)
+    enc, start = None, idx
+    if cfg.family == "encdec":
+        enc = _encode(params, batch["frontend"], cfg, dtype)
+        x = _embed_tokens(params, batch["tokens"], cfg, dtype)
+        start = 0
+    else:
+        x = _frontend(params, batch, cfg, dtype)
     b, s, _ = x.shape
-    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s) + idx
-    x = _run_layers(params, x, cfg, cache, q_pos, idx)
-    new_cache = {"k": cache["k"], "v": cache["v"], "pos": idx + s}
+    q_pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None]
+             .expand(b, s) + start)
+    x = _run_layers(params, x, cfg, cache, q_pos, idx, prefill=True, enc=enc)
+    new_cache = dict(cache, pos=idx + s)
+    if enc is not None:
+        new_cache["enc"] = enc.to(cache["enc"].dtype)
     return _logits(params, x[:, -1:], cfg), new_cache
 
 
 def forward_decode(params, token, cfg: ModelConfig, cache):
     """One decode step.  token: (B, 1) int32.  Returns (logits, cache).
     The cache's tensors are written in place."""
-    _require_family(cfg)
     dtype = params["final_norm"].dtype
     idx = int(cache["pos"])
     x = _embed_tokens(params, token, cfg, dtype)
     b = x.shape[0]
     q_pos = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
-    x = _run_layers(params, x, cfg, cache, q_pos, idx)
-    new_cache = {"k": cache["k"], "v": cache["v"], "pos": idx + 1}
-    return _logits(params, x, cfg), new_cache
+    enc = cache["enc"].to(dtype) if cfg.family == "encdec" else None
+    x = _run_layers(params, x, cfg, cache, q_pos, idx, prefill=False, enc=enc)
+    return _logits(params, x, cfg), dict(cache, pos=idx + 1)

@@ -812,6 +812,46 @@ def test_cuda_smoke_prefill_counts_flash(cuda_device):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,calls", [
+    ("falcon-mamba-7b", 0), ("deepseek-v2-236b", 0),
+    ("phi3.5-moe-42b-a6.6b", 3), ("zamba2-2.7b", 2),
+    ("seamless-m4t-medium", 4)])
+def test_cuda_family_prefill(cuda_device, arch, calls):
+    """A smoke-width prefill of each family on the card at its published
+    head width (zamba2's D 80, seamless' D 64, the kernel's full mode in
+    seamless' encoder) against the CPU run (plain versions): logits and
+    every cache tensor to the float32 tolerance of
+    tests/test_torch_families.py (rtol 1e-4, atol 1e-4 of the largest
+    value), the kernel launched once per global self-attention of the
+    prefill and never in the decode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              d_head=get_config(arch).head_dim)
+    params = T.init_params(0, cfg, torch.float32, "cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(2, 40), dtype=np.int32))}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
+    want, want_cache = T.forward_prefill(
+        params, batch, cfg, T.init_cache(cfg, 2, 48, torch.float32, "cpu"))
+    dev_params = _to(params, cuda_device)
+    ops.reset_launch_counts()
+    got, cache = T.forward_prefill(
+        dev_params, _to(batch, cuda_device), cfg,
+        T.init_cache(cfg, 2, 48, torch.float32, cuda_device))
+    assert ops.launch_counts()["flash_attention"] == calls
+    for g, w in [(got, want)] + [(cache[k], want_cache[k])
+                                 for k in want_cache if k != "pos"]:
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+    T.forward_decode(dev_params, batch["tokens"][:, :1].to(cuda_device), cfg,
+                     cache)
+    assert ops.launch_counts()["flash_attention"] == calls
+
+
 def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)

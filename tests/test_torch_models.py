@@ -41,8 +41,6 @@ from repro_torch.models.config import SHAPES, smoke_config
 from repro_torch.models.registry import ARCHS, cell_is_runnable, get_config
 
 ARCH_CASES = ["qwen3-1.7b", "qwen1.5-32b", "gemma3-4b", "internvl2-2b"]
-UNPORTED = ["falcon-mamba-7b", "zamba2-2.7b", "seamless-m4t-medium",
-            "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
 B, S, MAX_LEN = 2, 16, 32
 
 
@@ -261,16 +259,6 @@ def test_flash_branch(monkeypatch, arch, calls):
     T.forward_decode(params, torch.zeros((B, 1), dtype=torch.int32), cfg, cache)
     T.forward_prefill(params, {"tokens": batch["tokens"]}, cfg, cache)
     assert len(seen) == calls
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = smoke_config(get_config(arch))
-    for call in (lambda: T.model_specs(cfg),
-                 lambda: T.init_cache(cfg, 1, 8, torch.float32, "cpu"),
-                 lambda: T.init_params(0, cfg, torch.float32, "cpu")):
-        with pytest.raises(NotImplementedError, match="A15c"):
-            call()
 
 
 def test_params_layout_checked():
