@@ -271,6 +271,20 @@ Phases, each printing one JSON line:
               (``FAMILY_CPU_TOL``); ``parity`` adds ``flash_attention`` at
               D 80 causal (H 32 = KV 32, S 2048) and D 64 full (H 16, S
               1024), bf16 and float32;
+   lm_families_train — per ``FAMILY_TRAIN_RUNS`` entry a full-width
+              training run in float32 (TF32 off), depth, rows and mode
+              from the memory reckoning ``family_train_plan`` (each cut in
+              ``reduced``; deepseek-v2 as ``value_and_grad`` alone),
+              batches from ``registry.concrete_inputs``: a warm-up step
+              (its gradients: none all zero, an expert's slice only if it
+              got no assignment), 2 timed steps (seconds, tokens/s, peak
+              memory above what earlier phases hold, predicted bytes),
+              one profiled step (kernel classes, busy share, the
+              backward's device ms and the SSM reverse scan's share of
+              it), no ``flash_attention`` launch; then at 2 layers (hybrid
+              4) the loss and every gradient leaf card against CPU (MoE
+              expert ids equal, ``FAMILY_TRAIN_*`` tolerances; seamless
+              in float64 on both sides);
 9. kernels  — each kernel at the main path's shapes: time, plain-version
               time, bound, and its launches on the paths above
               (``flash_attention``: the warm ``lm_serving`` and
@@ -315,7 +329,8 @@ each serial build, the serial node builds, ``build_distributed``,
 the trace phase's recorded window, each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run, the LM check, each training
-run, each dedup call and each lm_families serving run) and read
+run, each dedup call, each lm_families serving run and each
+lm_families_train run) and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -535,6 +550,34 @@ FAMILY_CPU_TOL = (1e-4, 1e-4)
 # atol; the two card runs share every product, so a fault in the kernel
 # shows as the difference.
 FAMILY_F64_FACTOR = 2.0
+
+# lm_families_train: one full-width training run per family, (run, arch,
+# most layers): depth, rows and mode come from the memory reckoning
+# (family_train_plan); the cap keeps the phase near 150 s.  The runs hold
+# FAMILY_TRAIN_BUDGET of the card's free memory at most.
+FAMILY_TRAIN_RUNS = (("ssm", "falcon-mamba-7b", 8),
+                     ("hybrid", "zamba2-2.7b", 12),
+                     ("encdec", "seamless-m4t-medium", None),
+                     ("moe_gqa", "phi3.5-moe-42b-a6.6b", None),
+                     ("moe_mla", "deepseek-v2-236b", None))
+FAMILY_TRAIN_SEQ = 2048
+FAMILY_TRAIN_BUDGET = 0.85
+# family_train_check, card against CPU at the check model's 2 layers: the
+# CPU tests' tolerances (tests/test_torch_family_train.py): the loss rtol
+# and each gradient leaf as a share of its largest CPU entry.  The check
+# model's GQA attention is conditioned first (_condition_attention):
+# without qk-norm, at published widths and the init's 1/sqrt(heads) scale
+# q and k entries have a std of ~8, every softmax is near one-hot and
+# float32 rounding grows past any tolerance: measured on an H100 80GB HBM3
+# (700 W), card against CPU, phi3.5-moe 3.1e-3 of the embedding's
+# largest gradient and zamba2 1.2e-3 (falcon-mamba 3.8e-6, deepseek-v2
+# 9.9e-6), and for seamless 0.25 and 12 times a leaf's largest gradient
+# between the card's float32 and a float64 CPU run (the CPU's float32 3.5
+# times), 9.0 times between two float64 runs (card, CPU) whose norms and
+# softmaxes round to float32 as the JAX package's do: no float64 run is a
+# reference there.
+FAMILY_TRAIN_LOSS_RTOL = 1e-6
+FAMILY_TRAIN_GRAD_ATOL = 2e-3
 
 
 T_START = time.perf_counter()
@@ -1058,12 +1101,15 @@ def device_events(prof) -> list[tuple[float, str, int]]:
     return rows
 
 
-def device_breakdown(prof, span_s: float, top: int | None = 8) -> dict:
+def device_breakdown(prof, span_s: float, top: int | None = 8,
+                     events: list | None = None) -> dict:
     """Device milliseconds and calls by kernel name (the ``top`` largest;
     every one for None) and the device's busy share of ``span_s``: for
     ``serve`` the prefill and decode seconds it timed (the device total
-    also holds the few ms of parameter init), for a build its wall."""
-    rows = sorted(device_events(prof), reverse=True)
+    also holds the few ms of parameter init), for a build its wall.
+    ``events``: ``device_events(prof)`` when the caller has them."""
+    rows = sorted(device_events(prof) if events is None else events,
+                  reverse=True)
     total = sum(r[0] for r in rows)
     return {"device_ms": total,
             "device_busy_share": total / (span_s * 1e3) if total else None,
@@ -1513,11 +1559,12 @@ FAMILY_KERNEL_CLASSES = (
 )
 
 
-def kernel_classes(prof) -> dict:
+def kernel_classes(prof, events: list | None = None) -> dict:
     """Device ms and launches of a profile's kernels by
     ``FAMILY_KERNEL_CLASSES`` (the rest as "other")."""
     out = {}
-    for ms, name, calls in device_events(prof):
+    for ms, name, calls in (device_events(prof) if events is None
+                            else events):
         low = name.lower()
         cls = next((c for c, pats in FAMILY_KERNEL_CLASSES
                     if any(p in low for p in pats)), "other")
@@ -1858,6 +1905,481 @@ def lm_families(cuda) -> list[dict]:
         torch.cuda.empty_cache()
     emit({"phase": "lm_families", "what": "total",
           "s": time.perf_counter() - t_phase})
+    return out
+
+
+# ---- training of the other families ----------------------------------------
+
+def _spec_shapes(cfg) -> list[tuple[tuple, tuple]]:
+    """(path, shape) of every parameter leaf of ``cfg``."""
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    return [(path, leaf.shape) for path, leaf in pytree.leaves_with_paths(
+        T.nn.map_specs(lambda s: s, T.model_specs(cfg)))]
+
+
+def _cut_depth(full, layers: int):
+    """``full`` at ``layers`` decoder layers: a moe model keeps its dense
+    layers, a hybrid whole chunks, encdec ``layers`` encoder and as many
+    decoder layers."""
+    import dataclasses
+    if full.family == "encdec":
+        return dataclasses.replace(full, n_enc_layers=layers,
+                                   n_dec_layers=layers)
+    return dataclasses.replace(full, n_layers=layers)
+
+
+def _depths(full) -> list[int]:
+    """The depths a training run may cut ``full`` to, deepest first."""
+    if full.family == "encdec":
+        return list(range(full.n_enc_layers, 0, -1))
+    if full.family == "hybrid":
+        return list(range(full.n_layers, 0, -full.attn_every))
+    return list(range(full.n_layers, full.n_dense_layers, -1))
+
+
+def family_train_need(cfg, rows: int, seq: int, pb: int, adamw: bool) -> dict:
+    """Bytes one training step of ``cfg`` needs on the card, by kind:
+    ``params`` (``pb`` bytes each), ``grads`` (as many, plus the stacked
+    layers' gradients once more while ``torch.unbind``'s backward stacks
+    them), ``adamw`` (two float32 moments, 8 B a parameter, and the
+    update's temporaries: ~2 GB of ``UPDATE_CHUNK`` slices and one
+    float32 copy of the largest leaf squared by ``global_norm``),
+    ``logits`` (4 float32 copies: the logits, logsumexp's backward, the
+    label scatter, their sum; plus one in ``pb``), ``checkpoints`` (each
+    remat unit's input), and ``layer``: the largest one layer's recompute
+    and backward hold at once (the hybrid's unit is a whole chunk, whose
+    Mamba-2 layers all keep their scan states ``h``).  The SSM scan's
+    float32 (B, S, di, N) tensor X: Mamba-1 keeps 3 of them for the
+    backward (decay, h, the drive's product) and holds ~7 more of one row
+    group in its backward (the reverse scan's four buffers, its
+    gradient, ``da``'s product, the drive's); Mamba-2 keeps h and ~5 of a
+    group."""
+    shapes = _spec_shapes(cfg)
+    n = sum(int(np.prod(s)) for _, s in shapes)
+    stacked = sum(int(np.prod(s)) for p, s in shapes
+                  if p[0] in ("layers", "dense_layers", "enc_layers",
+                              "dec_layers") and s[0] > 1)
+    largest = max(int(np.prod(s)) for _, s in shapes)
+    t = rows * seq
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    need = {"params": n * pb, "grads": (n + stacked) * pb,
+            "adamw": (8 * n + (8 << 26) * 4 + 4 * largest) if adamw else 0,
+            "logits": t * cfg.vocab * (16 + pb)}
+    attn = rows * h * seq * seq * 4 * 4 + t * h * hd * pb * 8
+    mlp = t * max(cfg.d_ff, 1) * pb * 6
+    fam = cfg.family
+    if fam in ("ssm", "hybrid"):
+        from repro_torch.models import ssm
+        x_total = t * cfg.d_inner * cfg.d_state * 4
+        x_group = max(1, min(rows, ssm.SCAN_BYTES // (seq * cfg.d_inner
+                                                      * cfg.d_state * 4)))
+        x_group = x_group * seq * cfg.d_inner * cfg.d_state * 4
+        inner = t * cfg.d_inner * pb * 12
+        if fam == "ssm":
+            layer = 3 * x_total + 7 * x_group + inner
+            units = cfg.n_layers
+        else:
+            layer = (cfg.attn_every * (x_total + inner) + 5 * x_group
+                     + attn + mlp)
+            units = cfg.n_layers // cfg.attn_every
+    elif fam == "encdec":
+        layer = attn * 2 + mlp
+        units = cfg.n_enc_layers + cfg.n_dec_layers + 1
+    else:  # moe
+        if cfg.mla:
+            from repro_torch.models import nn as tnn
+            r = rows if rows * h * seq * seq * 4 <= tnn.MLA_LOGIT_BYTES else 1
+            attn = (rows * h * seq * seq * 4 + r * h * seq * seq * 4 * 3
+                    + t * h * (hd + cfg.rope_dims) * pb * 8)
+        e, k, fe = cfg.n_experts, cfg.top_k, cfg.d_ff_expert or cfg.d_ff
+        cap = max(int(np.ceil(t * k / e * cfg.capacity_factor)), 4)
+        moe = (e * cap * (d + 3 * fe) * pb * 3 + t * k * d * pb * 4
+               + t * k * e * 4 * 3 + t * fe * cfg.n_shared_experts * pb * 6)
+        layer = attn + max(moe, mlp if cfg.n_dense_layers else 0)
+        units = cfg.n_layers
+    need["checkpoints"] = units * t * d * pb
+    need["layer"] = layer
+    need["total"] = sum(need.values())
+    return need
+
+
+def family_train_plan(full, free_bytes: int, max_layers: int | None) -> dict:
+    """The full-width training run of ``full`` that fits
+    ``FAMILY_TRAIN_BUDGET`` of ``free_bytes`` (``family_train_need``):
+    the first mode of AdamW in float32, AdamW with bf16 parameters
+    (float32 moments), ``value_and_grad`` alone in float32 whose
+    shallowest model fits at 4, 2 or 1 rows of ``FAMILY_TRAIN_SEQ``
+    tokens, the most rows first (seamless, whose depth is kept, at the
+    rows where its full depth fits); then the deepest model at those rows,
+    at most ``max_layers`` deep (the phase's time).  Every cut is named in
+    ``reduced``."""
+    budget = FAMILY_TRAIN_BUDGET * free_bytes
+    depths = _depths(full)
+    keep_depth = full.family == "encdec"
+    modes = (("adamw", torch.float32, 4), ("adamw", torch.bfloat16, 2),
+             ("value_and_grad", torch.float32, 4))
+    for mode, dtype, pb in modes:
+        for rows in (4, 2, 1):
+            seq = FAMILY_TRAIN_SEQ
+            fits = [dep for dep in depths if family_train_need(
+                _cut_depth(full, dep), rows, seq, pb,
+                mode == "adamw")["total"] <= budget]
+            if not fits or (keep_depth and fits[0] != depths[0]):
+                continue
+            depth = fits[0]
+            if max_layers is not None and depth > max_layers:
+                depth = max(dep for dep in fits if dep <= max_layers)
+            cfg = _cut_depth(full, depth)
+            need = family_train_need(cfg, rows, seq, pb, mode == "adamw")
+            reduced = []
+            full_depth = depths[0]
+            if depth != full_depth:
+                why = ("the phase's time" if depth < fits[0] else
+                       f"{FAMILY_TRAIN_BUDGET} of the {free_bytes / 1e9:.1f} "
+                       f"GB free")
+                reduced.append(f"layers {full_depth} -> {depth} ({why}; "
+                               f"{cfg.param_count() / 1e9:.2f} of "
+                               f"{full.param_count() / 1e9:.1f} B parameters)")
+            if rows != 4:
+                reduced.append(f"batch 4 x {seq} -> {rows} x {seq} tokens "
+                               "(memory)")
+            if dtype != torch.float32:
+                reduced.append("bf16 parameters (float32 moments): float32 "
+                               "AdamW does not fit")
+            if mode != "adamw":
+                reduced.append("value_and_grad alone, no AdamW update: "
+                               "float32 or bf16 AdamW state does not fit")
+            return {"cfg": cfg, "rows": rows, "seq": seq, "dtype": dtype,
+                    "mode": mode, "need": need, "reduced": reduced,
+                    "budget_gb": budget / 1e9}
+    raise AssertionError(f"lm_families_train: {full.name} does not fit "
+                         f"{budget / 1e9:.1f} GB in any mode")
+
+
+def backward_split(prof) -> dict:
+    """Device ms of a profiled step's backward (the autograd engine's
+    top-level ``evaluate_function`` events, with the remat recompute run
+    inside them) and of the scan's reverse scans (``SSMScanBackward``)
+    within it; needs the profile's CPU activity."""
+    mark = "autograd::engine::evaluate_function:"
+    total = scan = 0.0
+    for e in prof.events():
+        if not e.name.startswith(mark):
+            continue
+        par = e.cpu_parent
+        while par is not None and not par.name.startswith(mark):
+            par = par.cpu_parent
+        if par is not None:
+            continue
+        us = e.device_time_total
+        total += us
+        if "SSMScanBackward" in e.name:
+            scan += us
+    return {"backward_device_ms": total / 1e3, "scan_backward_ms": scan / 1e3,
+            "scan_share_of_backward": scan / total if total else None}
+
+
+def _grad_zeros(grads, assigned: dict | None, n_moe: int) -> dict:
+    """Which gradient leaves are all zero; for the MoE expert weights,
+    which (layer, expert) slices, those of an expert that received no
+    assignment in that layer (``assigned``: layer -> expert ids) exempt.
+    (A non-finite gradient shows in the step's gradient norm.)"""
+    from repro_torch import pytree
+    inf = float("inf")
+    zero_leaves, bad_slices, exempt = [], [], 0
+    for path, g in pytree.leaves_with_paths(grads):
+        name = "/".join(path)
+        if path[:2] == ("layers", "moe") and path[2] in ("w_gate", "w_up",
+                                                         "w_down"):
+            zs = (torch.linalg.vector_norm(g.flatten(2), inf, dim=-1)
+                  == 0).cpu()                               # (L, E)
+            for layer, expert in zs.nonzero().tolist():
+                if layer < n_moe and expert not in assigned.get(layer, ()):
+                    exempt += 1
+                else:
+                    bad_slices.append(f"{name}[{layer}, {expert}]")
+            if bool(zs.all()):
+                zero_leaves.append(name)
+        elif float(torch.linalg.vector_norm(g, inf)) == 0:
+            zero_leaves.append(name)
+    return {"zero_leaves": zero_leaves, "zero_assigned_expert_slices":
+            bad_slices, "exempt_expert_slices": exempt}
+
+
+def _record_routing():
+    """A wrapper of ``nn.moe_route`` that records each call's expert ids
+    (the path is unchanged) and the list it records into."""
+    from repro_torch.models import nn as tnn
+    real, calls = tnn.moe_route, []
+
+    def recording(p, xt, cfg_):
+        probs, vals, ids = real(p, xt, cfg_)
+        top = torch.sort(probs.detach(), dim=-1, descending=True).values
+        calls.append((ids.cpu(), float(
+            (top[:, cfg_.top_k - 1] - top[:, cfg_.top_k]).min())))
+        return probs, vals, ids
+    return real, recording, calls
+
+
+def _condition_attention(params) -> None:
+    """Scale the GQA attention's ``wq`` and ``wk`` (self and cross) in
+    place from ``init_params``' 1/sqrt(heads) (a 3-D weight's fan-in is
+    taken from its head axis, as in the JAX package) to 1/sqrt(d_model),
+    their input width: q and k entries of std ~1 instead of ~8, so the
+    scores are not near one-hot (``FAMILY_TRAIN_LOSS_RTOL``'s note).
+    MLA's projections keep their init."""
+    from repro_torch import pytree
+    for path, leaf in pytree.leaves_with_paths(params):
+        if path[-2:-1] in (("attn",), ("xattn",)) and path[-1] in ("wq", "wk"):
+            leaf.mul_(float(np.sqrt(leaf.shape[-2] / leaf.shape[-3])))
+
+
+def family_train_check(cuda, run: str, full) -> dict:
+    """The loss and every gradient leaf of ``value_and_grad(make_loss_fn)``
+    on the check model of ``_family_check_cfg`` (2 layers at published
+    widths, hybrid 4 in 2 chunks; its GQA attention conditioned by
+    ``_condition_attention``), 2 x 64 tokens from
+    ``registry.concrete_inputs``, float32 and TF32 off, on the card
+    against the same parameters on the CPU (plain versions): each MoE
+    layer's expert ids equal first, no ``flash_attention`` launch on the
+    card, then the loss within ``FAMILY_TRAIN_LOSS_RTOL`` and each leaf
+    within ``FAMILY_TRAIN_GRAD_ATOL`` of its largest CPU entry (the CPU
+    tests' tolerances)."""
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import concrete_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = _family_check_cfg(full)
+    batch = concrete_inputs(cfg, ShapeConfig("check", "train", 64, 2),
+                            seed=31, device="cpu")
+    grad_fn = step_lib.value_and_grad(step_lib.make_loss_fn(cfg))
+    params = T.init_params(7, cfg, torch.float32, cuda)
+    _condition_attention(params)
+    real, recording, routed = _record_routing()
+    seconds = {}
+    tnn.moe_route = recording
+    try:
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        loss_card, grads_card = grad_fn(params, _to_device(batch, cuda))
+        torch.cuda.synchronize()
+        seconds["card"] = time.perf_counter() - t1
+        flash = ops.launch_counts()["flash_attention"]
+        p_cpu = _to_device(params, "cpu")
+        del params
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        loss_cpu, grads_cpu = grad_fn(p_cpu, batch)
+        seconds["cpu"] = time.perf_counter() - t1
+        del p_cpu
+    finally:
+        tnn.moe_route = real
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+    half = len(routed) // 2  # each run: its forward's calls, then remat's
+    ids_equal = all(torch.equal(a, b) for (a, _), (b, _) in
+                    zip(routed[:n_moe], routed[half:half + n_moe]))
+    t1 = time.perf_counter()
+    worst, worst_leaf = 0.0, None
+    for (path, g), w in zip(pytree.leaves_with_paths(grads_card),
+                            pytree.leaves(grads_cpu)):
+        w = w.to(cuda)  # compared on the card, a leaf at a time
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        share = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if share > worst:
+            worst, worst_leaf = share, "/".join(path)
+    seconds["compare"] = time.perf_counter() - t1
+    lc, lcpu = float(loss_card), float(loss_cpu)
+    loss_err = abs(lc - lcpu) / abs(lcpu)
+    row = {"phase": "lm_families_train", "what": "card vs cpu", "run": run,
+           "arch": cfg.name, "dtype": "float32", "layers": _layer_shape(cfg),
+           "batch": 2, "seq": 64, "loss_card": lc, "loss_cpu": lcpu,
+           "loss_rel_err": loss_err, "worst_grad_share": worst,
+           "worst_grad_leaf": worst_leaf, "moe_layers": n_moe,
+           "expert_ids_equal": ids_equal if n_moe else None,
+           "min_top_k_margin": min((m for _, m in routed), default=None),
+           "flash_launches": flash, "loss_rtol": FAMILY_TRAIN_LOSS_RTOL,
+           "grad_atol_share": FAMILY_TRAIN_GRAD_ATOL, "seconds": seconds,
+           "s": time.perf_counter() - t0}
+    emit(row)
+    if flash:
+        raise AssertionError(f"lm_families_train {run}: training launched "
+                             "flash_attention")
+    if n_moe and not ids_equal:
+        raise AssertionError(f"lm_families_train {run}: the card's MoE "
+                             "routing differs from the CPU's")
+    if not (loss_err <= FAMILY_TRAIN_LOSS_RTOL
+            and worst <= FAMILY_TRAIN_GRAD_ATOL):
+        raise AssertionError(f"lm_families_train {run}: card against CPU "
+                             f"loss {loss_err} (rtol {FAMILY_TRAIN_LOSS_RTOL}),"
+                             f" gradient {worst_leaf} {worst} of its largest "
+                             f"entry (tolerance {FAMILY_TRAIN_GRAD_ATOL})")
+    return row
+
+
+def lm_families_train(cuda) -> list[dict]:
+    """Training of the moe (GQA, MLA), ssm, hybrid and encdec families at
+    published widths on the card (``FAMILY_TRAIN_RUNS``), TF32 off: per
+    run the plan of ``family_train_plan`` (depth, rows and mode from the
+    memory reckoning; every cut in ``reduced``), parameters from
+    ``init_params``, batches from ``registry.concrete_inputs``, and
+    ``make_train_step(donate=True)`` (AdamW) or ``value_and_grad`` alone:
+    a warm-up step, 2 timed between two synchronizes, one under
+    ``torch.profiler`` (CPU and CUDA activity: kernel classes, top
+    kernels, the backward's device ms and the scan's reverse scans'
+    share of it).  The warm-up step's gradients are read (through a
+    wrapper of ``adamw.update``; the path is unchanged): none may be
+    non-finite or all zero; an expert's slice may be zero only if the
+    router gave it no assignment in that layer (counted).  Launch counts
+    from 0 before each run: no ``flash_attention``.  Then
+    ``family_train_check``.  Returns each run's launch counts."""
+    import importlib
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import ARCHS, concrete_inputs
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = []
+    for run, arch, max_layers in FAMILY_TRAIN_RUNS:
+        t_run = time.perf_counter()
+        full = importlib.import_module(ARCHS[arch]).CONFIG
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        free = torch.cuda.mem_get_info()[0]
+        plan = family_train_plan(full, free, max_layers)
+        seconds = {"plan": time.perf_counter() - t_run}
+        cfg, rows, seq = plan["cfg"], plan["rows"], plan["seq"]
+        n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(11, cfg, plan["dtype"], cuda)
+        shape = ShapeConfig("train", "train", seq, rows)
+        batches = [concrete_inputs(cfg, shape, seed=i, dtype=plan["dtype"],
+                                   device=cuda) for i in range(4)]
+        if plan["mode"] == "adamw":
+            opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=10,
+                                        warmup_steps=2)
+            opt_state = adamw.init(params)
+            train_step = step_lib.make_train_step(cfg, opt_cfg, donate=True)
+
+            def step(batch):
+                _, _, m = train_step(params, opt_state, batch)
+                return m["loss"], m["grad_norm"]
+        else:
+            grad_fn = step_lib.value_and_grad(step_lib.make_loss_fn(cfg))
+
+            def step(batch):
+                loss, grads = grad_fn(params, batch)
+                return loss, adamw.global_norm(grads)
+        seen, per_step = {}, []
+        real_update = adamw.update
+        real_route, recording, routed = _record_routing()
+
+        def reading(opt_cfg_, grads, state, params_, **kw):
+            seen["grads"] = _zero_report(grads)
+            return real_update(opt_cfg_, grads, state, params_, **kw)
+
+        def _zero_report(grads):
+            assigned = {i: set(ids.unique().tolist())
+                        for i, (ids, _) in enumerate(routed[:n_moe])}
+            return _grad_zeros(grads, assigned, n_moe)
+
+        # the warm-up step, its gradients read
+        t0 = time.perf_counter()
+        seconds["init"] = t0 - t_run - seconds["plan"]
+        adamw.update, tnn.moe_route = reading, recording
+        try:
+            if plan["mode"] == "adamw":
+                loss, gnorm = step(batches[0])
+            else:
+                loss, grads = grad_fn(params, batches[0])
+                gnorm = adamw.global_norm(grads)
+                seen["grads"] = _zero_report(grads)
+                del grads
+            torch.cuda.synchronize()
+        finally:
+            adamw.update, tnn.moe_route = real_update, real_route
+        per_step.append({"s": time.perf_counter() - t0, "warm_up": True,
+                         "loss": float(loss), "grad_norm": float(gnorm)})
+        for batch in batches[1:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, gnorm = step(batch)
+            torch.cuda.synchronize()
+            per_step.append({"s": time.perf_counter() - t0,
+                             "loss": float(loss), "grad_norm": float(gnorm)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss, gnorm = step(batches[3])
+            torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        per_step.append({"profiled": True, "loss": float(loss),
+                         "grad_norm": float(gnorm)})
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = counts_now()
+        step_s = float(np.median([r["s"] for r in per_step[1:3]]))
+        t0 = time.perf_counter()
+        events = device_events(prof)
+        brk = device_breakdown(prof, prof_s, top=10, events=events)
+        row = {"phase": "lm_families_train", "what": "train", "run": run,
+               "arch": arch, "family": cfg.family, "mode": plan["mode"],
+               "dtype": str(plan["dtype"]).split(".")[1],
+               "config": _layer_shape(cfg), "params": cfg.param_count(),
+               "reduced": plan["reduced"] or None, "batch": rows, "seq": seq,
+               "tokens": rows * seq, "per_step": per_step,
+               "step_s": step_s, "tokens_per_s": rows * seq / step_s,
+               "peak_memory_gb": peak / 1e9, "held_before_gb": held / 1e9,
+               "free_before_gb": free / 1e9,
+               "predicted_gb": {k: v / 1e9 for k, v in plan["need"].items()},
+               "budget_gb": plan["budget_gb"],
+               "profiled_step_s": prof_s, **brk,
+               "device_busy_share_est": brk["device_ms"] / (step_s * 1e3),
+               "kernel_classes": kernel_classes(prof, events),
+               **backward_split(prof),
+               "seconds": {**seconds, "profile_read": time.perf_counter() - t0},
+               **seen["grads"], "flash_launches": counts["flash_attention"],
+               "launches": {k: v for k, v in counts.items() if v}}
+        emit(row)
+        del prof, params, batches, step
+        if plan["mode"] == "adamw":
+            del opt_state, train_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(np.isfinite([r[k] for r in per_step
+                                for k in ("loss", "grad_norm")])):
+            raise AssertionError(f"lm_families_train {run}: a loss or "
+                                 "gradient norm is not finite")
+        if counts["flash_attention"]:
+            raise AssertionError(f"lm_families_train {run}: training "
+                                 "launched flash_attention")
+        if row["zero_leaves"] or row["zero_assigned_expert_slices"]:
+            raise AssertionError(f"lm_families_train {run}: all-zero "
+                                 f"gradients {row['zero_leaves']} "
+                                 f"{row['zero_assigned_expert_slices'][:8]}")
+        out.append(counts)
+        family_train_check(cuda, run, full)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "lm_families_train", "what": "run total", "run": run,
+              "s": time.perf_counter() - t_run})
+    emit({"phase": "lm_families_train", "what": "total",
+          "s": time.perf_counter() - t_phase, "card": nvidia_smi()})
     return out
 
 
@@ -4994,6 +5516,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family_counts = lm_families(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_train_counts = lm_families_train(cuda)
 
     rows += fetch_rows
     rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
@@ -5004,7 +5529,8 @@ def main() -> int:
              *prot_serve_counts.values(), tree["genome"]["counts"],
              tree["protein"]["counts"], bl["counts"], lm_main,
              *stream_counts, append_counts, *fabric_counts, *serial_counts,
-             trace_counts, *dedup_counts, *family_counts]
+             trace_counts, *dedup_counts, *family_counts,
+             *family_train_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -1,10 +1,13 @@
 """End-to-end LM training driver (the port of ``repro.launch.train``).
 
 AdamW + cosine schedule, remat, checkpoint/restore with atomic commits,
-the deterministic restart-safe token pipeline.  It runs on one device
-(``--mesh host``); the production meshes (``--mesh prod``, ``--mesh
-multipod``) and their sharding wait for ROADMAP A15d.  The log lines, the
-returned losses and the checkpoint files are the JAX driver's.
+the deterministic restart-safe token pipeline.  It trains every
+decoder-only family (dense, moe with GQA or MLA, ssm, hybrid) and refuses
+the encdec and frontend archs as the JAX driver does.  It runs on one
+device (``--mesh host``); the production meshes (``--mesh prod``,
+``--mesh multipod``) and their sharding wait for ROADMAP A15d.  The log
+lines, the returned losses and the checkpoint files are the JAX
+driver's.
 
 Example (CPU, smoke model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

@@ -11,8 +11,8 @@ unchanged.
 The prefill self-attention of a global layer from an empty cache, and a
 bidirectional self-attention with no cache (the encdec encoder), run the
 hand-written ``flash_attention`` kernel (:func:`attention`); everything
-else attends through :func:`_sdpa`, the counterpart of the JAX
-package's plain attention.  :func:`mla_attention` keeps JAX's
+else, and training (``use_flash=False``), attends through :func:`_sdpa`,
+the counterpart of the JAX package's plain attention.  :func:`mla_attention` keeps JAX's
 up-projected form (its qk width differs from its v width, so it attends
 through its own masked softmax), and :func:`moe` is JAX's capacity-based,
 sort-free scatter with the expert products as batched einsums.
@@ -185,6 +185,7 @@ def attention(
     cache_index: int | None = None,  # host write position
     kv_source: torch.Tensor | None = None,  # cross-attention memory (B, Sk, d)
     bidirectional: bool = False,
+    use_flash: bool = True,
 ):
     """Returns (y, new_cache).
 
@@ -196,7 +197,9 @@ def attention(
     then equals the causal mask over the valid cache.  A bidirectional
     self-attention with no cache (the encdec encoder) runs the kernel's
     full mode, where the JAX package masks nothing.  The choice reads host
-    values only, never a build or launch error.
+    values only, never a build or launch error.  ``use_flash=False`` (the
+    training forward, since the kernel has no backward) sends those cases
+    through :func:`_sdpa` too.
     """
     b, sq, d = x.shape
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -219,12 +222,13 @@ def attention(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if cache is None and bidirectional and kv_source is None:
+    if use_flash and cache is None and bidirectional and kv_source is None:
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=False)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
-    flash = (cache is not None and cache_index == 0 and kv_source is None
-             and not bidirectional and (is_global or window <= 0))
+    flash = (use_flash and cache is not None and cache_index == 0
+             and kv_source is None and not bidirectional
+             and (is_global or window <= 0))
     if cache is not None:
         k_cache, v_cache = cache
         # the start clamped as jax.lax.dynamic_update_slice clamps it: a

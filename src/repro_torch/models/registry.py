@@ -1,14 +1,21 @@
-"""Architecture registry: ``--arch <id>`` → ModelConfig.
+"""Architecture registry: ``--arch <id>`` → ModelConfig, plus the per-cell
+inputs (the port of ``repro.models.registry``).
 
-The port's counterpart of ``repro.models.registry``: ``ARCHS`` points at
-the port's own copies of the configs.  The dry run's ``input_specs`` and
-``concrete_inputs`` wait for ROADMAP item A15d.
+``ARCHS`` points at the port's own copies of the configs.
+:func:`input_specs` gives every model input of a cell as a ``meta``
+tensor (a shape and a dtype, no storage) and :func:`concrete_inputs` a
+small batch of that structure on a device, drawn as the JAX package
+draws it.  The dry run that reads the specs is ROADMAP item A15d.
 """
 
 from __future__ import annotations
 
 import importlib
 
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
 ARCHS = {
@@ -41,3 +48,58 @@ def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, "full-attention arch: long_500k skipped (DESIGN.md)"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """``meta`` tensors standing in for every model input of this cell,
+    with the JAX package's keys (in its order), shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            # encoder frames + decoder tokens (frames len = seq len)
+            return {"frontend": spec((b, s, cfg.frontend_dim), dtype),
+                    "tokens": spec((b, s)), "labels": spec((b, s))}
+        if cfg.frontend:  # vlm: patches + text (labels cover full sequence)
+            return {"frontend": spec((b, cfg.frontend_len, cfg.frontend_dim),
+                                     dtype),
+                    "tokens": spec((b, s)),
+                    "labels": spec((b, cfg.frontend_len + s))}
+        return {"tokens": spec((b, s)), "labels": spec((b, s))}
+
+    if shape.kind == "prefill":
+        if cfg.family == "encdec":
+            return {"frontend": spec((b, s, cfg.frontend_dim), dtype),
+                    "tokens": spec((b, min(s, 1024)))}  # decoder prompt
+        if cfg.frontend:
+            return {"frontend": spec((b, cfg.frontend_len, cfg.frontend_dim),
+                                     dtype),
+                    "tokens": spec((b, s - cfg.frontend_len))}
+        return {"tokens": spec((b, s))}
+
+    # decode: one new token against a seq_len cache
+    return {"tokens": spec((b, 1))}
+
+
+def concrete_inputs(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                    dtype=torch.float32, device="cuda") -> dict:
+    """A small concrete batch of :func:`input_specs`' structure on
+    ``device``: one ``np.random.default_rng(seed)`` drawn key by key in
+    the specs' order, integers in ``[0, vocab)`` for the int32 inputs and
+    standard normals cast to ``dtype`` for the others, so the same seed
+    gives the JAX package's arrays."""
+    dev = ops.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in input_specs(cfg, shape, dtype=dtype).items():
+        if v.dtype == torch.int32:
+            arr = torch.from_numpy(rng.integers(0, cfg.vocab, size=v.shape,
+                                                dtype=np.int32))
+        else:
+            arr = torch.from_numpy(rng.normal(size=v.shape)).to(dtype)
+        out[k] = arr.to(dev)
+    return out

@@ -10,6 +10,11 @@ carrying ``(conv_state, ssm_state)``.  The (B, S, ..., N) float32
 transients of a full sequence are built, scanned and contracted a group
 of batch rows at a time, each tensor at most ``SCAN_BYTES`` (the rows are
 independent, so the result is the same).
+
+Training differentiates the scan through :class:`SSMScan`, whose backward
+is the adjoint recurrence run as the same doubling scan backwards in time
+(:func:`_reverse_scan`): it keeps ``a`` and the output ``h``, never one
+buffer per pass.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out.transpose(1, 2) + b
 
 
-def _ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along axis 1; returns all h_t.
 
     The JAX package's ``associative_scan`` of ``combine((al, bl), (ar,
@@ -84,6 +89,74 @@ def _ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         b = nb
         shift, j = 2 * shift, j + 1
     return b
+
+
+def _reverse_scan(a: torch.Tensor, gh: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_doubling_scan`: ``g_t = gh_t + a_{t+1} *
+    g_{t+1}`` with ``g_{S-1} = gh_{S-1}``, all g_t.
+
+    The same doubling scan mirrored in time: pass j combines each element
+    with the one 2^j after it, the decays ``ae_t`` (initially
+    ``a_{t+1}``, a view of ``a`` from position 1, so ``a_0`` is never
+    read) multiplied pairwise as they go.  Two buffers for ``g`` and two
+    one position shorter for the decays; the inputs are only read."""
+    s = gh.shape[1]
+    ae = a[:, 1:]
+    bufs_a = [torch.empty_like(ae), torch.empty_like(ae)] if s > 2 else []
+    bufs_g = [torch.empty_like(gh), torch.empty_like(gh)] if s > 1 else []
+    g = gh
+    shift, j = 1, 0
+    while shift < s:
+        ng = bufs_g[j % 2]
+        ng[:, s - shift:] = g[:, s - shift:]
+        torch.addcmul(g[:, :s - shift], ae[:, :s - shift], g[:, shift:],
+                      out=ng[:, :s - shift])
+        if 2 * shift < s:
+            na = bufs_a[j % 2]
+            torch.mul(ae[:, :s - 2 * shift], ae[:, shift:s - shift],
+                      out=na[:, :s - 2 * shift])
+            ae = na
+        g = ng
+        shift, j = 2 * shift, j + 1
+    return g
+
+
+class SSMScan(torch.autograd.Function):
+    """:func:`_doubling_scan` with a backward: the gradient ``g`` of the
+    states is the reverse scan of the incoming gradient ``gh``
+    (:func:`_reverse_scan`); then ``db = g`` and ``da_t = g_t *
+    h_{t-1}`` (``h_{-1} = 0``), summed back to ``a``'s broadcast shape.
+    It saves ``a`` and the output ``h``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _doubling_scan(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.b_shape = b.shape
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        a, h = ctx.saved_tensors
+        g = _reverse_scan(a, gh.contiguous())
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.zeros_like(a)
+            if h.shape[1] > 1:
+                da[:, 1:] = (g[:, 1:] * h[:, :-1]).sum_to_size(da[:, 1:].shape)
+        if ctx.needs_input_grad[1]:
+            db = g.sum_to_size(ctx.b_shape)
+        return da, db
+
+
+def _ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along axis 1; returns all h_t
+    (:func:`_doubling_scan`).  Where autograd records (grad mode on and an
+    input that requires grad) it runs as :class:`SSMScan`; otherwise, as
+    in serving, the doubling scan alone, which saves nothing."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return SSMScan.apply(a, b)
+    return _doubling_scan(a, b)
 
 
 def _by_rows(fn, b: int, row_bytes: int):

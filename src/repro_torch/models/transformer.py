@@ -14,12 +14,9 @@ Entry points:
 * ``init_params``            — random parameters on a device
 * ``params_from_numpy``      — a JAX parameter tree (as numpy) → the port's
 * ``init_cache(cfg, B, S)``  — the cache, with the JAX package's keys
-* ``forward_train``          — full-sequence logits (+ the aux loss, zero)
+* ``forward_train``          — full-sequence logits (+ the MoE aux loss)
 * ``forward_prefill``        — logits for the last position + filled cache
 * ``forward_decode``         — one-token step against the cache
-
-``forward_train`` runs the dense and vlm families; the others raise
-``NotImplementedError`` naming ROADMAP item A15c2.
 """
 
 from __future__ import annotations
@@ -36,17 +33,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import nn, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import Spec
-
-_TRAIN_FAMILIES = ("dense", "vlm")
-
-
-def _require_train_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"yet: ROADMAP A15c2 (training of the moe/MLA, ssm, hybrid and "
-            f"encdec families); the port trains {', '.join(_TRAIN_FAMILIES)}")
-
 
 # ---------------------------------------------------------------------------
 # Spec assembly
@@ -160,11 +146,12 @@ def _layer(stacked: Any, i: int) -> Any:
 
 def _dense_block(p, x, cfg: ModelConfig, *, q_pos, window, is_global,
                  cache=None, cache_index=None, enc_out=None,
-                 bidirectional=False):
+                 bidirectional=False, use_flash=True):
     h, kv = nn.attention(
         p["attn"], nn.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
         q_pos=q_pos, window=window, is_global=is_global,
         cache=cache, cache_index=cache_index, bidirectional=bidirectional,
+        use_flash=use_flash,
     )
     x = x + h
     if enc_out is not None:
@@ -254,8 +241,12 @@ def _unstack(stacked: Any, n: int) -> list:
     """Per-layer parameter trees from the stacked tensors, through one
     ``torch.unbind`` per leaf: its backward stacks the layers' gradients
     once, where indexing each layer would scatter every layer's gradient
-    into a zero tensor of the whole stack."""
+    into a zero tensor of the whole stack.  A stack of one layer is
+    squeezed instead, a view whose gradient is a view too (no copy of a
+    deepseek-v2 MoE layer's 3.8 B expert weights' gradient)."""
     if isinstance(stacked, torch.Tensor):
+        if n == 1:
+            return [stacked.squeeze(0)]
         return list(torch.unbind(stacked, 0))
     per_key = {k: _unstack(v, n) for k, v in stacked.items()}
     return [{k: per_key[k][i] for k in per_key} for i in range(n)]
@@ -279,39 +270,134 @@ def _train_layer(x, lp, cfg: ModelConfig, q_pos, is_global: bool):
     return y
 
 
+def _train_moe_dense(x, lp, cfg: ModelConfig, q_pos):
+    y, _ = _moe_dense_block(lp, x, cfg, q_pos=q_pos, cache=None,
+                            cache_index=None)
+    return y
+
+
+def _train_moe(x, lp, cfg: ModelConfig, q_pos):
+    y, _, aux = _moe_block(lp, x, cfg, q_pos=q_pos)
+    return y, aux
+
+
+def _train_mamba(x, lp, cfg: ModelConfig):
+    return _mamba_block(lp, x, cfg)[0]
+
+
+def _train_hybrid_chunk(x, chunk: list, shared, cfg: ModelConfig, q_pos):
+    """One hybrid chunk: its ``attn_every`` Mamba-2 layers, then the one
+    shared attention block."""
+    for lp in chunk:
+        x = _mamba_block(lp, x, cfg)[0]
+    y, _ = _dense_block(shared, x, cfg, q_pos=q_pos, window=0,
+                        is_global=True)
+    return y
+
+
+def _train_encoder(x, lp, cfg: ModelConfig, q_pos):
+    """An encoder layer in training: bidirectional through ``_sdpa`` with
+    the all-true mask (``use_flash=False``: the kernel has no backward)."""
+    y, _ = _dense_block(lp, x, cfg, q_pos=q_pos, window=0, is_global=True,
+                        bidirectional=True, use_flash=False)
+    return y
+
+
+def _train_decoder(x, lp, cfg: ModelConfig, q_pos, enc):
+    y, _ = _dense_block(lp, x, cfg, q_pos=q_pos, window=0, is_global=True,
+                        enc_out=enc)
+    return y
+
+
+def _run_layer(remat: bool, context_fn, fn, *args):
+    """``fn(*args)``, under non-reentrant ``torch.utils.checkpoint`` with
+    ``context_fn`` when ``remat`` is set."""
+    if remat:
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return fn(*args)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+
+
 def forward_train(params, batch, cfg: ModelConfig, *, remat: bool = True,
                   remat_policy: str = "none"):
-    """Returns (logits, aux_loss) for the dense and vlm families; aux is a
-    float32 zero for them, as in the JAX package.  Any other family raises
-    ``NotImplementedError`` naming ROADMAP A15c2 before anything runs.
+    """Returns (logits, aux_loss): aux is the float32 sum of the MoE
+    layers' load-balancing losses, zero for every other family, as in the
+    JAX package.
 
     With ``remat`` each layer body runs under
     ``torch.utils.checkpoint.checkpoint`` (non-reentrant): only its input
     is kept for the backward, which recomputes the rest
     (``jax.checkpoint``); ``remat_policy="dots"`` keeps the weight
-    products' outputs too (:func:`_saves_dots`).  Attention is
-    :func:`nn._sdpa` (no cache: never the ``flash_attention`` kernel,
-    which has no backward), differentiated by autograd."""
-    _require_train_family(cfg)
+    products' outputs too (:func:`_saves_dots`).  A hybrid's unit is a
+    whole chunk (its Mamba-2 layers and the shared block); the encdec
+    family checkpoints plainly whatever the policy (:func:`_encdec_train`).
+    Attention is :func:`nn._sdpa` (never the ``flash_attention`` kernel,
+    which has no backward), differentiated by autograd; the SSM scan
+    through :class:`ssm.SSMScan`."""
+    if cfg.family == "encdec":
+        return _encdec_train(params, batch, cfg, remat)
     dtype = params["final_norm"].dtype
     x = _frontend(params, batch, cfg, dtype)
-    b, s, _ = x.shape
-    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    q_pos = _positions(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     context_fn = ckpt.noop_context_fn
     if remat_policy == "dots":
         context_fn = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _saves_dots)
-    flags = _is_global_flags(cfg, cfg.n_layers)
-    for lp, is_g in zip(_unstack(params["layers"], cfg.n_layers), flags):
-        if remat:
-            x = ckpt.checkpoint(_train_layer, x, lp, cfg, q_pos, is_g,
-                                use_reentrant=False, context_fn=context_fn)
-        else:
-            x = _train_layer(x, lp, cfg, q_pos, is_g)
+    run = functools.partial(_run_layer, remat, context_fn)
 
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        flags = _is_global_flags(cfg, cfg.n_layers)
+        for lp, is_g in zip(_unstack(params["layers"], cfg.n_layers), flags):
+            x = run(_train_layer, x, lp, cfg, q_pos, is_g)
+    elif fam == "moe":
+        n_dense = cfg.n_dense_layers
+        if n_dense:
+            for lp in _unstack(params["dense_layers"], n_dense):
+                x = run(_train_moe_dense, x, lp, cfg, q_pos)
+        for lp in _unstack(params["layers"], cfg.n_layers - n_dense):
+            x, aux = run(_train_moe, x, lp, cfg, q_pos)
+            aux_total = aux_total + aux
+    elif fam == "ssm":
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            x = run(_train_mamba, x, lp, cfg)
+    elif fam == "hybrid":
+        every = cfg.attn_every
+        layers = _unstack(params["layers"], cfg.n_layers)
+        for c in range(cfg.n_layers // every):  # layer c * every + i
+            x = run(_train_hybrid_chunk, x, layers[c * every:(c + 1) * every],
+                    params["shared_attn"], cfg, q_pos)
+    else:
+        raise ValueError(fam)
     return _logits(params, x, cfg), aux_total
+
+
+def _encdec_train(params, batch, cfg: ModelConfig, remat: bool):
+    """The encdec family's training forward (JAX's ``_encdec_train``): the
+    frontend projection, every encoder layer bidirectional, then the
+    decoder from position 0 with cross-attention on the encoder's output.
+    ``remat`` checkpoints each layer plainly, as ``jax.checkpoint(ebody)``
+    does, whatever the policy."""
+    dtype = params["final_norm"].dtype
+    enc = torch.einsum("btf,fd->btd", batch["frontend"].to(dtype),
+                       params["frontend_proj"].to(dtype))
+    run = functools.partial(_run_layer, remat, ckpt.noop_context_fn)
+    enc_pos = _positions(enc)
+    for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        enc = run(_train_encoder, enc, lp, cfg, enc_pos)
+    dec = _embed_tokens(params, batch["tokens"], cfg, dtype)
+    q_pos = _positions(dec)
+    for lp in _unstack(params["dec_layers"], cfg.n_dec_layers):
+        dec = run(_train_decoder, dec, lp, cfg, q_pos, enc)
+    return (_logits(params, dec, cfg),
+            torch.zeros((), dtype=torch.float32, device=dec.device))
 
 
 # ---------------------------------------------------------------------------

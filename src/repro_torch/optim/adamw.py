@@ -19,6 +19,14 @@ import torch
 from repro_torch import pytree
 
 
+# A donated leaf is updated in pieces of at most this many elements, so the
+# update's float32 temporaries (the clipped gradient, the new moments, the
+# step; ~8 of them) stay near 2 GB whatever the leaf (a stacked expert
+# weight of phi3.5-moe is 3.4 GB in float32); elementwise, so the values
+# are the same.
+UPDATE_CHUNK = 1 << 26
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor    # int32, 0-dim
     m: Any                # tree like params (float32)
@@ -82,6 +90,25 @@ def clip_by_global_norm(grads, max_norm: float):
     return pytree.tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
 
 
+def _pieces(limit: int, *ts):
+    """Views of the same-shaped tensors ``ts`` that cover them, each at
+    most ``limit`` elements where a piece can be that small: runs of
+    leading-dimension rows, or each row's own pieces when one row is
+    larger.  Views of any layout (no copy)."""
+    t0 = ts[0]
+    if t0.dim() == 0 or t0.numel() <= limit:
+        yield ts
+        return
+    per = t0.numel() // t0.shape[0]
+    if per > limit and t0.dim() > 1:
+        for i in range(t0.shape[0]):
+            yield from _pieces(limit, *(t[i] for t in ts))
+        return
+    r = max(1, limit // per)
+    for i in range(0, t0.shape[0], r):
+        yield tuple(t[i:i + r] for t in ts)
+
+
 def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
            donate: bool = False):
     """Returns (new_params, new_state, metrics).
@@ -92,7 +119,9 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
     moments is ever held (the counterpart of the JAX driver's
     ``donate_argnums``); the values are the same either way.  Each
     gradient is clipped as its leaf is updated (``clip_by_global_norm``'s
-    product), so no clipped copy of the whole tree is held either.
+    product), so no clipped copy of the whole tree is held either, and a
+    donated leaf is updated in pieces of at most ``UPDATE_CHUNK``
+    elements (:func:`_pieces`).
     """
     gnorm = global_norm(grads)
     clip = _clip_scale(gnorm, cfg.clip_norm)
@@ -112,15 +141,19 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
         pf = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
         p_new = (pf - lr * delta).to(p.dtype)
-        if donate:
-            p.copy_(p_new)
-            m.copy_(m_new)
-            v.copy_(v_new)
-            return p, m, v
         return p_new, m_new, v_new
 
+    def upd_in_place(p, g, m, v):
+        for sp, sg, sm, sv in _pieces(UPDATE_CHUNK, p, g, m, v):
+            p_new, m_new, v_new = upd(sp, sg, sm, sv)
+            sp.copy_(p_new)
+            sm.copy_(m_new)
+            sv.copy_(v_new)
+        return p, m, v
+
     with torch.no_grad():
-        out = [upd(p, g, m, v) for p, g, m, v in zip(
+        out = [(upd_in_place if donate else upd)(p, g, m, v)
+               for p, g, m, v in zip(
             pytree.leaves(params), pytree.leaves(grads),
             pytree.leaves(state.m), pytree.leaves(state.v))]
     new_p = pytree.unflatten_like(params, [o[0] for o in out])

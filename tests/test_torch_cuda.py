@@ -1621,6 +1621,83 @@ def test_cuda_train_step_matches_cpu(cuda_device, policy):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [False, True])
+def test_cuda_scan_gradients_match_cpu_float64(cuda_device, heads):
+    """The SSM scan's forward and reverse-scan backward (``SSMScan``) on
+    the card in float32 against float64 on the CPU at S 2048 (11 passes
+    each way), the decay full (Mamba-1) and broadcast (Mamba-2): rtol
+    1e-4, atol 1e-5 of the largest value (float32 rounding over 11
+    passes)."""
+    from repro_torch.models import ssm as tssm
+    rng = np.random.default_rng(3 + heads)
+    shape_b = (2, 2048, 4, 8, 16) if heads else (2, 2048, 64, 16)
+    shape_a = (2, 2048, 4, 1, 1) if heads else shape_b
+    a = rng.uniform(0.5, 1.0, size=shape_a)
+    b = rng.normal(size=shape_b)
+    w = rng.normal(size=shape_b)
+
+    def run(dtype, device):
+        ta = torch.tensor(a, dtype=dtype, device=device, requires_grad=True)
+        tb = torch.tensor(b, dtype=dtype, device=device, requires_grad=True)
+        h = tssm._ssm_scan(ta, tb)
+        assert h.grad_fn.name() == "SSMScanBackward"
+        (h * torch.tensor(w, dtype=dtype, device=device)).sum().backward()
+        return [t.detach().cpu().double() for t in (h, ta.grad, tb.grad)]
+
+    for got, want in zip(run(torch.float32, cuda_device),
+                         run(torch.float64, "cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
+                                  "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
+def test_cuda_family_train_step_matches_cpu(cuda_device, arch):
+    """A smoke-width loss and gradient of each family (its published head
+    width, 2 x 32 tokens, encdec's encoder fed 32 frames) on the card
+    against the CPU's plain path, float32: no ``flash_attention`` launch
+    (the encoder attends through ``_sdpa`` in training), every gradient
+    leaf non-zero, the loss rtol 1e-5 and each leaf within 2e-3 of its
+    largest entry.  The GQA attention's ``wq`` / ``wk`` are scaled from
+    the init's 1/sqrt(heads) to 1/sqrt(d_model) first, as
+    ``chip_smoke.py``'s ``_condition_attention`` does: at the init's
+    scale seamless' scores are near one-hot and its gradients differ by
+    1.5 % of a leaf's largest between the card and the CPU even in
+    float64 (whose norms and softmaxes round to float32)."""
+    from repro_torch import pytree
+    from repro_torch.launch import steps as step_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              d_head=get_config(arch).head_dim)
+    params = T.init_params(0, cfg, torch.float32, "cpu")
+    for path, leaf in pytree.leaves_with_paths(params):
+        if path[-2:-1] in (("attn",), ("xattn",)) and path[-1] in ("wq", "wk"):
+            leaf.mul_(float(np.sqrt(leaf.shape[-2] / leaf.shape[-3])))
+    rng = np.random.default_rng(2)
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.from_numpy(rng.normal(
+            size=(2, 32, cfg.frontend_dim)).astype(np.float32))
+    for k in ("tokens", "labels"):
+        batch[k] = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 32),
+                                                 dtype=np.int32))
+    grad_fn = step_lib.value_and_grad(step_lib.make_loss_fn(cfg))
+    ops.reset_launch_counts()
+    g_loss, g_grads = grad_fn(_to(params, cuda_device), _to(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    c_loss, c_grads = grad_fn(params, batch)
+    torch.testing.assert_close(g_loss.cpu(), c_loss, rtol=1e-5, atol=0)
+    for (path, got), want in zip(pytree.leaves_with_paths(g_grads),
+                                 pytree.leaves(c_grads)):
+        assert float(got.abs().max()) > 0, path
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
 def test_cuda_dedup_mask_matches_cpu(cuda_device):
     """``dedup_mask`` on the card (the ERA build through the gather
     kernels) equals the CPU's on ``examples/corpus_index.py``'s batch."""

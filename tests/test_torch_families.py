@@ -3,8 +3,8 @@ ssm, hybrid and encdec families.
 
 The same parameters (the JAX package's ``init_params``, carried across by
 ``transformer.params_from_numpy``) and the same inputs (numpy seeds) go
-through ``forward_prefill`` / ``forward_decode`` / ``serve`` of both
-packages on the CPU, in float32, at the smoke widths of
+through ``forward_prefill`` / ``forward_decode`` / ``serve`` (and
+``forward_train``) of both packages on the CPU, in float32, at the smoke widths of
 ``falcon-mamba-7b`` (Mamba-1), ``zamba2-2.7b`` (Mamba-2 chunks with one
 shared attention block), ``seamless-m4t-medium`` (encoder-decoder),
 ``phi3.5-moe-42b-a6.6b`` (MoE, GQA) and ``deepseek-v2-236b`` (MoE with
@@ -212,8 +212,22 @@ def test_flash_branch(monkeypatch, arch, calls):
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
-def test_forward_train_raises_a15c2(arch):
-    """Training of these families is ROADMAP A15c2: ``forward_train``
-    refuses before it reads its arguments."""
-    with pytest.raises(NotImplementedError, match="A15c2"):
-        T.forward_train(None, None, smoke_config(get_config(arch)))
+def test_forward_train_matches_jax(arch):
+    """``forward_train`` of each family (remat on, the default) on a
+    serving batch, the encoder fed the frontend's frames: logits and the
+    aux loss against JAX's, never reaching ``flash_attention``.  Its
+    gradients and train steps: ``tests/test_torch_family_train.py``."""
+    p = Pair(arch)
+    batch = p.batch(np.random.default_rng(7))
+    want, jaux = jax.jit(lambda prm, b: JT.forward_train(prm, b, p.jcfg))(
+        p.jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    real = tnn.ops.flash_attention
+    tnn.ops.flash_attention = None  # a call would raise
+    try:
+        got, aux = T.forward_train(
+            p.tp, {k: torch.from_numpy(v) for k, v in batch.items()}, p.cfg)
+    finally:
+        tnn.ops.flash_attention = real
+    assert got.shape == (B, S, p.cfg.vocab)
+    assert_close(got, want)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)

@@ -9,7 +9,7 @@ exactly, and every timing field is rounded to the places JAX rounds it
 to.  The port's extra keys (``device``, ``n_iter``) are its only others.
 
 The training driver's ``main`` prints the JAX driver's lines from the
-same parameters: the step exactly, the loss and the gradient norm within
+same parameters (for qwen3-1.7b and a moe, an ssm and a hybrid arch): the step exactly, the loss and the gradient norm within
 one unit of their last printed place (float32 sums in another order), and
 ``tok/s`` in JAX's format; its parser takes JAX's command lines to the
 same ``train`` arguments, and ``--mesh prod`` / ``multipod`` raise,
@@ -97,12 +97,28 @@ def _step_lines(out: str) -> list[tuple]:
 
 
 def test_train_main_lines_equal_jax(monkeypatch, capsys):
+    _assert_main_lines(monkeypatch, capsys, [], rtol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
+                                  "zamba2-2.7b"])
+def test_train_main_lines_equal_jax_families(arch, monkeypatch, capsys):
+    """The driver's lines for an arch of each family it trains beside the
+    dense one (moe, ssm, hybrid; MLA's losses are held in
+    ``tests/test_torch_train.py``), as for qwen3-1.7b, each figure also
+    allowed the later steps' rtol of ``tests/test_torch_train.py``
+    (5e-4): phi3.5-moe's gradient norm reaches ~111 by step 10, where its
+    last printed place is 1e-5 of it (measured 1.8e-5 apart)."""
+    _assert_main_lines(monkeypatch, capsys, ["--arch", arch], rtol=5e-4)
+
+
+def _assert_main_lines(monkeypatch, capsys, extra: list, rtol: float) -> None:
     def init(seed, cfg, dtype, device):  # the JAX driver's parameters
         jp = JT.init_params(jax.random.PRNGKey(0), j_smoke(j_get(cfg.name)),
                             jnp.float32)
         return T.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device)
     monkeypatch.setattr(t_train.T, "init_params", init)
-    argv = ["--steps", "11", "--batch", "2", "--seq", "16"]
+    argv = extra + ["--steps", "11", "--batch", "2", "--seq", "16"]
     monkeypatch.setattr(sys, "argv", ["train"] + argv)
     j_train.main()
     want = _step_lines(capsys.readouterr().out)
@@ -110,8 +126,8 @@ def test_train_main_lines_equal_jax(monkeypatch, capsys):
     got = _step_lines(capsys.readouterr().out)
     assert [r[0] for r in got] == [r[0] for r in want] == [1, 10]
     for (_, loss, gnorm), (_, jloss, jgnorm) in zip(got, want):
-        assert abs(loss - jloss) <= 1e-4 + 1e-9
-        assert abs(gnorm - jgnorm) <= 1e-3 + 1e-9
+        assert abs(loss - jloss) <= max(1e-4, rtol * abs(jloss)) + 1e-9
+        assert abs(gnorm - jgnorm) <= max(1e-3, rtol * abs(jgnorm)) + 1e-9
 
 
 JAX_COMMAND_LINES = [
@@ -121,6 +137,9 @@ JAX_COMMAND_LINES = [
      "--seq", "64", "--lr", "1e-3", "--ckpt-dir", "ck", "--mesh", "host"],
     ["--mesh", "prod"],
     ["--mesh", "multipod", "--full", "--steps", "7"],
+    ["--arch", "falcon-mamba-7b", "--steps", "3", "--seq", "32"],
+    ["--arch", "deepseek-v2-236b", "--full", "--batch", "1"],
+    ["--arch", "zamba2-2.7b", "--mesh", "prod"],
 ]
 
 

@@ -1,4 +1,5 @@
-"""PyTorch port vs the JAX package: LM training (dense and vlm families).
+"""PyTorch port vs the JAX package: LM training (dense and vlm families;
+the driver on every family).
 
 The same parameters (the JAX package's ``init_params``, carried across by
 ``transformer.params_from_numpy``) and the same inputs (numpy seeds) go
@@ -8,7 +9,9 @@ with global layers), ``qwen1.5-32b`` (qkv_bias, MHA) and ``internvl2-2b``
 (the vlm frontend): ``forward_train`` under each remat setting, the loss
 and every gradient leaf, ``adamw``, three train steps, ``compress``,
 checkpoints written by either package and restored by the other, the
-token pipeline, the ERA dedup filter and the ``train`` driver.
+token pipeline, the ERA dedup filter and the ``train`` driver (also on
+the other families' archs: their training itself is held in
+``tests/test_torch_family_train.py``).
 
 Tolerances (float32 sums taken in another order through 2–3 layers):
 
@@ -222,6 +225,29 @@ def test_adamw_update_matches_jax(schedule, clip, dtype):
             lambda a: np.asarray(a.astype(jnp.float32)), jp), **tol)
         assert_tree_close(ts.m, js.m, rtol=1e-6, atol=1e-9)
         assert_tree_close(ts.v, js.v, rtol=1e-6, atol=1e-12)
+
+
+def test_adamw_donated_chunks_equal(monkeypatch):
+    """A donated leaf is updated in pieces of at most ``UPDATE_CHUNK``
+    elements (here 7: runs of rows, a row split in pieces, a 1-D leaf in
+    slices), also on a transposed (non-contiguous) gradient: the same
+    parameters and moments, bit for bit, as the whole-leaf update."""
+    rng = np.random.default_rng(13)
+    params = _numpy_tree(rng, 1.0)
+    grads = _numpy_tree(rng, 3.0)
+    cfg = t_adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+    tg = pytree.tree_map(torch.from_numpy, grads)
+    tg["a"] = torch.from_numpy(np.ascontiguousarray(grads["a"].T)).t()
+    assert not tg["a"].is_contiguous()
+    want = t_adamw.update(cfg, tg, t_adamw.init(pytree.tree_map(
+        torch.from_numpy, params)), pytree.tree_map(torch.from_numpy, params))
+    monkeypatch.setattr(t_adamw, "UPDATE_CHUNK", 7)
+    tp = pytree.tree_map(lambda a: torch.from_numpy(a.copy()), params)
+    ts = t_adamw.init(tp)
+    got = t_adamw.update(cfg, tg, ts, tp, donate=True)
+    assert all(a is b for a, b in zip(pytree.leaves(got[0]), pytree.leaves(tp)))
+    for g, w in zip(pytree.leaves(got[:2]), pytree.leaves(want[:2])):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("schedule", ["cosine", "constant"])
@@ -499,17 +525,24 @@ def test_train_resume_equals_jax(jax_runs, jax_init, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", UNPORTED + ["internvl2-2b"])
-def test_unported_families_raise(arch):
+def test_unported_families_raise(arch, jax_init, no_flash):
+    """The families ported after this module's: the driver trains the moe
+    (GQA, MLA), ssm and hybrid archs with the JAX driver's losses from
+    its parameters, and refuses the encdec and frontend archs with the
+    JAX driver's ``SystemExit``."""
     cfg = smoke_config(get_config(arch))
     if cfg.family == "encdec" or cfg.frontend:
-        with pytest.raises(SystemExit, match="decoder-only"):  # as JAX's
+        with pytest.raises(SystemExit, match="decoder-only") as got:
             t_train.train(arch, steps=1, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="A15c"):
-            t_train.train(arch, steps=1, device="cpu")
-    if cfg.family not in ("dense", "vlm"):
-        with pytest.raises(NotImplementedError, match="A15c"):
-            T.forward_train({}, {}, cfg)
+        with pytest.raises(SystemExit) as want:
+            j_train.train(arch, steps=1)
+        assert str(got.value) == str(want.value)
+        return
+    _, want = j_train.train(arch, **TRAIN_KW)
+    params, got = t_train.train(arch, **TRAIN_KW, device="cpu")
+    assert all(np.isfinite(got))
+    assert_losses(got, want)
+    assert all(p.device.type == "cpu" for p in pytree.leaves(params))
 
 
 def test_train_mesh_and_device():
