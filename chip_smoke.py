@@ -285,6 +285,18 @@ Phases, each printing one JSON line:
               4) the loss and every gradient leaf card against CPU (MoE
               expert ids equal, ``FAMILY_TRAIN_*`` tolerances; seamless
               in float64 on both sides);
+   dryrun   — the dry run (``repro_torch.launch.dryrun``): in a
+              subprocess, the ERA cells on both production meshes and
+              qwen3-1.7b's four shapes on 16x16 (every cell ``ok`` but
+              JAX's skip, no collective in an ERA cell), started after
+              the host cost of a call through each of the five custom ops
+              (``custom_op_overhead``); on the card meanwhile each ERA
+              cell's per-device program at its size (2.1 G symbols, F = 2^20;
+              event ms beside the cell's roofline step time, the card's
+              peak beside the estimate) and qwen3-1.7b prefill at
+              4 x 2048 in bf16, whose ``FlopCounterMode`` count must equal
+              the (1, 1) dry run's and whose peak must lie within 0.5–2x
+              of its estimate;
 9. kernels  — each kernel at the main path's shapes: time, plain-version
               time, bound, and its launches on the paths above
               (``flash_attention``: the warm ``lm_serving`` and
@@ -329,8 +341,9 @@ each serial build, the serial node builds, ``build_distributed``,
 the trace phase's recorded window, each tree path
 from build to the end of its serving loop, each leg
 of the byte-leg phase, each LM serving run, the LM check, each training
-run, each dedup call, each lm_families serving run and each
-lm_families_train run) and read
+run, each dedup call, each lm_families serving run, each
+lm_families_train run, each dry-run ERA step and the dry run's prefill)
+and read
 just after; the phase lines carry the counts so far.  Every kernel of a
 path must have launched in it.  Any failure raises and exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -2393,6 +2406,315 @@ def _to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return {k: _to_device(v, device) for k, v in tree.items()}
+
+
+# ---- the dry run ------------------------------------------------------------
+
+# (a) the dry run's cells, traced in a process of their own (its fake
+# process group stays out of this one), then (c)'s (1, 1) count
+DRYRUN_OUT = ROOT / "build" / "dryrun" / "smoke.json"
+DRYRUN_PREFILL = (4, 2048)  # (c): qwen3-1.7b prefill rows x tokens, bf16
+DRYRUN_SCRIPT = r"""
+import json, sys, time
+sys.path[:0] = [{src!r}]
+from repro_torch.launch import dryrun as D, mesh as M
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.registry import get_config
+out = {out!r}
+t0 = time.perf_counter()
+D.main(["--arch", "era", "--multi-pod", "both", "--out", out])
+D.main(["--arch", "era-packed", "--multi-pod", "both", "--out", out])
+D.main(["--arch", "qwen3-1.7b", "--multi-pod", "off", "--out", out])
+b, s = {prefill!r}
+dev = D.fake_device("cuda")
+with M.fake_world(1):
+    mesh = M.make_host_mesh(device=dev)
+    fn, args, in_sh, _, _ = D.build_cell(
+        get_config("qwen3-1.7b"), ShapeConfig("prefill_4x2048", "prefill", s, b),
+        mesh)
+    counts, mem, t = D.trace_cell(fn, args, in_sh, mesh, dev)
+print(json.dumps({{"flops": counts.flops, "memory": mem, "device": dev.type,
+                  "collectives": len(counts.collectives),
+                  "kernels": D._kernel_ops(counts),
+                  "seconds": time.perf_counter() - t0}}))
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Start (a) and (c)'s trace in a subprocess (it traces fake tensors
+    on the host, about a minute) that runs beside (b) and (c)'s card runs,
+    whose figures are device event times, FLOP counts and peaks, no host
+    time; its output goes to files beside ``DRYRUN_OUT``, and it is killed
+    at exit if it is still running."""
+    import atexit
+
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    code = DRYRUN_SCRIPT.format(src=str(ROOT / "src"), out=str(DRYRUN_OUT),
+                                prefill=DRYRUN_PREFILL)
+    with open(DRYRUN_OUT.with_suffix(".out"), "w") as out, \
+            open(DRYRUN_OUT.with_suffix(".err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                stdout=out, stderr=err)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def _era_card_run(cuda, packed: bool) -> tuple[dict, dict]:
+    """(b): one ``era_prepare_batch`` step of the ERA dry-run cell's
+    per-device program on the card, at the cell's size: a 2.1 G-symbol
+    random DNA text (the 2-bit words, or the byte string) and one virtual
+    tree of F = 2^20 leaves, all of them in one active area."""
+    from repro_torch.core.packing import PackedText
+    from repro_torch.core.prepare import PrepareState
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.era_run import era_prepare_batch
+
+    n, f, w = D.ERA_GENOME_N, D.ERA_F_M, D.ERA_RANGE_W
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if packed:  # 16 random 2-bit symbols a word: uniform random words
+        n_words = n // 16
+        text = PackedText(torch.randint(-2**31, 2**31, (n_words,),
+                                        dtype=torch.int32, device=cuda,
+                                        generator=gen),
+                          16 * (n_words - 1) - w, 2, 4)
+        n_real = text.n_real
+    else:
+        text = torch.randint(0, 4, (n,), dtype=torch.uint8, device=cuda,
+                             generator=gen)
+        n_real = n - w
+    L = torch.randint(0, n_real, (1, f), dtype=torch.int32, device=cuda,
+                      generator=gen)
+    zeros = torch.zeros((1, f), dtype=torch.int32, device=cuda)
+    state = PrepareState(L=L, start=zeros, area=zeros.clone(),
+                         b_off=torch.full_like(zeros, -1), b_c1=zeros.clone(),
+                         b_c2=zeros.clone())
+    step = lambda: era_prepare_batch(text, state, w=w)
+    step()  # warm
+    torch.cuda.synchronize(cuda)
+    held = torch.cuda.memory_allocated(cuda)  # with earlier phases' memory
+    args = ((text.words if packed else text).nbytes
+            + sum(t.nbytes for t in state))  # the cell's argument bytes
+    torch.cuda.reset_peak_memory_stats(cuda)
+    ops.reset_launch_counts()
+    step()
+    torch.cuda.synchronize(cuda)
+    counts = counts_now()
+    peak_above = torch.cuda.max_memory_allocated(cuda) - held
+    name = "range_gather_words" if packed else "range_gather_pack"
+    kernels = (name,) if packed else (name, "lcp_pairs")
+    arch = "era-genome" + ("-packed" if packed else "")
+    require_launches(counts, kernels, f"the ERA dry-run cell ({arch})")
+    row = {"arch": arch, "ms": cuda_ms(step, reps=5),
+           "argument_bytes": args, "peak_above_resident": peak_above,
+           "card_peak_bytes": args + peak_above,
+           "launches": {k: counts[k] for k in kernels}}
+    del text, state, L, zeros
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+def custom_op_overhead(cuda, calls: int = 2000) -> dict:
+    """Host microseconds a call of each custom op on the dry run's path
+    (``torch.ops.repro_torch.*``) adds to its plain launch function (the
+    op's CUDA implementation, called directly): one-row (one-token)
+    inputs, ``calls`` calls each, in turns (op, launch, launch, op), the
+    card synchronised after each run of calls."""
+    from repro_torch.core.packing import PackedText
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lcp, packed_gather as pg, range_gather
+
+    words = torch.zeros(64, dtype=torch.int32, device=cuda)
+    text = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    rows = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16, device=cuda)
+    pt = PackedText(words, 100, 2, 4)
+    ops_ = torch.ops.repro_torch
+    cases = {
+        "range_gather_words": (ops_.range_gather_words,
+                               pg._range_gather_words_impl,
+                               (words, offs, 16, 2, pt.n_real, 4, None)),
+        "range_gather_packed": (ops_.range_gather_packed,
+                                pg._range_gather_packed_impl,
+                                (words, offs, 4, 2, pt.n_real, 4, None)),
+        "range_gather_pack": (ops_.range_gather_pack,
+                              range_gather._range_gather_pack_impl,
+                              (text, offs, 4, None)),
+        "lcp_pairs": (ops_.lcp_pairs, lcp._lcp_pairs_impl, (rows, rows, 16)),
+        "flash_attention": (ops_.flash_attention, fa._flash_attention_impl,
+                            (q, q, q, True)),
+    }
+
+    def run(fn, args) -> float:
+        torch.cuda.synchronize(cuda)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize(cuda)
+        return (time.perf_counter() - t) / calls * 1e6
+
+    out = {}
+    for name, (op, launch, args) in cases.items():
+        run(op, args), run(launch, args)  # warm
+        t_op = [run(op, args)]
+        t_launch = [run(launch, args), run(launch, args)]
+        t_op.append(run(op, args))
+        out[name] = {"op_us": float(np.mean(t_op)),
+                     "launch_us": float(np.mean(t_launch)),
+                     "overhead_us": float(np.mean(t_op) - np.mean(t_launch))}
+    emit({"phase": "custom_op_overhead", "calls": calls, "ops": out})
+    return out
+
+
+def dryrun_phase(cuda) -> list[dict]:
+    """The dry run (``repro_torch.launch.dryrun``):
+
+    (a) records traced in a subprocess — the two ERA cells on both
+        production meshes, qwen3-1.7b at the four shapes on 16x16:
+        status, peak per device, the three roofline terms, bottleneck
+        and collectives; any status but ``ok`` fails (``skipped`` only
+        where JAX's ``cell_is_runnable`` skips), and so does a collective
+        in an ERA cell;
+    (b) each ERA cell's per-device program on the card at the cell's
+        size, its event ms beside the cell's roofline step time and its
+        peak beside the dry run's estimate, the gathers' launches
+        required;
+    (c) qwen3-1.7b prefill at 4 x 2048 in bf16: the (1, 1) dry run's
+        FLOPs equal ``FlopCounterMode``'s count of the real run on the
+        card, and its peak estimate is within 0.5-2x of the card's peak.
+    The subprocess of :func:`start_dryrun` starts after the custom ops'
+    host timing and the LM phases.  Returns the launch counts of (b)'s
+    and (c)'s counted runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+
+    t0 = time.perf_counter()
+    custom_op_overhead(cuda)
+    proc = start_dryrun()
+    paths, era_runs = [], []
+    for packed in (True, False):
+        run, counts = _era_card_run(cuda, packed)
+        era_runs.append(run)
+        paths.append(counts)
+
+    # (c) the real prefill on the card, counted
+    cfg = get_config("qwen3-1.7b")
+    b, s = DRYRUN_PREFILL
+    params = T.init_params(0, cfg, torch.bfloat16, cuda)
+    cache = T.init_cache(cfg, b, s, torch.bfloat16, cuda)
+    tokens = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32,
+                           device=cuda, generator=torch.Generator(
+                               device=cuda).manual_seed(3))
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    resident = sum(t.nbytes for t in (*[v for v in cache.values()
+                                        if isinstance(v, torch.Tensor)],
+                                      tokens, *_leaves(params)))
+    torch.cuda.reset_peak_memory_stats(cuda)
+    ops.reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        logits, cache = step_lib.make_prefill_step(cfg)(
+            params, {"tokens": tokens}, cache)
+    torch.cuda.synchronize(cuda)
+    counts = counts_now()
+    paths.append(counts)
+    require_launches(counts, ("flash_attention",), "the (1, 1) prefill")
+    card_peak = resident + torch.cuda.max_memory_allocated(cuda) - base
+    card_flops = fc.get_total_flops()
+    finite = bool(torch.isfinite(logits.float()).all())
+    del params, cache, tokens, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the subprocess's records
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError("the dry run failed: " + DRYRUN_OUT.with_suffix(
+            ".err").read_text()[-3000:])
+    traced = json.loads(DRYRUN_OUT.with_suffix(".out").read_text()
+                        .strip().splitlines()[-1])
+    recs = json.loads(DRYRUN_OUT.read_text())
+    cells = []
+    for r in recs:
+        line = {k: r.get(k) for k in ("arch", "shape", "mesh", "status",
+                                      "reason", "error", "t_trace_s",
+                                      "kernels")}
+        if r["status"] == "ok":
+            t = r["roofline"]
+            line.update(
+                peak_per_device_bytes=r["memory"]["peak_estimate_bytes"],
+                t_compute_s=t["t_compute_s"], t_memory_s=t["t_memory_s"],
+                t_collective_s=t["t_collective_s"],
+                bottleneck=t["bottleneck"],
+                collectives=r["collectives"]["counts"])
+        cells.append(line)
+    emit({"phase": "dryrun", "cells": cells, "device": traced["device"],
+          "subprocess_s": traced["seconds"],
+          "waited_s": time.perf_counter() - t_wait})
+    for r in recs:
+        if r["status"] == "skipped" and r["arch"] == "qwen3-1.7b" \
+                and r["shape"] == "long_500k":
+            continue  # JAX's cell_is_runnable: a full-attention arch
+        if r["status"] != "ok":
+            raise AssertionError(f"dry-run cell {r['arch']} x {r['shape']} "
+                                 f"x {r['mesh']}: {r['status']} "
+                                 f"{r.get('error', r.get('reason'))}")
+        if r["arch"].startswith("era") and r["collectives"]["counts"]:
+            raise AssertionError(f"{r['arch']} x {r['mesh']}: collectives "
+                                 f"{r['collectives']['counts']}")
+    if len(recs) != 8:
+        raise AssertionError(f"the dry run wrote {len(recs)} records, not 8")
+
+    # (b) beside the cells' estimates
+    by_key = {(r["arch"], r["mesh"]): r for r in recs}
+    for run in era_runs:
+        cell = by_key[(run["arch"], "16x16")]
+        r = cell["roofline"]
+        run.update(
+            roofline_step_ms=1e3 * max(r["t_compute_s"], r["t_memory_s"],
+                                       r["t_collective_s"]),
+            dryrun_peak_estimate_bytes=cell["memory"]["peak_estimate_bytes"],
+            dryrun_temp_bytes=cell["memory"]["temp_bytes"],
+            dryrun_kernels=cell["kernels"])
+    emit({"phase": "dryrun_era_card", "runs": era_runs})
+
+    # (c) beside the (1, 1) trace
+    est = traced["memory"]["peak_estimate_bytes"]
+    line = {"phase": "dryrun_flops_card", "rows": b, "tokens": s,
+            "dryrun_flops": traced["flops"], "card_flops": card_flops,
+            "dryrun_memory": traced["memory"], "card_resident_bytes": resident,
+            "card_peak_bytes": card_peak, "peak_ratio": est / card_peak,
+            "dryrun_kernels": traced["kernels"],
+            "dryrun_collectives": traced["collectives"],
+            "flash_launches": counts["flash_attention"],
+            "logits_finite": finite, "phase_s": time.perf_counter() - t0}
+    emit(line)
+    if line["dryrun_flops"] != line["card_flops"]:
+        raise AssertionError(f"dry-run FLOPs {line['dryrun_flops']} != "
+                             f"the card's {line['card_flops']}")
+    if not 0.5 <= line["peak_ratio"] <= 2.0 or not finite:
+        raise AssertionError(f"dry-run peak {est} against the card's "
+                             f"{card_peak}: {line['peak_ratio']:.3f}")
+    return paths
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 # ---- the flight recorder ----------------------------------------------------
@@ -5519,6 +5841,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family_train_counts = lm_families_train(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_counts = dryrun_phase(cuda)
 
     rows += fetch_rows
     rows.append(flash_row(cuda, flash_cases))  # row 13, the last ported
@@ -5530,7 +5855,7 @@ def main() -> int:
              tree["protein"]["counts"], bl["counts"], lm_main,
              *stream_counts, append_counts, *fabric_counts, *serial_counts,
              trace_counts, *dedup_counts, *family_counts,
-             *family_train_counts]
+             *family_train_counts, *dryrun_counts]
     counts = {name: sum(c[name] for c in paths) for name in ops.KERNELS}
     for row in rows:  # a gather's excess from the rows its launches read
         if row["name"] in GATHERS:

@@ -12,6 +12,18 @@ the JAX layout and flag; the Pallas kernel's ``blk_q``/``blk_k`` were TPU
 tiling, and the CUDA kernels pick their own tiles.  Launches of both
 routes are counted in ``flash_attention.launches``, and
 ``flash_attention.route`` names the design of the last launch.
+
+The launch is also the custom op ``repro_torch::flash_attention``, which
+a call takes when it gets fake tensors or DTensors or runs under a
+dispatch mode (plain calls launch directly, without the op's host
+dispatch): its CUDA tensors launch the kernel, its CPU tensors run the
+plain version, and its fake implementation (the dry run,
+:mod:`repro_torch.launch.dryrun`) gives the output's shape, dtype and
+device, reads nothing and launches nothing.
+Its FLOPs are SDPA's count for the same shapes, causal or not (the count
+``torch.utils.flop_counter`` gives ``scaled_dot_product_attention``), and
+:func:`register_sharding_rules` gives DTensor its sharding: batch- or
+head-sharded q/k/v give the same sharding out, with no collective.
 """
 
 from __future__ import annotations
@@ -20,10 +32,11 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula, sdpa_flop_count
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.packed_gather import _on_cpu, _stream
+from repro_torch.kernels.packed_gather import _direct, _on_cpu, _stream
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -57,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)} (H a multiple of KV)")
     if _on_cpu(q, k, v):
-        return _ref.flash_attention_ref(q, k, v, causal)
+        return _call(q, k, v, causal)
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"flash_attention takes head widths that are a "
                          f"multiple of 16 up to 256, got D={d}")
@@ -70,6 +83,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(b, sq, sk) < 1 or max(b, h) > 65535:
         raise ValueError(f"flash_attention needs 1 <= B, H <= 65535 and "
                          f"Sq, Sk >= 1, got {tuple(q.shape)}, {tuple(k.shape)}")
+    return _call(q, k, v, causal)
+
+
+def _call(q, k, v, causal: bool) -> torch.Tensor:
+    if _direct(q, k, v):
+        return _flash_attention_impl(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+flash_attention.launches = 0
+flash_attention.route = None
+
+
+def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool) -> torch.Tensor:
+    """The kernel launch on CUDA tensors, the plain version on CPU ones."""
+    if _on_cpu(q, k, v):
+        return _ref.flash_attention_ref(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     design, lib = ROUTES[q.dtype]
     scale = 1.0 / math.sqrt(d)
     if design == "wgmma_tma":
@@ -87,5 +120,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
-flash_attention.route = None
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    return _flash_attention_impl(q, k, v, causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    if k.shape[2] == 0 or q.shape[2] % k.shape[2]:  # a split of the heads
+        raise ValueError(f"flash_attention: {q.shape[2]} query heads over "
+                         f"{k.shape[2]} KV heads")
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                           **kwargs) -> int:
+    """SDPA's count in its (B, H, S, D) layout, the keys read once per
+    query head (GQA's KV heads broadcast); the mask does not change it."""
+    b, sq, h, d = q_shape
+    sk = k_shape[1]
+    return sdpa_flop_count((b, h, sq, d), (b, h, sk, d),
+                           (b, h, sk, v_shape[3]))
+
+
+def register_sharding_rules() -> None:
+    """DTensor's sharding of ``repro_torch::flash_attention`` on one mesh
+    dimension: replicated, or q/k/v and the output all sharded on the
+    batch (dim 0) or all on the heads (dim 2; DTensor offers it only
+    where both head counts divide, which keeps query head h reading KV
+    head ``h // (H // KV)`` on every shard)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal):
+        rep = Replicate()
+        rules = [([rep], [rep, rep, rep, None])]
+        for dim in (0, 2):
+            rules.append(([Shard(dim)], [Shard(dim), Shard(dim), Shard(dim),
+                                         None]))
+        return rules

@@ -28,6 +28,16 @@ Dispatch goes by the device of the tensors: CUDA tensors launch the kernel
 counts its launches in its ``launches`` attribute, where it launches and
 nowhere else; ``range_gather_words`` and ``range_gather_packed`` also
 tally the ``rows`` and ``words`` their launches gathered.
+
+The two gathers are also the custom ops
+``repro_torch::range_gather_words`` and ``repro_torch::range_gather_packed``
+(the text as its words and scalars), which a call takes when it gets
+fake tensors or DTensors or runs under a dispatch mode (:func:`_direct`):
+CUDA tensors launch the kernel, CPU tensors run the plain version, and
+the fake implementation gives the keys' shape, reads nothing and
+launches nothing (the dry run, :mod:`repro_torch.launch.dryrun`).  :func:`register_sharding_rules` gives
+DTensor the row sharding of these, ``range_gather_pack`` and
+``lcp_pairs``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.core.packing import PackedText, _sub_word
 from repro_torch.kernels import _build
@@ -58,6 +69,16 @@ def _on_cpu(*tensors: torch.Tensor | None) -> bool:
         return False
     raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
                      f"device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def _direct(*tensors: torch.Tensor | None) -> bool:
+    """Whether a call may run its launch function directly: plain tensors
+    and no dispatch mode active.  A fake tensor, a DTensor or a mode (the
+    dry run's counter, ``FlopCounterMode``) takes the custom op, which
+    they see; the direct call skips the op's ~20 µs of host dispatch."""
+    return (_get_current_dispatch_mode() is None
+            and all(type(t) is torch.Tensor for t in tensors
+                    if t is not None))
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -119,9 +140,21 @@ def range_gather_words(pt: PackedText, offs: torch.Tensor, w: int,
     None; a row whose mask is False is all zero words and reads no text
     (``torch.where(mask[:, None], keys, 0)``, fused).
     """
-    if _on_cpu(pt.words, offs, mask):
+    _on_cpu(pt.words, offs, mask)
+    args = (pt.words, offs, w, pt.bits, pt.n_real, pt.terminal, mask)
+    if _direct(pt.words, offs, mask):
+        return _range_gather_words_impl(*args)
+    return torch.ops.repro_torch.range_gather_words(*args)
+
+
+def _range_gather_words_impl(words: torch.Tensor, offs: torch.Tensor, w: int,
+                             bits: int, n_real: int, terminal: int,
+                             mask: torch.Tensor | None) -> torch.Tensor:
+    """The kernel launch on CUDA tensors, the plain version on CPU ones."""
+    pt = PackedText(words, n_real, bits, terminal)
+    if _on_cpu(words, offs, mask):
         return _ref.range_gather_words_ref(pt, offs, w, mask)
-    _require(pt.words, "words", torch.int32, 1)
+    _require(words, "words", torch.int32, 1)
     _require(offs, "offs", torch.int32, 1)
     _check_extra(pt, w)
     nw = -(-w // pt.syms_per_word)
@@ -133,14 +166,27 @@ def range_gather_words(pt: PackedText, offs: torch.Tensor, w: int,
     fn = _build.entry("range_gather_words",
               [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P, _P])
     with torch.cuda.device(offs.device):
-        rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
-                nw, pt.bits, pt.n_real, _sub_word(pt.bits, pt.terminal),
-                _ptr(mask), out.data_ptr(), _stream(offs.device))
+        rc = fn(words.data_ptr(), words.shape[0], offs.data_ptr(), f, nw,
+                bits, n_real, _sub_word(bits, terminal), _ptr(mask),
+                out.data_ptr(), _stream(offs.device))
     _build.check(rc, "range_gather_words")
     range_gather_words.launches += 1
     range_gather_words.rows += f
     range_gather_words.words += f * nw
     return out
+
+
+@torch.library.custom_op("repro_torch::range_gather_words", mutates_args=())
+def _range_gather_words_op(words: torch.Tensor, offs: torch.Tensor, w: int,
+                           bits: int, n_real: int, terminal: int,
+                           mask: torch.Tensor | None) -> torch.Tensor:
+    return _range_gather_words_impl(words, offs, w, bits, n_real, terminal,
+                                    mask)
+
+
+@_range_gather_words_op.register_fake
+def _(words, offs, w, bits, n_real, terminal, mask):
+    return offs.new_empty((offs.shape[0], -(-w * bits // 32)))
 
 
 range_gather_words.launches = 0
@@ -245,12 +291,23 @@ def range_gather_packed(pt: PackedText, offs: torch.Tensor, w: int,
     """
     if w % 4:
         raise ValueError(f"pack width must be a multiple of 4, got {w}")
-    if _on_cpu(pt.words, offs, mask):
-        return _ref.range_gather_packed_ref(pt, offs, w, mask)
-    _require(pt.words, "words", torch.int32, 1)
+    _on_cpu(pt.words, offs, mask)
+    args = (pt.words, offs, w // 4, pt.bits, pt.n_real, pt.terminal, mask)
+    if _direct(pt.words, offs, mask):
+        return _range_gather_packed_impl(*args)
+    return torch.ops.repro_torch.range_gather_packed(*args)
+
+
+def _range_gather_packed_impl(words: torch.Tensor, offs: torch.Tensor, nw: int,
+                              bits: int, n_real: int, terminal: int,
+                              mask: torch.Tensor | None) -> torch.Tensor:
+    """The kernel launch on CUDA tensors, the plain version on CPU ones."""
+    pt = PackedText(words, n_real, bits, terminal)
+    if _on_cpu(words, offs, mask):
+        return _ref.range_gather_packed_ref(pt, offs, 4 * nw, mask)
+    _require(words, "words", torch.int32, 1)
     _require(offs, "offs", torch.int32, 1)
-    _check_extra(pt, w)
-    nw = w // 4
+    _check_extra(pt, 4 * nw)
     f = offs.shape[0]
     _check_mask(mask, f)
     out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
@@ -260,14 +317,27 @@ def range_gather_packed(pt: PackedText, offs: torch.Tensor, w: int,
                       [_P, _I64, _P, _I64, _I32, _I32, _I64, _U32, _P, _P,
                        _P])
     with torch.cuda.device(offs.device):
-        rc = fn(pt.words.data_ptr(), pt.words.shape[0], offs.data_ptr(), f,
-                nw, pt.bits, pt.n_real, _t_word(pt), _ptr(mask),
-                out.data_ptr(), _stream(offs.device))
+        rc = fn(words.data_ptr(), words.shape[0], offs.data_ptr(), f, nw,
+                bits, n_real, _t_word(pt), _ptr(mask), out.data_ptr(),
+                _stream(offs.device))
     _build.check(rc, "range_gather_packed")
     range_gather_packed.launches += 1
     range_gather_packed.rows += f
     range_gather_packed.words += f * nw
     return out
+
+
+@torch.library.custom_op("repro_torch::range_gather_packed", mutates_args=())
+def _range_gather_packed_op(words: torch.Tensor, offs: torch.Tensor, nw: int,
+                            bits: int, n_real: int, terminal: int,
+                            mask: torch.Tensor | None) -> torch.Tensor:
+    return _range_gather_packed_impl(words, offs, nw, bits, n_real,
+                                     terminal, mask)
+
+
+@_range_gather_packed_op.register_fake
+def _(words, offs, nw, bits, n_real, terminal, mask):
+    return offs.new_empty((offs.shape[0], nw))
 
 
 range_gather_packed.launches = 0
@@ -320,3 +390,30 @@ def lcp_words_loaded(nw: int) -> int:
 suffix_lcp_words.launches = 0
 suffix_lcp_words.rows = 0
 suffix_lcp_words.words_read = 0
+
+
+def register_sharding_rules() -> None:
+    """DTensor's sharding of the elastic step's row ops on one mesh
+    dimension: replicated, or the rows sharded (offsets, mask and keys on
+    dim 0, the (3, F) LCP rows on dim 1) over a replicated text; every row
+    reads only its own offset, so neither needs a collective."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    ops = torch.ops.repro_torch
+    rep, row = Replicate(), Shard(0)
+
+    def gather_rule(text, offs, *scalars_and_mask):
+        mask = scalars_and_mask[-1]
+        m_rep, m_row = (None, None) if mask is None else (rep, row)
+        scalars = [None] * (len(scalars_and_mask) - 1)
+        return [([rep], [rep, rep, *scalars, m_rep]),
+                ([row], [rep, row, *scalars, m_row])]
+
+    for op in (ops.range_gather_words, ops.range_gather_packed,
+               ops.range_gather_pack):
+        register_sharding(op.default)(gather_rule)
+
+    @register_sharding(ops.lcp_pairs.default)
+    def _lcp_rule(a, b, w):
+        return [([rep], [rep, rep, None]), ([Shard(1)], [row, row, None])]

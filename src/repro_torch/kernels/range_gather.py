@@ -8,6 +8,12 @@ Launches are counted in ``range_gather_pack.launches``,
 and the rows and key words they gathered in ``range_gather_pack.rows``
 and ``range_gather_pack.words`` (the kernel's time scales with them, so a
 launch count alone does not say what the launches cost).
+
+Fake tensors, DTensors and dispatch modes reach the launch through the
+custom op ``repro_torch::range_gather_pack``, whose fake implementation
+gives the keys' shape and launches nothing (the dry run);
+:func:`repro_torch.kernels.packed_gather.register_sharding_rules` gives
+DTensor its row sharding.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.packed_gather import (
     _check_mask,
+    _direct,
     _on_cpu,
     _ptr,
     _require,
@@ -52,11 +59,26 @@ def range_gather_pack(s_padded: torch.Tensor, offs: torch.Tensor, w: int,
     """
     if w % 4:
         raise ValueError(f"pack width must be a multiple of 4, got {w}")
+    _on_cpu(s_padded, offs, mask)
+    if _direct(s_padded, offs, mask):
+        return _range_gather_pack_impl(s_padded, offs, w // 4, mask)
+    return torch.ops.repro_torch.range_gather_pack(s_padded, offs, w // 4,
+                                                   mask)
+
+
+range_gather_pack.launches = 0
+range_gather_pack.rows = 0
+range_gather_pack.words = 0
+
+
+def _range_gather_pack_impl(s_padded: torch.Tensor, offs: torch.Tensor,
+                            nw: int,
+                            mask: torch.Tensor | None) -> torch.Tensor:
+    """The kernel launch on CUDA tensors, the plain version on CPU ones."""
     if _on_cpu(s_padded, offs, mask):
-        return _ref.range_gather_pack_ref(s_padded, offs, w, mask)
+        return _ref.range_gather_pack_ref(s_padded, offs, 4 * nw, mask)
     require_byte_text(s_padded)
     _require(offs, "offs", torch.int32, 1)
-    nw = w // 4
     f = offs.shape[0]
     _check_mask(mask, f)
     out = torch.empty((f, nw), dtype=torch.int32, device=offs.device)
@@ -74,6 +96,12 @@ def range_gather_pack(s_padded: torch.Tensor, offs: torch.Tensor, w: int,
     return out
 
 
-range_gather_pack.launches = 0
-range_gather_pack.rows = 0
-range_gather_pack.words = 0
+@torch.library.custom_op("repro_torch::range_gather_pack", mutates_args=())
+def _range_gather_pack_op(s_padded: torch.Tensor, offs: torch.Tensor,
+                          nw: int, mask: torch.Tensor | None) -> torch.Tensor:
+    return _range_gather_pack_impl(s_padded, offs, nw, mask)
+
+
+@_range_gather_pack_op.register_fake
+def _(s_padded, offs, nw, mask):
+    return offs.new_empty((offs.shape[0], nw))

@@ -3,11 +3,13 @@
 AdamW + cosine schedule, remat, checkpoint/restore with atomic commits,
 the deterministic restart-safe token pipeline.  It trains every
 decoder-only family (dense, moe with GQA or MLA, ssm, hybrid) and refuses
-the encdec and frontend archs as the JAX driver does.  It runs on one
-device (``--mesh host``); the production meshes (``--mesh prod``,
-``--mesh multipod``) and their sharding wait for ROADMAP A15d.  The log
-lines, the returned losses and the checkpoint files are the JAX
-driver's.
+the encdec and frontend archs as the JAX driver does.  ``--mesh prod`` /
+``multipod`` build the production mesh first
+(:func:`repro_torch.launch.mesh.make_production_mesh`), which fails as
+JAX's does on a world of fewer ranks; on a mesh, as in the JAX driver
+(which computes the parameter shardings and jits its step without them),
+each rank runs the one-device step.  The log lines, the returned losses
+and the checkpoint files are the JAX driver's.
 
 Example (CPU, smoke model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -24,19 +26,12 @@ import torch
 from repro_torch.data.tokens import TokenPipelineConfig, batch_at_step
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as step_lib
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.config import smoke_config
 from repro_torch.models.registry import get_config
 from repro_torch.optim import adamw
 from repro_torch.runtime import checkpoint
-
-
-def _require_host_mesh(mesh) -> None:
-    if mesh not in (None, "host"):
-        raise NotImplementedError(
-            f"mesh {mesh!r}: the production meshes and their sharding are "
-            "not ported yet: ROADMAP A15d; the port trains on one device "
-            "(--mesh host)")
 
 
 def train(
@@ -56,11 +51,13 @@ def train(
     device="cuda",
 ):
     """Train ``arch`` for ``steps`` steps on ``device``; returns (params,
-    losses), the losses of the logged steps.  ``mesh`` is None or
-    ``"host"`` (the one device).  The parameters and moments are updated
-    in place each step; on the card every clock read follows a
-    ``torch.cuda.synchronize``."""
-    _require_host_mesh(mesh)
+    losses), the losses of the logged steps.  ``mesh`` is None, ``"host"``
+    or a DeviceMesh; the step is the one-device program on each.  The
+    parameters and moments are updated in place each step; on the card
+    every clock read follows a ``torch.cuda.synchronize``."""
+    if isinstance(mesh, str) and mesh != "host":
+        raise ValueError(f"mesh {mesh!r}: pass a DeviceMesh "
+                         "(make_production_mesh) or 'host'")
     dev = ops.resolve_device(device)
     cfg = get_config(arch)
     if smoke:
@@ -129,8 +126,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh = {"host": lambda: "host",
+            "prod": lambda: make_production_mesh(device=args.device),
+            "multipod": lambda: make_production_mesh(
+                multi_pod=True, device=args.device)}[args.mesh]()
     train(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
-          seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir, mesh=args.mesh,
+          seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir, mesh=mesh,
           device=args.device)
 
 

@@ -61,6 +61,11 @@ def stack_specs(tree: Any, n: int) -> Any:
         tree)
 
 
+def axes_tree(tree: Any) -> Any:
+    """The logical-axes tree matching ``init_params`` output."""
+    return map_specs(lambda s: s.axes, tree)
+
+
 def init_params(tree: Any, dtype=torch.float32, device="cuda",
                 seed: int = 0) -> Any:
     """Materialize a Spec tree into tensors on ``device``: zeros, ones, or
@@ -454,7 +459,7 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
     eids = torch.where(keep, flat_ids, 0)
     slts = torch.where(keep, slot.to(torch.int64), 0)
     contrib = torch.where(keep[:, None], xt[token_of], 0)
-    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    buf = xt.new_zeros((e, cap, d))
     buf.index_put_((eids, slts), contrib, accumulate=True)
 
     g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))

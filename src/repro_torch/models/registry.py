@@ -5,7 +5,7 @@ inputs (the port of ``repro.models.registry``).
 :func:`input_specs` gives every model input of a cell as a ``meta``
 tensor (a shape and a dtype, no storage) and :func:`concrete_inputs` a
 small batch of that structure on a device, drawn as the JAX package
-draws it.  The dry run that reads the specs is ROADMAP item A15d.
+draws it.  The dry run (:mod:`repro_torch.launch.dryrun`) reads the specs.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ Entry points:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any
@@ -33,6 +34,42 @@ from repro_torch.kernels import ops
 from repro_torch.models import nn, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import Spec
+
+# ---------------------------------------------------------------------------
+# Optional activation-sharding constraint (sequence parallelism).
+#
+# For archs whose head count does not divide the model axis (qwen3-14b /
+# qwen1.5-32b: 40 heads on 16), TP cannot shard attention; constraining
+# activations to (batch→data, seq→model) shards the S² work instead (the
+# dry run's ``sp`` variant).  The layer loops are always unrolled here, so
+# JAX's ``unrolled_layers`` has no counterpart.
+# ---------------------------------------------------------------------------
+
+_ACT_SPEC = None
+
+
+@contextlib.contextmanager
+def activation_sharding(spec):
+    """spec: a (B, S, D) spec (:mod:`repro_torch.sharding`), or None."""
+    global _ACT_SPEC
+    old = _ACT_SPEC
+    _ACT_SPEC = spec
+    try:
+        yield
+    finally:
+        _ACT_SPEC = old
+
+
+def _constrain(x):
+    """``jax.lax.with_sharding_constraint``: a (B, S, D) DTensor
+    redistributed to the active spec's placements; plain tensors, and
+    every tensor outside :func:`activation_sharding`, pass unchanged."""
+    if _ACT_SPEC is None or x.dim() != 3 or not hasattr(x, "device_mesh"):
+        return x
+    from repro_torch.sharding import placements
+
+    return x.redistribute(x.device_mesh, placements(_ACT_SPEC, x.device_mesh))
+
 
 # ---------------------------------------------------------------------------
 # Spec assembly
@@ -108,6 +145,10 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
     return nn.init_params(model_specs(cfg), dtype, device, seed)
 
 
+def param_logical_axes(cfg: ModelConfig):
+    return nn.axes_tree(model_specs(cfg))
+
+
 def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda",
                       dtype=None) -> Any:
     """The port's parameters from a JAX parameter tree converted to numpy
@@ -147,6 +188,7 @@ def _layer(stacked: Any, i: int) -> Any:
 def _dense_block(p, x, cfg: ModelConfig, *, q_pos, window, is_global,
                  cache=None, cache_index=None, enc_out=None,
                  bidirectional=False, use_flash=True):
+    x = _constrain(x)
     h, kv = nn.attention(
         p["attn"], nn.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
         q_pos=q_pos, window=window, is_global=is_global,

@@ -12,8 +12,8 @@ The training driver's ``main`` prints the JAX driver's lines from the
 same parameters (for qwen3-1.7b and a moe, an ssm and a hybrid arch): the step exactly, the loss and the gradient norm within
 one unit of their last printed place (float32 sums in another order), and
 ``tok/s`` in JAX's format; its parser takes JAX's command lines to the
-same ``train`` arguments, and ``--mesh prod`` / ``multipod`` raise,
-naming ROADMAP A15d.
+same ``train`` arguments, and ``--mesh prod`` / ``multipod`` fail on one
+rank as JAX's ``jax.make_mesh`` fails on one device.
 """
 
 import re
@@ -160,8 +160,12 @@ def test_train_parser_takes_jax_command_lines(argv, monkeypatch):
                       "steps": want["steps"], "batch": want["batch"],
                       "seq": want["seq"], "lr": want["lr"],
                       "ckpt_dir": want["ckpt_dir"], "mesh": want["mesh"]}
-    if want["mesh"] != "host":  # the real driver, before it reads a device
-        with pytest.raises(NotImplementedError, match="A15d"):
+    if want["mesh"] != "host":  # the real mesh, before it reads a device:
+        # one rank is too few, as one device is for the JAX driver
+        shape = "(2, 16, 16)" if want["mesh"] == "multipod" else "(16, 16)"
+        with pytest.raises(ValueError, match=re.escape(
+                f"Number of devices 1 must be >= the product of mesh_shape "
+                f"{shape}")):
             t_train.main(argv)
         return
     monkeypatch.setattr(t_train, "train",

@@ -546,8 +546,10 @@ def test_unported_families_raise(arch, jax_init, no_flash):
 
 
 def test_train_mesh_and_device():
-    with pytest.raises(NotImplementedError, match="A15d"):
+    with pytest.raises(ValueError, match="pass a DeviceMesh"):
         t_train.train("qwen3-1.7b", steps=1, mesh="prod", device="cpu")
+    with pytest.raises(ValueError, match="Number of devices 1 must be"):
+        t_train.main(["--mesh", "prod", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no CPU fallback
             t_train.train("qwen3-1.7b", steps=1)
