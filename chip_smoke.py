@@ -251,7 +251,9 @@ Phases, each printing one JSON line:
               ``torch.profiler``: busy share and top kernels); a 2-layer
               ``train_step`` on the card against the CPU (``TRAIN_*``
               tolerances); 4 straight steps against 2 + a checkpoint + a
-              resumed ``train`` (``RESUME_RTOL``); ``dedup_mask`` on the
+              resumed ``train`` (``RESUME_RTOL``), again in bf16 (its
+              checkpoint restored bit for bit, ``RESUME_BF16_RTOL``, its
+              wall time on the ``resume bf16`` row); ``dedup_mask`` on the
               card equal to the CPU's on the planted example batch and a
               4 x 2048 training batch, ``range_gather_words`` launched;
               no training launch of ``flash_attention``;
@@ -522,6 +524,11 @@ TRAIN_NEAR_ZERO_G = 2e-7
 # run straight, losses rtol (the card's embedding backward accumulates
 # with atomics, so the two runs need not agree to the bit).
 RESUME_RTOL = 1e-5
+# the same resume in bfloat16: the checkpoint restores bit for bit, but
+# the two runs' first steps may round a parameter's bf16 update the other
+# way (the atomics above), which moves a loss read from bf16 logits by up
+# to about one bf16 unit roundoff (2^-8).
+RESUME_BF16_RTOL = 2.0 ** -8
 TRAIN_STEPS = 6  # full-width steps; the step time is the median of 2-6
 LM_ARCH = "qwen3-1.7b"  # the LM phases' model, at full width and depth
 # lm_families: one serving run per family at published widths, (run, arch,
@@ -1261,7 +1268,9 @@ def lm_train(cuda) -> list[dict]:
         norm, lr, m, v and the new parameters (see TRAIN_*);
     (c) at the same 2 layers (the registry's config swapped, as
         ``examples/torch_train_lm.py --hundred-m`` does), 4 straight
-        steps against 2 steps + a checkpoint + a resumed ``train`` to 4;
+        steps against 2 steps + a checkpoint + a resumed ``train`` to 4,
+        in float32 and again in bfloat16 (the bf16 checkpoint restored
+        bit for bit against the parameters it saved; ``RESUME_BF16_RTOL``);
     (d) ``dedup_mask`` on the card, on the planted example batch and on a
         4 x 2048 training batch with one planted 256-token repeat, equal
         to the CPU's; its launches counted from 0 (``range_gather_words``
@@ -1282,6 +1291,7 @@ def lm_train(cuda) -> list[dict]:
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
     from repro_torch.optim import adamw
+    from repro_torch.runtime import checkpoint
 
     tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "float32_matmul_precision": torch.get_float32_matmul_precision()}
@@ -1472,6 +1482,46 @@ def lm_train(cuda) -> list[dict]:
             or res_row["flash_launches"]):
         raise AssertionError("lm_train: the resumed losses differ from the "
                              "straight run's")
+
+    # ---- (c') the same resume in bfloat16: a bf16 checkpoint both ways -----
+    kw_bf16 = {**kw, "dtype": torch.bfloat16}
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_ckpt_bf16_", dir=ROOT / "build")
+    arch_mod.CONFIG = cfg2
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, straight = train_mod.train(LM_ARCH, **kw_bf16)
+        saved, first = train_mod.train(LM_ARCH, **{**kw_bf16, "steps": 2},
+                                       ckpt_dir=ckpt_dir, ckpt_every=2)
+        path = checkpoint.latest_step_path(ckpt_dir)
+        ckpt_bytes = Path(path).stat().st_size
+        (restored,), _ = checkpoint.restore(path, (saved,))  # params alone
+        bits_equal = all(
+            r.dtype == s.dtype == torch.bfloat16 and torch.equal(
+                r.view(torch.int16), s.view(torch.int16))
+            for r, s in zip(pytree.leaves(restored), pytree.leaves(saved)))
+        del restored, saved
+        _, resumed = train_mod.train(LM_ARCH, **kw_bf16, ckpt_dir=ckpt_dir,
+                                     ckpt_every=100)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        arch_mod.CONFIG = cfg
+        shutil.rmtree(ckpt_dir)
+    got = first + resumed
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, straight))
+    bf16_row = {"phase": "lm_train", "what": "resume bf16", "arch": LM_ARCH,
+                "n_layers": 2, "batch": 2, "seq": 128, "dtype": "bfloat16",
+                "straight": straight, "first": first, "resumed": resumed,
+                "max_rel_err": err, "rtol": RESUME_BF16_RTOL,
+                "params_restored_bit_for_bit": bits_equal,
+                "checkpoint_gb": ckpt_bytes / 1e9, "wall_s": resume_s,
+                "flash_launches": ops.launch_counts()["flash_attention"]}
+    emit(bf16_row)
+    if (len(got) != 4 or len(straight) != 4 or err > RESUME_BF16_RTOL
+            or not bits_equal or bf16_row["flash_launches"]):
+        raise AssertionError("lm_train: the bf16 checkpoint did not restore "
+                             "bit for bit, or its resumed losses differ")
 
     # ---- (d) the ERA dedup filter on the card ------------------------------
     big_cfg = tokens.TokenPipelineConfig(vocab=cfg.vocab, batch=4, seq_len=2048)

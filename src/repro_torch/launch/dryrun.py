@@ -25,7 +25,8 @@ Where DTensor's own rule would not shard an op as XLA's per-device
 program does, the dry run registers one (the SSM's depthwise convolution,
 ``argmax``) or, while a cell traces, runs the same computation written
 for a split mesh (:func:`_traced_model`: GQA attention a device's heads at
-a time, the embedding as a masked lookup, the loss over a split vocab).
+a time, mamba2's heads a device's channels at a time, the embedding as a
+masked lookup, the loss over a split vocab).
 An op DTensor still cannot shard ends the cell ``error``, the op named;
 nothing runs on gathered arguments behind DTensor's back.
 
@@ -278,16 +279,22 @@ def compute_mesh(mesh):
                       mesh_dim_names=("pod_data", "model"))
 
 
-def _local_shape(shape, placements, mesh) -> list[int]:
-    local = list(shape)
-    for i, p in enumerate(placements):
-        if p.is_shard():
-            n = mesh.size(i)
-            if local[p.dim] % n:
-                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
-                                 f"split {n} ways")
-            local[p.dim] //= n
-    return local
+def _block(shape, placements, mesh):
+    """This device's block of a tensor of ``shape`` placed by
+    ``placements`` on ``mesh``: (offset, length) per tensor dimension, or
+    None where a split is uneven."""
+    coord = mesh.get_coordinate()
+    out = []
+    for d, size in enumerate(shape):
+        index, count = 0, 1
+        for j, p in enumerate(placements):
+            if p.is_shard(d):
+                index, count = index * mesh.size(j) + coord[j], \
+                    count * mesh.size(j)
+        if size % count:
+            return None
+        out.append((index * (size // count), size // count))
+    return out
 
 
 def _place(meta, sharding, mesh, device):
@@ -305,8 +312,10 @@ def _place(meta, sharding, mesh, device):
     if not isinstance(meta, torch.Tensor):
         return meta
     pl = shd.placements(sharding.spec, mesh)
-    local = torch.empty(_local_shape(meta.shape, pl, mesh), dtype=meta.dtype,
-                        device=device)
+    block = _block(meta.shape, pl, mesh)
+    if block is None:
+        raise ValueError(f"{tuple(meta.shape)} does not split evenly by {pl}")
+    local = torch.empty([n for _, n in block], dtype=meta.dtype, device=device)
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=meta.shape,
                               stride=torch.empty(meta.shape,
@@ -324,10 +333,11 @@ _PIECE_LIMITS = ((adamw, "UPDATE_CHUNK"), (ssm, "SCAN_BYTES"),
 
 @contextlib.contextmanager
 def _traced_model():
-    """The model as the trace runs it: every piece whole, the five
+    """The model as the trace runs it: every piece whole, the six
     functions that DTensor would otherwise shard badly replaced by the
     same computations written for a split mesh (:func:`_split_sdpa`,
-    :func:`_split_mla_attend`, :func:`_split_conv`, :func:`_lookup_embed`,
+    :func:`_split_mla_attend`, :func:`_split_conv`,
+    :func:`_split_mamba2_heads`, :func:`_lookup_embed`,
     :func:`_split_vocab_cross_entropy`), and
     DTensor's moves of a split as all-to-alls on every mesh
     (:func:`_shard_dim_alltoall`)."""
@@ -341,6 +351,8 @@ def _traced_model():
                   _split_mla_attend, nn._mla_attend)),
               (ssm, "_causal_conv", functools.partial(
                   _split_conv, ssm._causal_conv)),
+              (ssm, "_mamba2_heads", functools.partial(
+                  _split_mamba2_heads, ssm._mamba2_heads)),
               (T, "_embed_tokens", _lookup_embed),
               (steps, "cross_entropy", _split_vocab_cross_entropy)]
     old = [getattr(mod, name) for mod, name, _ in swaps]
@@ -399,6 +411,113 @@ def _split_conv(conv, x, w, b):
                      in_grad_placements=(xs, [g[0] for g in grads],
                                          [g[1] for g in grads]),
                      device_mesh=mesh)(x, w, b)
+
+
+def _split_mamba2_heads(heads, xs, dt, a, b_in, c_out, h0, hd, return_state):
+    """``ssm._mamba2_heads`` (xs (B, S, NH*HD), dt (B, S, NH), a (NH,),
+    b_in / c_out (B, S, N), h0 (B, NH, HD, N) or None) on DTensors, each
+    device on its own rows and channels (``local_map``), as XLA's
+    per-device program runs mamba2.  DTensor's own views of the split
+    channels as (NH, HD) fail where the heads do not divide the mesh
+    dimension (zamba2's 2 SSM heads at smoke width on a 4-way ``model``
+    axis), and torch 2.11's DTensor cannot flatten the two split dims of
+    the read-out.  Two layouts, both even splits, with no padded head:
+
+    * channels (a full sequence): xs's own split of its channels, each
+      device on a contiguous block of them, run as sub-heads of the
+      block's largest width that divides the head width and the block's
+      offset (each channel's recurrence reads only its head's ``dt`` and
+      ``a``), so any head count over any mesh dimension; the whole
+      sequence stays on the device (the scan is not split on S);
+    * the state's (decode, or a prefill state whose block is not whole
+      heads): the cache's split of h0 on its heads or head channels (the
+      cache splits HD first, as JAX's does), xs gathered to each device
+      and sliced to the block, y gathered back to xs's placements (S is
+      1 in decode).
+
+    Rows split alike on every layout; ``dt``, ``a``, ``b_in`` and
+    ``c_out`` are read whole (their gradients partial where a device
+    reads part of them).  Any other placement goes to ``heads`` as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(xs, DTensor) or any(
+            p not in (Shard(0), Shard(2), Replicate()) for p in xs.placements):
+        return heads(xs, dt, a, b_in, c_out, h0, hd, return_state)
+    mesh, rep = xs.device_mesh, Replicate()
+    b, s, di = xs.shape
+    nh, n = di // hd, b_in.shape[-1]
+    chan = _block(xs.shape, xs.placements, mesh)
+    if chan is None:
+        return heads(xs, dt, a, b_in, c_out, h0, hd, return_state)
+    if h0 is None and not (return_state and chan[2][1] % hd):
+        return _channel_heads(heads, xs, dt, a, b_in, c_out, hd,
+                              return_state, chan[2])
+    if h0 is not None:
+        hp = list(h0.placements)
+    else:
+        hp = [{Shard(0): Shard(0), Shard(2): Shard(2)}.get(p, rep)
+              for p in xs.placements]
+    block = _block((b, nh, hd, n), hp, mesh)
+    if (block is None or Shard(3) in hp
+            or any((p == Shard(0)) != (q == Shard(0))
+                   for p, q in zip(xs.placements, hp))):
+        return heads(xs, dt, a, b_in, c_out, h0, hd, return_state)
+    (h_lo, h_len), (d_lo, d_len) = block[1], block[2]
+    rows = [Shard(0) if p == Shard(0) else rep for p in hp]
+    part = [Shard(0) if p == Shard(0) else (rep if p == rep else Partial())
+            for p in hp]
+    whole = [Partial() if p != rep else rep for p in hp]
+    y4 = [{Shard(1): Shard(2), Shard(2): Shard(3)}.get(p, p) for p in hp]
+
+    def local(x, t, al, bi, co, *h):
+        x = x.reshape(*x.shape[:2], nh, hd)[:, :, h_lo:h_lo + h_len,
+                                            d_lo:d_lo + d_len]
+        y, new_h = heads(x.reshape(*x.shape[:2], h_len * d_len),
+                         t[..., h_lo:h_lo + h_len], al[h_lo:h_lo + h_len],
+                         bi, co, h[0] if h else None, d_len, True)
+        return y.reshape(*y.shape[:2], h_len, d_len), new_h
+
+    args = (xs, dt, a, b_in, c_out) + (() if h0 is None else (h0,))
+    pls = (rows, rows, [rep] * mesh.ndim, rows, rows, hp)[:len(args)]
+    grads = (part, part, whole, part, part, hp)[:len(args)]
+    y, new_h = local_map(local, out_placements=(y4, hp), in_placements=pls,
+                         in_grad_placements=grads, device_mesh=mesh)(
+        *(t.redistribute(mesh, pl) for t, pl in zip(args, pls)))
+    y = y.redistribute(mesh, rows).reshape(b, s, di)
+    return y.redistribute(mesh, xs.placements), new_h
+
+
+def _channel_heads(heads, xs, dt, a, b_in, c_out, hd, return_state, chan):
+    """:func:`_split_mamba2_heads` on xs's split of its channels: this
+    device's block ``chan`` = (offset, length) of them as sub-heads of
+    width ``g``, each reading its own head's ``dt`` and ``a``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rep = xs.device_mesh, Replicate()
+    lo, c = chan
+    g = math.gcd(hd, lo, c)
+    xp = list(xs.placements)
+    rows = [Shard(0) if p == Shard(0) else rep for p in xp]
+    part = [Partial() if p == Shard(2) else q for p, q in zip(xp, rows)]
+    whole = [rep if p == rep else Partial() for p in xp]
+    state = [{Shard(2): Shard(1)}.get(p, p) for p in xp]
+
+    def local(x, t, al, bi, co):
+        idx = torch.arange(lo, lo + c, g, device=x.device) // hd
+        y, new_h = heads(x, t.index_select(-1, idx), al.index_select(0, idx),
+                         bi, co, None, g, return_state)
+        return (y, new_h) if return_state else y
+
+    pls = (xp, rows, [rep] * mesh.ndim, rows, rows)
+    out = local_map(local, out_placements=(xp, state) if return_state else xp,
+                    in_placements=pls,
+                    in_grad_placements=(xp, part, whole, part, part),
+                    device_mesh=mesh)(
+        *(t.redistribute(mesh, pl) for t, pl in
+          zip((xs, dt, a, b_in, c_out), pls)))
+    return out if return_state else (out, None)
 
 
 def _lookup_embed(params, tokens, cfg, dtype):

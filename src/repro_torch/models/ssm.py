@@ -252,13 +252,48 @@ def mamba2_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _mamba2_heads(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b_in: torch.Tensor, c_out: torch.Tensor,
+                  h0: torch.Tensor | None, hd: int, return_state: bool):
+    """The per-head step of :func:`mamba2`: the scan over a full sequence
+    (``h0`` None) or one recurrence step from ``h0`` (B,NH,HD,N), then the
+    read-out ``"bshdn,bsn->bshd"``.  xs: (B,S,NH*HD) in heads of ``hd``
+    channels; dt: (B,S,NH); a: (NH,) float32; b_in, c_out: (B,S,N).
+    Returns y (B,S,NH*HD) in xs's dtype and the last state (B,NH,HD,N),
+    None for a full sequence unless ``return_state``.  Each channel's
+    recurrence reads only its own head's ``dt`` and ``a``, so a contiguous
+    block of channels runs as heads of one channel (the dry run's split
+    plan, ``launch/dryrun._split_mamba2_heads``)."""
+    b, s, di = xs.shape
+    nh, n = di // hd, b_in.shape[-1]
+    xh = xs.reshape(b, s, nh, hd)
+    decay = torch.exp(dt.to(torch.float32) * a)               # (B,S,NH)
+
+    def drive(rows):                                          # (B,S,NH,HD,N)
+        return (dt[rows, ..., None, None] * xh[rows, ..., None]
+                * b_in[rows, :, None, None, :]).to(torch.float32)
+
+    if h0 is None:
+        def rows_out(rows):
+            h = _ssm_scan(decay[rows, ..., None, None], drive(rows))
+            y = torch.einsum("bshdn,bsn->bshd", h.to(xs.dtype), c_out[rows])
+            return y, h[:, -1].clone()
+
+        y, h_last = _by_rows(rows_out, b, s * nh * hd * n * 4)
+        new_h = h_last if return_state else None
+    else:
+        h = decay[..., None, None] * h0[:, None] + drive(slice(None))
+        new_h = h[:, 0]
+        y = torch.einsum("bshdn,bsn->bshd", h.to(xs.dtype), c_out)
+    return y.reshape(b, s, di), new_h
+
+
 def mamba2(p: dict, x: torch.Tensor, cfg: ModelConfig,
            state: tuple | None = None, return_state: bool = False):
     """Multi-head scalar-decay SSD block.  state: (conv (B,K-1,di), h
     (B,NH,HD,N))."""
-    b, s, d = x.shape
-    di, n, k, nh = cfg.d_inner, cfg.d_state, cfg.d_conv, cfg.ssm_heads
-    hd = di // nh
+    di, k = cfg.d_inner, cfg.d_conv
+    hd = di // cfg.ssm_heads
 
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
     xs, z = torch.chunk(xz, 2, dim=-1)
@@ -271,27 +306,8 @@ def mamba2(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     + p["dt_bias"])
     a = -torch.exp(p["A_log"].to(torch.float32))              # (NH,)
 
-    xh = xs.reshape(b, s, nh, hd)
-    decay = torch.exp(dt.to(torch.float32) * a)               # (B,S,NH)
-
-    def drive(rows):                                          # (B,S,NH,HD,N)
-        return (dt[rows, ..., None, None] * xh[rows, ..., None]
-                * b_in[rows, :, None, None, :]).to(torch.float32)
-
-    if state is None:
-        def rows_out(rows):
-            h = _ssm_scan(decay[rows, ..., None, None], drive(rows))
-            y = torch.einsum("bshdn,bsn->bshd", h.to(x.dtype), c_out[rows])
-            return y, h[:, -1].clone()
-
-        y, h_last = _by_rows(rows_out, b, s * nh * hd * n * 4)
-        new_h = h_last if return_state else None
-    else:
-        h = decay[..., None, None] * state[1][:, None] + drive(slice(None))
-        new_h = h[:, 0]
-        y = torch.einsum("bshdn,bsn->bshd", h.to(x.dtype), c_out)
-
-    y = y.reshape(b, s, di)
+    h0 = None if state is None else state[1]
+    y, new_h = _mamba2_heads(xs, dt, a, b_in, c_out, h0, hd, return_state)
     y = y + p["D"] * xs
     y = y * F.silu(z)
     out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])

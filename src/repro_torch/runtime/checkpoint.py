@@ -9,6 +9,13 @@ and committed by ``os.replace``, so a process that dies mid-write leaves
 the latest checkpoint whole.  A checkpoint either package writes restores
 in the other.  The ERA construction checkpoints are
 :mod:`repro_torch.runtime.scheduler`'s.
+
+A bfloat16 leaf is written as its bit pattern in a numpy ``|V2`` array
+(numpy has no bfloat16), the array JAX's ``np.asarray`` of a bfloat16
+leaf gives ``np.savez``, so both packages write the same bytes.  Restoring
+departs from JAX's on purpose: where JAX returns the raw ``|V2`` array,
+the port reinterprets it as its bfloat16 target leaf, and refuses a raw
+array whose target is not bfloat16 or whose item is not 2 bytes.
 """
 
 from __future__ import annotations
@@ -30,8 +37,21 @@ def _key(path: tuple) -> str:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _to_tensor(key: str, arr: np.ndarray, leaf) -> torch.Tensor:
+    if arr.dtype.kind != "V":
+        return torch.from_numpy(arr)
+    if not (isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+            and arr.dtype.itemsize == 2):
+        raise ValueError(f"{key}: raw {arr.dtype.str} array needs a "
+                         f"bfloat16 target, not {getattr(leaf, 'dtype', leaf)}")
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
 def save(path: str, tree, *, step: int | None = None, meta: dict | None = None):
@@ -54,10 +74,12 @@ def save(path: str, tree, *, step: int | None = None, meta: dict | None = None):
 
 def restore(path: str, target_tree):
     """Restore into the structure of ``target_tree``: each array as saved
-    (its dtype), on the device of its target leaf (the CPU for a leaf
-    without one, such as a numpy array).  Raises ``KeyError`` for a key
-    the file lacks and ``ValueError`` for a shape that differs, with the
-    JAX package's messages."""
+    (its dtype; a ``|V2`` array as its bfloat16 target), on the device of
+    its target leaf (the CPU for a leaf without one, such as a numpy
+    array).  Raises ``KeyError`` for a key the file lacks and
+    ``ValueError`` for a shape that differs, with the JAX package's
+    messages, and ``ValueError`` for a raw ``|V…`` array whose target is
+    not bfloat16 or whose item is not 2 bytes."""
     out = []
     with np.load(path, allow_pickle=False) as data:
         meta = (json.loads(bytes(data["__meta__"]).decode())
@@ -70,7 +92,7 @@ def restore(path: str, target_tree):
             want = tuple(leaf.shape)
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: shape {arr.shape} != expected {want}")
-            out.append(torch.from_numpy(arr).to(
+            out.append(_to_tensor(key, arr, leaf).to(
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu"))
     return pytree.unflatten_like(target_tree, out), meta
 

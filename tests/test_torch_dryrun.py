@@ -11,18 +11,24 @@ where both can say the same thing.
   shape (``repro.launch.dryrun`` is imported with ``XLA_FLAGS`` restored).
 * Cells at ``smoke_config`` widths on 8-rank fake worlds, (2, 4) and
   (2, 2, 2), each traced once a worker and shared between tests: a train,
-  prefill, decode (and long-decode) cell of every family ends ``ok``; the
-  hybrid's 2 SSM heads on a 4-way ``model`` axis end in a
-  ``ShardingError`` naming ``aten.view`` (nothing runs on gathered
-  arguments instead); on a (1, 1) world the per-device FLOPs equal
-  ``FlopCounterMode``'s count of the same step on real CPU tensors, with
-  no collective; on a data-only (8, 1) world a train cell's FLOPs are 1/8
-  of that count and its gradient all-reduce is recorded; the linear fit
-  of ``extrapolated_costs`` equals the full-depth trace; three cells are
-  held against JAX's compiled program (one subprocess with 8 host
-  devices, layers unrolled): argument bytes equal, less the 4 bytes of
+  prefill, decode (and long-decode) cell of every family ends ``ok``,
+  the hybrid's also where its 2 SSM heads split 4 ways; on a (1, 1)
+  world the per-device FLOPs equal ``FlopCounterMode``'s count of the
+  same step on real CPU tensors, with no collective; on a data-only
+  (8, 1) world a train cell's FLOPs are 1/8 of that count and its
+  gradient all-reduce is recorded; the linear fit of
+  ``extrapolated_costs`` equals the full-depth trace; five cells (the
+  hybrid's (2, 4) train and decode among them) are held against JAX's
+  compiled program (one subprocess with 8 host devices, layers unrolled,
+  run beside the traces): argument bytes equal, less the 4 bytes of
   JAX's traced cache position, which the port keeps on the host; FLOPs,
   peak and wire bytes within loose bounds.
+* ``ssm._mamba2_heads`` through the dry run's split plan on 4-rank gloo
+  worlds (1-D and (2, 2) meshes; heads that divide the mesh dimension,
+  2 and 3 heads split 4 ways; full sequences, prefill states, decode from
+  a cache split on its head channels or on its heads) equals the unsplit
+  call, outputs, states and gradients (``rtol`` 1e-5, ``atol`` 1e-6:
+  float32 partial sums reduced across devices in another order).
 * Both ERA cells on the real 16x16 fake mesh at the paper's size: ``ok``,
   no collective, the packed cell tracing ``range_gather_words`` once and
   the byte cell ``range_gather_pack`` and ``lcp_pairs`` (under
@@ -233,9 +239,9 @@ def _traced(arch: str, kind: str, mesh: str):
     return counts, mem
 
 
-# (kind, mesh) of each family's cells; the hybrid's SSM heads (2 at smoke
-# width) do not divide a 4-way ``model`` axis (see
-# test_uneven_ssm_heads_end_in_error), so its cells are on (2, 2, 2)
+# (kind, mesh) of each family's cells: the hybrid's train and decode on
+# (2, 4) too, where its 2 SSM heads split 4 ways (its cells held against
+# JAX's below)
 def _cells():
     out = []
     for fam in FAMILIES:
@@ -244,6 +250,8 @@ def _cells():
                  ("decode", "2x2x2")]
         if fam in ("ssm", "hybrid"):
             kinds.append(("long", mesh_24))
+        if fam == "hybrid":
+            kinds += [("train", "2x4"), ("decode", "2x4")]
         for kind, mesh in kinds:
             out.append(pytest.param(fam, kind, mesh,
                                     id=f"{fam}-{SHAPES_OF[kind].name}-{mesh}"))
@@ -261,17 +269,6 @@ def test_family_cell_ok(fam, kind, mesh):
         assert flash > 0
     if kind != "prefill":
         assert flash == 0  # decode reads the whole cache through _sdpa
-
-
-def test_uneven_ssm_heads_end_in_error():
-    """DTensor cannot split 2 SSM heads over a 4-way axis (an uneven
-    unflatten of the split inner dim): the cell ends ``error`` naming the
-    op, and nothing runs on gathered arguments instead."""
-    from repro_torch.roofline.counting import ShardingError
-
-    cfg = smoke_config(get_config("zamba2-2.7b"))
-    with pytest.raises(ShardingError, match=r"^aten\.view\.default on"):
-        _trace(cfg, TRAIN, *MESH_2X4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -327,7 +324,8 @@ def test_depth_fit_equals_full_depth():
 # traces are shared.  JAX compiles each with its layers unrolled, so its
 # figures are full-depth too.
 JAX_CELLS = (("qwen3-1.7b", "train", "2x4"), ("qwen3-1.7b", "prefill", "2x2x2"),
-             ("falcon-mamba-7b", "decode", "2x2x2"))
+             ("falcon-mamba-7b", "decode", "2x2x2"),
+             ("zamba2-2.7b", "train", "2x4"), ("zamba2-2.7b", "decode", "2x4"))
 
 _JAX_CELLS = r"""
 import json, os
@@ -369,16 +367,31 @@ print(json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def jax_cells():
-    """JAX's per-device figures of ``JAX_CELLS`` from one subprocess with
-    8 host devices (its ``XLA_FLAGS`` stay in the subprocess)."""
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile(tmp_path_factory):
+    """JAX's compile of ``JAX_CELLS`` in one subprocess with 8 host devices
+    (its ``XLA_FLAGS`` stay in the subprocess), started with the module's
+    first test so that it runs beside the port's traces."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     code = f"CELLS = {JAX_CELLS!r}\n" + _JAX_CELLS
-    res = subprocess.run([sys.executable, "-c", code], check=True,
-                         capture_output=True, text=True, cwd=ROOT, env=env,
-                         timeout=600)
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    log = tmp_path_factory.mktemp("jax_cells") / "stderr.txt"
+    with open(log, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    yield proc, log
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_cells(jax_compile):
+    """JAX's per-device figures of ``JAX_CELLS``."""
+    proc, log = jax_compile
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, log.read_text()[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def test_argument_bytes_equal_jax(jax_cells):
@@ -407,6 +420,110 @@ def test_per_device_figures_near_jax(jax_cells, cell):
     assert 0.25 <= coll.wire_bytes / want["wire_bytes"] <= 4
     if cell[1] == "prefill":
         assert coll.count_by_kind == want["collectives"]
+
+
+# ---------------------------------------------------------------------------
+# mamba2's split plan on real data: 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+# name: (mesh shape, heads, head width, seq, xs placements, h0 placements or
+# None for a full sequence, return_state); "r" rows, "c" channels, "h"
+# heads, "d" head channels, "-" replicated
+HEAD_PLANS = {
+    "2-heads-4-ways": ((4,), 2, 8, 5, "c", None, False),
+    "3-heads-4-ways": ((4,), 3, 4, 5, "c", None, False),
+    "rows-and-heads": ((2, 2), 2, 8, 5, "rc", None, False),
+    "prefill-whole-heads": ((2, 2), 2, 8, 5, "rc", None, True),
+    "prefill-2-heads-4-ways": ((4,), 2, 8, 5, "c", None, True),
+    "decode-head-channels": ((2, 2), 2, 8, 1, "rc", "rd", False),
+    "decode-4-ways": ((4,), 2, 8, 1, "c", "d", False),
+    "long-heads": ((2, 2), 2, 8, 1, "-c", "hd", False),
+}
+_HEAD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _head_plan_rank(rank, world, rdzv, out):
+    """One gloo rank: every ``HEAD_PLANS`` case through
+    ``dryrun._traced_model``'s plan, which must hand the model's step
+    local shards once, its outputs, state and (full sequences) gradients
+    gathered and compared with the unsplit call; rank 0 writes each
+    case's largest error over its tolerance."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import ssm
+
+    dist.init_process_group("gloo", init_method=rdzv, rank=rank,
+                            world_size=world)
+    codes = {"r": Shard(0), "c": Shard(2), "h": Shard(1), "d": Shard(2),
+             "-": Replicate()}
+    report, heads = {}, ssm._mamba2_heads
+    try:
+        for name, (shape, nh, hd, s, xp, hp, rs) in HEAD_PLANS.items():
+            mesh = init_device_mesh("cpu", shape)
+            rng = np.random.default_rng(len(report))
+            f = lambda *sh: torch.from_numpy(
+                rng.normal(size=sh).astype(np.float32))
+            b, n = 4, 3
+            full = [f(b, s, nh * hd),
+                    torch.nn.functional.softplus(f(b, s, nh)),
+                    -torch.exp(0.3 * f(nh)), f(b, s, n), f(b, s, n)]
+            h0 = None if hp is None else f(b, nh, hd, n)
+            rows = [Shard(0) if c == "r" else Replicate() for c in xp]
+            pls = ([codes[c] for c in xp], rows, [Replicate()] * len(xp),
+                   rows, rows)
+            args = [distribute_tensor(t, mesh, pl).requires_grad_(hp is None)
+                    for t, pl in zip(full, pls)]
+            h0d = (None if hp is None else
+                   distribute_tensor(h0, mesh, [codes[c] for c in hp]))
+            ref_in = [t.clone().requires_grad_(hp is None) for t in full]
+            want = heads(*ref_in, h0, hd, rs)
+            seen = []  # what the plan hands the model's step: local shards
+            ssm._mamba2_heads = lambda *a: seen.append(type(a[0])) or heads(*a)
+            try:
+                with D._traced_model():
+                    got = ssm._mamba2_heads(*args, h0d, hd, rs)
+            finally:
+                ssm._mamba2_heads = heads
+            assert seen == [torch.Tensor], (name, seen)
+            errs = []
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None), name
+                if w is not None:
+                    errs.append(_over_tol(g.full_tensor(), w))
+            if hp is None:
+                weight = f(b, s, nh * hd)
+                (got[0].full_tensor() * weight).sum().backward()
+                (want[0] * weight).sum().backward()
+                errs += [_over_tol(a.grad.full_tensor(), r.grad)
+                         for a, r in zip(args, ref_in)]
+            report[name] = max(errs)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(report, fh)
+
+
+def _over_tol(got, want) -> float:
+    """The largest |got - want| over ``atol + rtol * |want|``."""
+    bound = _HEAD_TOL["atol"] + _HEAD_TOL["rtol"] * want.detach().abs()
+    return float(((got.detach() - want.detach()).abs() / bound).max())
+
+
+@pytest.fixture(scope="module")
+def head_plans(tmp_path_factory):
+    d = tmp_path_factory.mktemp("head_plans")
+    out = d / "report.json"
+    torch.multiprocessing.start_processes(
+        _head_plan_rank, args=(4, f"file://{d}/rdzv", str(out)), nprocs=4,
+        start_method="spawn")
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("case", HEAD_PLANS)
+def test_mamba2_heads_split_plan_equals_unsplit(head_plans, case):
+    assert head_plans[case] <= 1.0
 
 
 # ---------------------------------------------------------------------------

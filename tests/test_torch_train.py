@@ -31,11 +31,16 @@ Tolerances (float32 sums taken in another order through 2–3 layers):
   gradient within float noise of 0 may flip its step, measured 4.6e-5 on
   internvl2-2b); the parameters after three steps ``atol`` ``2 * lr`` a
   step;
-* ``compress``, checkpoints, ``batch_at_step`` and ``dedup_mask``: exact.
+* ``compress``, ``psum_compressed`` over two gloo ranks, checkpoints
+  (bfloat16 leaves bit for bit), ``batch_at_step``, ``dedup_mask`` and a
+  bfloat16 ``train()`` resumed against its straight run: exact.
 """
 
+import inspect
 import os
 import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -354,6 +359,76 @@ def test_psum_compressed_one_rank_group(tmp_path):
     assert_tree_close(got[1], jnew)
 
 
+def _rank_grads(rank: int) -> list:
+    """Rank ``rank``'s gradients for two steps."""
+    rng = np.random.default_rng(100 + rank)
+    return [_numpy_tree(rng, 0.1 * (step + 1)) for step in range(2)]
+
+
+_PSUM_RANK = r"""
+import sys
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import pytree
+from repro_torch.optim import compress
+from repro_torch.runtime import checkpoint
+
+rank, rdzv, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=rdzv, rank=rank, world_size=2)
+try:
+    steps = []
+    for g in _rank_grads(rank):
+        g = pytree.tree_map(torch.from_numpy, g)
+        err = steps[-1][1] if steps else compress.init_error_state(g)
+        steps.append(compress.psum_compressed(g, err))
+finally:
+    dist.destroy_process_group()
+checkpoint.save(out.format(rank), steps)
+"""
+
+
+def test_psum_compressed_two_rank_group(tmp_path):
+    """Two gloo ranks, two steps: the mean of the ranks' dequantized
+    gradients and each rank's new error state equal JAX's
+    ``psum_compressed`` per rank under ``vmap`` over an axis of two (the
+    ``pmean`` of ``compress_with_feedback``), exactly.  Each rank is a
+    process of its own that imports the port alone (a rank started by
+    ``torch.multiprocessing`` would import this module, and JAX with it,
+    for ~7 s)."""
+    out = str(tmp_path / "rank{}.npz")
+    code = ("import numpy as np\n" + inspect.getsource(_numpy_tree)
+            + inspect.getsource(_rank_grads) + _PSUM_RANK)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    ranks = [subprocess.Popen([sys.executable, "-c", code, str(r),
+                               f"file://{tmp_path}/rdzv", out], env=env,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in ranks:
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-4000:]
+    grads = [_rank_grads(r) for r in range(2)]
+    pmean = jax.vmap(lambda a, e: j_compress.psum_compressed(a, e, "dp"),
+                     axis_name="dp")
+    jerr = jax.tree.map(lambda a: np.zeros((2,) + a.shape, np.float32),
+                        grads[0][0])
+    want = [[], []]
+    for step in range(2):
+        g = jax.tree.map(lambda *a: np.stack(a), grads[0][step],
+                         grads[1][step])
+        jmean, jerr = pmean(g, jerr)
+        for r in range(2):
+            want[r].append(jax.tree.map(lambda a: np.asarray(a)[r],
+                                        (jmean, jerr)))
+    for r in range(2):
+        target = jax.tree.map(lambda a: torch.zeros(a.shape), want[r])
+        got, _ = t_ckpt.restore(out.format(r), target)
+        assert_tree_close(got, want[r])
+
+
 # ---- checkpoints --------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -418,6 +493,93 @@ def test_checkpoint_errors_and_latest(tmp_path):
     assert (t_ckpt.latest_step_path(str(d))
             == j_ckpt.latest_step_path(str(d)) == str(d / "step_30.npz"))
     assert t_ckpt.latest_step_path(str(d), prefix="other_") == str(d / "other_50.npz")
+
+
+def _bf16_trees():
+    """A tree of bfloat16 (a 0-d one too), float32 and int32 leaves in both
+    packages, the bfloat16 leaves rounded from the same float32 values."""
+    rng = np.random.default_rng(11)
+    f32 = {"w": rng.normal(size=(3, 5)).astype(np.float32),
+           "n": {"s": np.float32(rng.normal()),
+                 "f": rng.normal(size=(4,)).astype(np.float32)},
+           "i": rng.integers(-9, 9, size=(2, 2)).astype(np.int32)}
+    bf16 = ("w", "s")
+    jtree = jax.tree_util.tree_map_with_path(
+        lambda p, a: jnp.asarray(a, jnp.bfloat16)
+        if jpath(p).split("/")[-1] in bf16 else jnp.asarray(a), f32)
+    ttree = pytree.tree_map(torch.from_numpy, jax.tree.map(np.asarray, f32))
+    ttree["w"] = ttree["w"].to(torch.bfloat16)
+    ttree["n"]["s"] = ttree["n"]["s"].to(torch.bfloat16)
+    return jtree, ttree
+
+
+def _assert_bits_equal(got, jtree):
+    """The port's tree ``got`` holds ``jtree``'s values bit for bit, in
+    JAX's dtypes (bfloat16 read through int16)."""
+    tl, jl = pytree.leaves(got), jax.tree.leaves(jtree)
+    assert len(tl) == len(jl)
+    for g, w in zip(tl, jl):
+        w = np.array(w)
+        if w.dtype == jnp.bfloat16:
+            assert g.dtype == torch.bfloat16
+            g, w = g.view(torch.int16), w.view(np.int16)
+        assert g.dtype == torch.from_numpy(w).dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_bf16_checkpoint_files_equal_jax(tmp_path):
+    """The port writes a bfloat16 leaf as JAX does (numpy ``|V2``, the
+    bit pattern): the two files hold the same arrays key for key, in
+    dtype and bytes, and JAX's ``restore`` reads the port's file."""
+    jtree, ttree = _bf16_trees()
+    tpath, jpath_ = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    t_ckpt.save(tpath, ttree, step=3)
+    j_ckpt.save(jpath_, jtree, step=3)
+    with np.load(tpath) as a, np.load(jpath_) as b:
+        assert list(a.keys()) == list(b.keys())
+        assert a["w"].dtype.str == a["n/s"].dtype.str == "|V2"
+        for k in a.keys():
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            assert a[k].tobytes() == b[k].tobytes(), k
+    got, meta = j_ckpt.restore(tpath, jtree)
+    assert meta == {"step": 3}
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(jtree)):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bf16_checkpoint_restores_bit_for_bit(tmp_path, writer):
+    """A bfloat16 tree written by either package restores into the
+    port's bfloat16 targets bit for bit (JAX's ``restore`` would return
+    the raw ``|V2`` arrays: a departure on purpose)."""
+    jtree, ttree = _bf16_trees()
+    path = str(tmp_path / "c.npz")
+    if writer == "jax":
+        j_ckpt.save(path, jtree, step=1)
+    else:
+        t_ckpt.save(path, ttree, step=1)
+    target = pytree.tree_map(torch.zeros_like, ttree)
+    got, meta = t_ckpt.restore(path, target)
+    assert meta == {"step": 1}
+    _assert_bits_equal(got, jtree)
+
+
+@pytest.mark.parametrize("case", ["float32_target", "numpy_target",
+                                  "four_bytes"])
+def test_raw_array_refused(tmp_path, case):
+    """A raw ``|V…`` array restores only into a bfloat16 target and only
+    at 2 bytes an item; otherwise ``ValueError`` names its key."""
+    path = str(tmp_path / "c.npz")
+    raw = np.zeros((2, 3), np.float32)
+    if case == "four_bytes":
+        np.savez(path, w=raw.view("V4"))
+        target = {"w": torch.zeros(2, 3, dtype=torch.bfloat16)}
+    else:
+        t_ckpt.save(path, {"w": torch.zeros(2, 3, dtype=torch.bfloat16)})
+        target = {"w": torch.zeros(2, 3) if case == "float32_target"
+                  else np.zeros((2, 3), np.float32)}
+    with pytest.raises(ValueError, match=r"^w: raw \|V[24] array"):
+        t_ckpt.restore(path, target)
 
 
 # ---- the token pipeline and the ERA dedup filter -----------------------------
@@ -522,6 +684,30 @@ def test_train_resume_equals_jax(jax_runs, jax_init, tmp_path, capsys):
     _, from_jax = t_train.train("qwen3-1.7b", **TRAIN_KW, ckpt_dir=d2,
                                 ckpt_every=100, device="cpu")
     assert_losses(from_jax, jax_runs["resumed"])
+
+
+def test_train_bf16_resume_exact(tmp_path, capsys):
+    """``train`` in bfloat16 checkpoints and resumes: 2 steps, a
+    checkpoint and a resumed run to step 4 give the straight run's losses
+    exactly (the restore is bit for bit and the CPU run deterministic),
+    and the checkpoint holds bfloat16 parameters as ``|V2``.  The port
+    draws its own bfloat16 parameters."""
+    d = str(tmp_path / "ck")
+    kw = {**TRAIN_KW, "dtype": torch.bfloat16, "device": "cpu"}
+    _, straight = t_train.train("qwen3-1.7b", **kw)
+    _, first = t_train.train("qwen3-1.7b", **{**kw, "steps": 2},
+                             ckpt_dir=d, ckpt_every=2)
+    capsys.readouterr()
+    params, resumed = t_train.train("qwen3-1.7b", **kw, ckpt_dir=d,
+                                    ckpt_every=100)
+    assert capsys.readouterr().out.splitlines()[0] == \
+        f"resumed from {d}/step_2.npz at step 2"
+    assert all(np.isfinite(straight))
+    assert first + resumed == straight
+    assert all(p.dtype == torch.bfloat16 for p in pytree.leaves(params))
+    with np.load(os.path.join(d, "step_2.npz")) as f:
+        assert f["0/embed"].dtype.str == "|V2"
+        assert f["1/m/embed"].dtype == np.float32
 
 
 @pytest.mark.parametrize("arch", UNPORTED + ["internvl2-2b"])
