@@ -117,6 +117,17 @@ class EraConfig:
 
 @dataclasses.dataclass
 class BuildReport:
+    """What one build did and how long each stage took (host clock).
+
+    ``t_text``, ``t_flatten`` and ``t_slice`` time the spans ``build/text``,
+    ``build/flatten`` and ``build/slice``; ``t_slice`` is also inside
+    ``t_prepare``.  ``bytes_to_host`` / ``bytes_to_device`` add up the
+    ``nbytes`` of every copy between host and device whose size grows
+    with the string or the number of sub-trees (a scalar or a vector of G
+    entries read back is left out), counted on a CPU device too, where a
+    copy moves nothing.  The batched builds and the stream count every
+    stage; the serial engine counts its partition and text."""
+
     vertical: VerticalStats
     prepare: PrepareStats
     n_prefixes: int = 0
@@ -126,6 +137,11 @@ class BuildReport:
     t_vertical: float = 0.0
     t_prepare: float = 0.0
     t_build: float = 0.0
+    t_text: float = 0.0     # the construction text packed or padded, copied
+    t_flatten: float = 0.0  # prepare state to a DeviceIndex, ell_host read
+    t_slice: float = 0.0    # the tree build's host state cut into sub-trees
+    bytes_to_host: int = 0
+    bytes_to_device: int = 0
 
     @property
     def t_total(self) -> float:
@@ -217,23 +233,30 @@ def _entry_flat_idx(entry, f_cap: int) -> np.ndarray:
     return g_i * f_cap + off + np.arange(freq, dtype=np.int64)
 
 
-def _flatten_state(groups, states):
+def _flatten_state(groups, states, copies=None):
     """(prefixes, freqs, ell) in sorted prefix order from a final (G, F)
     prepare state: ``ell`` is one gather on the state's device, indexed
-    by a flat index built there with ``repeat_interleave``."""
-    entries = _sorted_segments(groups)
-    f_cap = states.L.shape[1]
-    dev = states.L.device
-    freq = torch.tensor([e[3] for e in entries], dtype=torch.int64, device=dev)
-    seg = torch.tensor([e[1] * f_cap + e[2] for e in entries],
-                       dtype=torch.int64, device=dev)
-    first = torch.cumsum(freq, 0) - freq
-    total = int(freq.sum())
-    flat_idx = (torch.repeat_interleave(seg - first, freq)
-                + torch.arange(total, device=dev))
-    ell = states.L.reshape(-1)[flat_idx]
-    prefixes = [e[0] for e in entries]
-    freqs = np.array([e[3] for e in entries], np.int32)
+    by a flat index built there with ``repeat_interleave``.  ``copies``
+    (a ``BuildReport``) counts the two int64 segment vectors sent there
+    (leave it out for a state on the host)."""
+    with obs.tracer().span("flatten/segments") as sp:
+        entries = _sorted_segments(groups)
+        f_cap = states.L.shape[1]
+        dev = states.L.device
+        freq = torch.tensor([e[3] for e in entries], dtype=torch.int64,
+                            device=dev)
+        seg = torch.tensor([e[1] * f_cap + e[2] for e in entries],
+                           dtype=torch.int64, device=dev)
+        first = torch.cumsum(freq, 0) - freq
+        total = int(freq.sum())
+        flat_idx = (torch.repeat_interleave(seg - first, freq)
+                    + torch.arange(total, device=dev))
+        ell = states.L.reshape(-1)[flat_idx]
+        prefixes = [e[0] for e in entries]
+        freqs = np.array([e[3] for e in entries], np.int32)
+        sp.set(subtrees=len(entries), bytes=freq.nbytes + seg.nbytes)
+    if copies is not None:
+        copies.bytes_to_device += freq.nbytes + seg.nbytes
     return prefixes, freqs, ell
 
 
@@ -275,6 +298,7 @@ class EraIndexer:
                 group=cfg.group,
                 stats=vstats,
                 device=self.device,
+                copies=report,
             )
             sp.set(groups=len(groups))
         if report:
@@ -294,15 +318,27 @@ class EraIndexer:
         padded = self.alphabet.pad_string(s, extra=2 * self.config.w_max + 8)
         return torch.from_numpy(padded).to(self.device)
 
-    def _device_text(self, s: np.ndarray):
+    def _device_text(self, s: np.ndarray, report: BuildReport | None = None):
         """The device-resident string for construction reads: the dense
         :class:`packing.PackedText` or the terminal-padded byte string, per
-        ``EraConfig.packing``; construction output is identical."""
-        if packing.resolve_dense(self.config.packing, self.alphabet):
-            return packing.pack_text(s, self.alphabet,
-                                     extra=2 * self.config.w_max + 8,
-                                     device=self.device)
-        return self._pad(s)
+        ``EraConfig.packing``; construction output is identical.  Both are
+        made on the host and copied once: ``report`` takes the time
+        (``t_text``) and the bytes."""
+        t0 = time.perf_counter()
+        dense = packing.resolve_dense(self.config.packing, self.alphabet)
+        with obs.tracer().span("build/text",
+                               currency="dense" if dense else "byte") as sp:
+            if dense:
+                text = packing.pack_text(s, self.alphabet,
+                                         extra=2 * self.config.w_max + 8,
+                                         device=self.device)
+            else:
+                text = self._pad(s)
+            sp.set(bytes=text.nbytes)
+        if report is not None:
+            report.t_text = time.perf_counter() - t0
+            report.bytes_to_device += text.nbytes
+        return text
 
     def _prepare_batched(self, s: np.ndarray, report: BuildReport):
         """partition → padded (G, F) batched prepare, timing into ``report``.
@@ -312,13 +348,14 @@ class EraIndexer:
             return groups, None, None
         capacity = self._capacity(groups)
         report.capacity = capacity
-        s_padded = self._device_text(s)
+        s_padded = self._device_text(s, report)
         t0 = time.perf_counter()
         states = subtree_prepare_batch(s_padded, groups, capacity,
                                        self.config.elastic_config(),
                                        report.prepare,
                                        sort_fuse=self.config.sort_fuse,
-                                       compact=self.config.compaction)
+                                       compact=self.config.compaction,
+                                       copies=report)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         report.t_prepare = time.perf_counter() - t0
@@ -386,7 +423,7 @@ class EraIndexer:
         groups = self.partition(s, report)
         capacity = self._capacity(groups)
         report.capacity = capacity
-        s_text = self._device_text(s)
+        s_text = self._device_text(s, report)
 
         t0 = time.perf_counter()
         subtrees: dict[tuple, SubTree] = {}
@@ -413,11 +450,15 @@ class EraIndexer:
         subtrees: dict[tuple, SubTree] = {}
         if states is not None:
             t0 = time.perf_counter()
-            host = _HostState(states)
-            for g_i, g in enumerate(groups):
-                for st in self._slice_subtrees(host.group(g_i), g):
-                    subtrees[st.prefix] = st
-            report.t_prepare += time.perf_counter() - t0
+            with obs.tracer().span("build/slice") as sp:
+                host = _HostState(states)
+                for g_i, g in enumerate(groups):
+                    for st in self._slice_subtrees(host.group(g_i), g):
+                        subtrees[st.prefix] = st
+                sp.set(subtrees=len(subtrees), bytes=host.nbytes)
+            report.t_slice = time.perf_counter() - t0
+            report.t_prepare += report.t_slice
+            report.bytes_to_host += host.nbytes
 
             t0 = time.perf_counter()
             if self.config.build_impl != "none":
@@ -425,12 +466,14 @@ class EraIndexer:
                                        subtrees=len(subtrees),
                                        node_lcp=self.config.node_lcp):
                     self._attach_nodes_batched(states, groups, subtrees,
-                                               len(s), s_text=s_text)
+                                               len(s), copies=report,
+                                               s_text=s_text)
             report.t_build = time.perf_counter() - t0
         return SuffixTreeIndex(s=np.asarray(s), alphabet=self.alphabet,
                                subtrees=subtrees, device=self.device)
 
     def _attach_nodes_batched(self, states, groups, subtrees, n_total: int,
+                              *, copies: BuildReport,
                               s_text=None) -> None:
         """All sub-trees' node sets through size-bucketed batched builds.
 
@@ -442,9 +485,11 @@ class EraIndexer:
         before one host copy (:func:`build.unpad_nodes_rows`).  With
         ``EraConfig(node_lcp="words")`` the divergence rows come from the
         text (:func:`build.boff_rows_from_text`) instead of the stored
-        ``b_off``; the node sets are identical.
+        ``b_off``; the node sets are identical.  ``copies`` counts the
+        rows' index and mask sent and the node sets read back.
         """
         use_words = self.config.node_lcp == "words" and s_text is not None
+        tracer = obs.tracer()
         entries = _sorted_segments(groups)
         f_cap = states.L.shape[1]
         dev = states.L.device
@@ -462,29 +507,38 @@ class EraIndexer:
                 real_cells = sum(entries[e_i][3] for e_i in rows)
                 fill = real_cells / (len(rows) * f_pad)
                 fill_hist.observe(fill)
-            with obs.tracer().span("build/node_bucket", f_pad=f_pad,
-                                   rows=len(rows), fill=round(fill, 4)):
-                idx = np.zeros((len(rows), f_pad), np.int64)
-                mask = np.zeros((len(rows), f_pad), bool)
-                for r, e_i in enumerate(rows):
-                    freq = entries[e_i][3]
-                    idx[r, :freq] = _entry_flat_idx(entries[e_i], f_cap)
-                    mask[r, :freq] = True
-                idx = torch.from_numpy(idx).to(dev)
-                mask = torch.from_numpy(mask).to(dev)
-                ell_rows = torch.where(mask, flat_L[idx], n_total)
-                if use_words:
-                    boff_rows = build_mod.boff_rows_from_text(
-                        s_text, ell_rows, n_total)
-                else:
-                    boff_rows = torch.where(mask, flat_b[idx], 0)
+            with tracer.span("build/node_bucket", f_pad=f_pad,
+                             rows=len(rows), fill=round(fill, 4)):
+                with tracer.span("nodes/rows") as sp:
+                    idx = np.zeros((len(rows), f_pad), np.int64)
+                    mask = np.zeros((len(rows), f_pad), bool)
+                    for r, e_i in enumerate(rows):
+                        freq = entries[e_i][3]
+                        idx[r, :freq] = _entry_flat_idx(entries[e_i], f_cap)
+                        mask[r, :freq] = True
+                    sp.set(bytes=idx.nbytes + mask.nbytes)
+                    copies.bytes_to_device += idx.nbytes + mask.nbytes
+                    idx = torch.from_numpy(idx).to(dev)
+                    mask = torch.from_numpy(mask).to(dev)
+                    ell_rows = torch.where(mask, flat_L[idx], n_total)
+                with tracer.span("nodes/lcp", words=use_words):
+                    if use_words:
+                        boff_rows = build_mod.boff_rows_from_text(
+                            s_text, ell_rows, n_total)
+                    else:
+                        boff_rows = torch.where(mask, flat_b[idx], 0)
                 del idx, mask
-                nodes = build_mod.build_parallel_batch(ell_rows, boff_rows,
-                                                       n_total)
-                compact = build_mod.unpad_nodes_rows(
-                    nodes, [entries[e_i][3] for e_i in rows])
-                for e_i, node_set in zip(rows, compact):
-                    subtrees[entries[e_i][0]].nodes = node_set
+                with tracer.span("nodes/cartesian"):
+                    nodes = build_mod.build_parallel_batch(
+                        ell_rows, boff_rows, n_total)
+                with tracer.span("nodes/extract") as sp:
+                    moved = copies.bytes_to_host + copies.bytes_to_device
+                    compact = build_mod.unpad_nodes_rows(
+                        nodes, [entries[e_i][3] for e_i in rows], copies)
+                    for e_i, node_set in zip(rows, compact):
+                        subtrees[entries[e_i][0]].nodes = node_set
+                    sp.set(bytes=copies.bytes_to_host
+                           + copies.bytes_to_device - moved)
 
     def build_analytics(self, s: np.ndarray,
                         report: BuildReport | None = None, **device_kwargs):
@@ -516,20 +570,26 @@ class EraIndexer:
         device_kwargs.setdefault("packing", self.config.packing)
         if self.config.construction != "batched":
             return self.build(s, report).to_device(**device_kwargs)
-        groups, states, _ = self._prepare_batched(s, report)
-        if states is None:
-            raise ValueError("cannot flatten an empty index")
-        prefixes, freqs, ell = _flatten_state(groups, states)
-        del states
-        return DeviceIndex.from_prepare(
-            alphabet=self.alphabet,
-            s=np.asarray(s),
-            prefixes=prefixes,
-            freqs=freqs,
-            ell=ell,
-            device=self.device,
-            **device_kwargs,
-        )
+        with obs.tracer().build_span("build/device", n=len(s)):
+            groups, states, _ = self._prepare_batched(s, report)
+            if states is None:
+                raise ValueError("cannot flatten an empty index")
+            t0 = time.perf_counter()
+            with obs.tracer().span("build/flatten"):
+                prefixes, freqs, ell = _flatten_state(groups, states, report)
+                del states
+                dev = DeviceIndex.from_prepare(
+                    alphabet=self.alphabet,
+                    s=np.asarray(s),
+                    prefixes=prefixes,
+                    freqs=freqs,
+                    ell=ell,
+                    device=self.device,
+                    copies=report,
+                    **device_kwargs,
+                )
+            report.t_flatten = time.perf_counter() - t0
+        return dev
 
 
     def build_stream(self, s: np.ndarray, report: BuildReport | None = None,
@@ -549,26 +609,32 @@ class EraIndexer:
         report = report if report is not None else BuildReport(
             VerticalStats(), PrepareStats())
         device_kwargs.setdefault("packing", self.config.packing)
-        groups = self.partition(s, report)
-        if not groups:
-            raise ValueError("cannot flatten an empty index")
-        capacity = self._capacity(groups)
-        report.capacity = capacity
-        s_text = self._device_text(s)
-        t0 = time.perf_counter()
-        states, srep = subtree_prepare_stream(
-            s_text, groups, capacity, self.config.elastic_config(),
-            device_budget=device_budget, overlap=overlap,
-            stats=report.prepare, report=stream_report,
-            sort_fuse=self.config.sort_fuse,
-            compact=self.config.compaction)
-        report.t_prepare = time.perf_counter() - t0  # the drain synced
-        del s_text
-        prefixes, freqs, ell = _flatten_state(groups, states)
-        del states
-        dev = DeviceIndex.from_prepare(
-            alphabet=self.alphabet, s=np.asarray(s), prefixes=prefixes,
-            freqs=freqs, ell=ell, device=self.device, **device_kwargs)
+        with obs.tracer().build_span("build/stream", n=len(s)):
+            groups = self.partition(s, report)
+            if not groups:
+                raise ValueError("cannot flatten an empty index")
+            capacity = self._capacity(groups)
+            report.capacity = capacity
+            s_text = self._device_text(s, report)
+            t0 = time.perf_counter()
+            states, srep = subtree_prepare_stream(
+                s_text, groups, capacity, self.config.elastic_config(),
+                device_budget=device_budget, overlap=overlap,
+                stats=report.prepare, report=stream_report,
+                sort_fuse=self.config.sort_fuse,
+                compact=self.config.compaction, copies=report)
+            report.t_prepare = time.perf_counter() - t0  # the drain synced
+            del s_text
+            t0 = time.perf_counter()
+            with obs.tracer().span("build/flatten"):
+                # the drained state is on the host: its segments cost no copy
+                prefixes, freqs, ell = _flatten_state(groups, states)
+                del states
+                dev = DeviceIndex.from_prepare(
+                    alphabet=self.alphabet, s=np.asarray(s),
+                    prefixes=prefixes, freqs=freqs, ell=ell,
+                    device=self.device, copies=report, **device_kwargs)
+            report.t_flatten = time.perf_counter() - t0
         return dev, srep
 
     # ---- incremental append ------------------------------------------------
@@ -966,6 +1032,11 @@ class _HostState:
         self.b_off = states.b_off.cpu().numpy()
         self.b_c1 = states.b_c1.cpu().numpy()
         self.b_c2 = states.b_c2.cpu().numpy()
+
+    @property
+    def nbytes(self) -> int:
+        return (self.L.nbytes + self.b_off.nbytes + self.b_c1.nbytes
+                + self.b_c2.nbytes)
 
     def group(self, g_i: int) -> "_HostState":
         view = object.__new__(_HostState)

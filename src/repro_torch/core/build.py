@@ -505,11 +505,14 @@ def unpad_nodes_row(parent_row: np.ndarray, depth_row: np.ndarray,
     return SubTreeNodes(parent, depth, witness, f + int(valid.sum()), f)
 
 
-def unpad_nodes_rows(nodes: SubTreeNodes, freqs) -> list[SubTreeNodes]:
+def unpad_nodes_rows(nodes: SubTreeNodes, freqs,
+                     copies=None) -> list[SubTreeNodes]:
     """:func:`unpad_nodes_row` for every row of a batched build at once:
     the compact slots of all rows are gathered on the rows' device into one
     flat array per field and copied to the host once (half the bytes of
-    the padded rows), then split into per-row views.
+    the padded rows), then split into per-row views.  Given ``copies`` (a
+    ``BuildReport``), the row counts sent and every array read back add
+    to ``copies.bytes_to_device`` / ``copies.bytes_to_host``.
 
     Compact slot ``c`` of a row with ``f`` leaves reads row-space id ``c``
     (a leaf, c < f), ``F_pad + f`` (the depth-0 root, c == f) or
@@ -538,13 +541,16 @@ def unpad_nodes_rows(nodes: SubTreeNodes, freqs) -> list[SubTreeNodes]:
            torch.where(empty, 0, d_v), torch.where(empty, -1, w_v)]
     n_int = torch.zeros(freqs.shape[0], dtype=torch.int64, device=dev)
     n_int.index_add_(0, row, (~empty & (c >= f)).to(torch.int64))
-    cuts = np.cumsum(sizes.cpu().numpy())[:-1]
-    parent_h, depth_h, witness_h = (np.split(x.cpu().numpy(), cuts)
-                                    for x in out)
-    fs = freqs.cpu().numpy()
+    host = [x.cpu().numpy() for x in (sizes, *out, freqs, n_int)]
+    if copies is not None:
+        copies.bytes_to_device += freqs.nbytes
+        copies.bytes_to_host += sum(x.nbytes for x in host)
+    sizes_h, *out_h, fs, n_int_h = host
+    cuts = np.cumsum(sizes_h)[:-1]
+    parent_h, depth_h, witness_h = (np.split(x, cuts) for x in out_h)
     return [SubTreeNodes(p_r, d_r, w_r, int(fr + ni), int(fr))
             for p_r, d_r, w_r, fr, ni in zip(parent_h, depth_h, witness_h,
-                                             fs, n_int.cpu().numpy())]
+                                             fs, n_int_h)]
 
 
 # ---------------------------------------------------------------------------

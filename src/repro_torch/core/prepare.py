@@ -91,13 +91,18 @@ class ElasticConfig:
     static_w: int = 16
 
 
-def _init_arrays(groups: list[VirtualTree], capacity: int, device):
+def _init_arrays(groups: list[VirtualTree], capacity: int, device,
+                 copies=None):
     """(L, start, area) as (G, capacity) int32 tensors on ``device``.
 
     Each prefix's segment gets its own initial area (id = segment start);
     frequency-1 prefixes are born resolved.  One scatter per field: the
     prefixes' positions are concatenated in group order and placed by a
-    flat index built with ``repeat_interleave``.
+    flat index built with ``repeat_interleave``.  The four per-segment
+    vectors go to the device, and the positions too where they are not
+    tensors already (the partition leaves them on the device); given
+    ``copies`` (a ``BuildReport``) their bytes add to
+    ``copies.bytes_to_device``.
     """
     g = len(groups)
     L = torch.full((g, capacity), -1, dtype=torch.int32, device=device)
@@ -114,10 +119,15 @@ def _init_arrays(groups: list[VirtualTree], capacity: int, device):
             seg_freq.append(p.freq)
             seg_len.append(p.length)
             seg_area.append(off if p.freq > 1 else -1)
+            if copies is not None and not isinstance(p.positions,
+                                                     torch.Tensor):
+                copies.bytes_to_device += np.asarray(p.positions).nbytes
             pos.append(torch.as_tensor(p.positions, device=device))
             off += p.freq
     if not pos:
         return L, start, area
+    if copies is not None:  # int64 freq and start, int32 length and area
+        copies.bytes_to_device += 24 * len(seg_freq)
     freq = torch.tensor(seg_freq, dtype=torch.int64, device=device)
     first = torch.cumsum(freq, 0) - freq           # segment start in ``pos``
     total = int(sum(seg_freq))
@@ -133,12 +143,13 @@ def _init_arrays(groups: list[VirtualTree], capacity: int, device):
 
 
 def init_batch(groups: list[VirtualTree], capacity: int,
-               device="cuda") -> PrepareState:
-    """Stack ALL groups into one padded (G, F) state for the batched engine."""
+               device="cuda", copies=None) -> PrepareState:
+    """Stack ALL groups into one padded (G, F) state for the batched engine
+    (``copies``: see :func:`_init_arrays`)."""
     if not groups:
         raise ValueError("init_batch needs at least one group")
     dev = kops.resolve_device(device)
-    L, start, area = _init_arrays(groups, capacity, dev)
+    L, start, area = _init_arrays(groups, capacity, dev, copies)
     shape = L.shape
     return PrepareState(
         L=L, start=start, area=area,
@@ -149,12 +160,15 @@ def init_batch(groups: list[VirtualTree], capacity: int,
 
 
 def _host_init_batch(groups: list[VirtualTree], capacity: int,
-                     pin: bool = False) -> PrepareState:
+                     pin: bool = False, copies=None) -> PrepareState:
     """The stacked (G, F) state built on the host — the unit the streaming
     pipeline stages for its host→device copies; ``pin`` builds it in
     page-locked memory, so those copies run asynchronously.  The fields
     are those of :func:`init_batch`; each prefix's segment is one slice
-    write (a host copy), as in the JAX package's ``_init_arrays``."""
+    write (a host copy), as in the JAX package's ``_init_arrays``.
+    Positions held as tensors (on the device, from the partition) come to
+    the host for it; given ``copies`` their bytes add to
+    ``copies.bytes_to_host``."""
     if not groups:
         raise ValueError("init_batch needs at least one group")
     shape = (len(groups), capacity)
@@ -174,8 +188,11 @@ def _host_init_batch(groups: list[VirtualTree], capacity: int,
         for p in group.prefixes:
             f = p.freq
             pos = p.positions
-            L[g_i, off:off + f] = (pos.cpu().numpy()
-                                   if isinstance(pos, torch.Tensor) else pos)
+            if isinstance(pos, torch.Tensor):
+                pos = pos.cpu().numpy()
+                if copies is not None:
+                    copies.bytes_to_host += pos.nbytes
+            L[g_i, off:off + f] = pos
             start[g_i, off:off + f] = p.length
             if f > 1:
                 area[g_i, off:off + f] = off
@@ -482,13 +499,17 @@ def _record_prepare_metrics(group_iters: list, wall_s: float,
         cfg.r_budget_symbols)
 
 
-def _record_offsets(stats: PrepareStats | None, state: PrepareState) -> None:
+def _record_offsets(stats: PrepareStats | None, state: PrepareState,
+                    copies=None) -> None:
     """Append the read offsets of every active row (``L + start``, int64,
-    in row order) when ``stats.record_offsets`` asks for them."""
+    in row order) when ``stats.record_offsets`` asks for them (a host
+    read, counted into ``copies.bytes_to_host``)."""
     if stats is not None and stats.record_offsets:
         act = state.area >= 0
-        stats.offsets_history.append(
-            (state.L + state.start)[act].cpu().numpy().astype(np.int64))
+        offs = (state.L + state.start)[act].cpu().numpy()
+        if copies is not None:
+            copies.bytes_to_host += offs.nbytes
+        stats.offsets_history.append(offs.astype(np.int64))
 
 
 def init_state(group: VirtualTree, capacity: int,
@@ -565,6 +586,7 @@ def subtree_prepare_batch(
     max_iters: int = 10_000,
     sort_fuse: bool | None = None,
     compact: bool | None = None,
+    copies=None,
 ) -> PrepareState:
     """Run SubTreePrepare to completion for ALL virtual trees at once on
     the device that holds ``text`` (a dense :class:`PackedText` or the
@@ -575,15 +597,18 @@ def subtree_prepare_batch(
     — or the explicit arguments — pin the oracle paths.  The elastic range
     is shared across the batch, keyed to the busiest group.
     ``REPRO_WORD_COMPARE=byte`` runs a dense text on byte keys (the
-    oracle); the arrays are identical.
+    oracle); the arrays are identical.  ``copies`` (a ``BuildReport``)
+    counts the state's set-up copies (:func:`init_batch`).
     """
     word_keys = kops._use_word_compare()
-    states = init_batch(groups, capacity, text.device)
+    with obs.tracer().span("prepare/init", groups=len(groups),
+                           capacity=capacity):
+        states = init_batch(groups, capacity, text.device, copies)
+        n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
     if sort_fuse is None:
         sort_fuse = kops._use_sort_fuse()
     if compact is None:
         compact = kops._use_compaction()
-    n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
     group_iters = np.zeros(len(groups), np.int64)
     it = 0
     t0 = time.perf_counter()
@@ -602,7 +627,7 @@ def subtree_prepare_batch(
                     f"SubTreePrepare failed to converge after {it} "
                     f"iterations (w={w}, {len(live)}/{len(groups)} groups "
                     f"active): {detail}")
-            _record_offsets(stats, states)
+            _record_offsets(stats, states, copies)
             group_iters += n_active > 0
             f_prime = (compaction_width(int(n_active.max()), capacity)
                        if compact else None)
@@ -636,17 +661,20 @@ def subtree_prepare_batch(
 class StreamReport:
     """Accounting for one out-of-core streaming build (paper §4.1 scaled
     to device memory): how many chunks the planner cut, how much
-    host→device traffic the pipeline moved, and how much of it was hidden
-    behind the elastic-range loop of the previous chunk."""
+    host→device traffic the pipeline moved, how long the copies took and
+    how much of that was hidden behind the elastic-range loop of the
+    previous chunk.  Every time is measured: a synchronous copy by the
+    host's clock around the copy and its synchronize, a standby copy by a
+    CUDA event pair around it on the side stream."""
 
     n_chunks: int = 0
     overlap: bool = True
     groups: int = 0
     iterations: int = 0            # summed over chunk loops
     bytes_copied: int = 0          # host->device state traffic
-    copy_s: float = 0.0            # estimated total copy wall time
-    copy_hidden_s: float = 0.0     # portion overlapped with compute
-    copy_wait_s: float = 0.0       # blocking remainder actually observed
+    copy_s: float = 0.0            # measured total copy time
+    copy_hidden_s: float = 0.0     # standby copy time beyond its wait
+    copy_wait_s: float = 0.0       # blocking wait on the standby copies
     chunk_iters: list = dataclasses.field(default_factory=list)
 
     @property
@@ -673,6 +701,7 @@ def subtree_prepare_stream(
     max_iters: int = 10_000,
     sort_fuse: bool | None = None,
     compact: bool | None = None,
+    copies=None,
 ) -> tuple[PrepareState, StreamReport]:
     """Out-of-core SubTreePrepare: pipeline group chunks through a device
     memory budget with double-buffered host→device copies, on the device
@@ -684,23 +713,25 @@ def subtree_prepare_stream(
     runs the loop of :func:`subtree_prepare_batch` on its own rows, the
     elastic range keyed to the chunk's busiest group.  A chunk's state is
     built on the host (page-locked on a card); chunk 0 is copied
-    synchronously, which calibrates the copy rate, and with ``overlap``
-    the copy of chunk k+1 starts on a side CUDA stream right after
-    chunk k dispatches its first step, so it transfers behind the chunk's
-    loop.  The compute stream waits on the side stream before chunk k+1
-    starts, and the staged tensors are recorded on the compute stream so
-    the caching allocator does not hand their memory out early.  The loop
-    reads ``n_active`` back once per iteration and syncs nothing else.
-    ``overlap=False`` copies each chunk synchronously.  On the CPU the
-    same loop runs without streams or pinning.
+    synchronously, and with ``overlap`` the copy of chunk k+1 starts on a
+    side CUDA stream right after chunk k dispatches its first step, so it
+    transfers behind the chunk's loop.  The compute stream waits on the
+    side stream before chunk k+1 starts, and the staged tensors are
+    recorded on the compute stream so the caching allocator does not hand
+    their memory out early.  The loop reads ``n_active`` back once per
+    iteration and syncs nothing else.  ``overlap=False`` copies each chunk
+    synchronously.  On the CPU the same loop runs without streams or
+    pinning, and a standby "copy" takes no time.
 
     Range choice never changes results (Fig. 9b), so the arrays equal the
     one-shot build's; only ``start`` may differ when the per-chunk range
     schedules diverge from the global one.  Returns ``(state, report)``:
     the full (G, F) :class:`PrepareState` as CPU tensors in the original
-    group order, and the copy-overlap accounting (``copy_s`` estimates
-    each prefetched copy from the calibrated rate, as the JAX package
-    does; ``copy_wait_s`` is the blocking wait observed).
+    group order, and the copy accounting (:class:`StreamReport`: the
+    standby copies timed by CUDA events on the side stream, read once
+    their wait has synchronized with them).  ``copies`` (a
+    ``BuildReport``) counts the positions read for each chunk's host
+    state, the state copies and the drains.
     """
     if not groups:
         raise ValueError("subtree_prepare_stream needs at least one group")
@@ -726,52 +757,60 @@ def subtree_prepare_stream(
     out = PrepareState(*(torch.empty((g_total, capacity), dtype=torch.int32)
                          for _ in range(6)))
     chunks = list(plan.chunks)
-    copy_rate = None  # bytes/s, calibrated by the chunk-0 synchronous copy
+    tracer = obs.tracer()
 
     def host_state(lo: int, hi: int) -> PrepareState:
-        return _host_init_batch(groups[lo:hi], capacity, pin=on_card)
+        with tracer.span("stream/host_init", groups=hi - lo) as sp:
+            host = _host_init_batch(groups[lo:hi], capacity, pin=on_card,
+                                    copies=copies)
+            if tracer.enabled:  # the int64 positions read to the host
+                sp.set(bytes=8 * sum(g.total_freq for g in groups[lo:hi]))
+        return host
 
     def copy_sync(host: PrepareState) -> PrepareState:
-        nonlocal copy_rate
         nb = _state_nbytes(host)
-        t = time.perf_counter()
-        state = PrepareState(*(h.to(dev, non_blocking=True) for h in host))
-        if on_card:
-            compute.synchronize()
-        dt = max(time.perf_counter() - t, 1e-9)
-        rep.copy_s += dt
+        with tracer.span("stream/copy", bytes=nb):
+            t = time.perf_counter()
+            state = PrepareState(*(h.to(dev, non_blocking=True)
+                                   for h in host))
+            if on_card:
+                compute.synchronize()
+            rep.copy_s += time.perf_counter() - t
         rep.bytes_copied += nb
-        if copy_rate is None:
-            copy_rate = nb / dt
+        if copies is not None:
+            copies.bytes_to_device += nb
         return state
 
     def copy_async(host: PrepareState):
-        """Start the standby copy; returns (staged state, its done event)."""
+        """Start the standby copy; returns (staged state, start event,
+        done event), the events timing the copy on the side stream."""
         if not on_card:
-            return host, None
+            return host, None, None
         with torch.cuda.stream(side):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(side)
             staged = PrepareState(*(h.to(dev, non_blocking=True)
                                     for h in host))
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(enable_timing=True)
             done.record(side)
-        return staged, done
+        return staged, start, done
 
     group_iters = np.zeros(g_total, np.int64)
     t0 = time.perf_counter()
-    with obs.tracer().span("stream/pipeline", chunks=plan.n_chunks,
-                           groups=g_total, capacity=capacity,
-                           overlap=overlap) as sp_pipe:
+    with tracer.span("stream/pipeline", chunks=plan.n_chunks,
+                     groups=g_total, capacity=capacity,
+                     overlap=overlap) as sp_pipe:
         lo0, hi0 = chunks[0]
         states = copy_sync(host_state(lo0, hi0))
         for ci, (lo, hi) in enumerate(chunks):
             nxt = chunks[ci + 1] if ci + 1 < len(chunks) else None
             host_next = host_state(*nxt) if nxt is not None else None
             standby = None
-            t_issue = 0.0
+            t_issue, issuer = 0, None
             n_active = (states.area >= 0).sum(dim=1).cpu().numpy()
             it = 0
-            with obs.tracer().span("stream/chunk", chunk=ci,
-                                   groups=hi - lo) as sp:
+            with tracer.span("stream/chunk", chunk=ci,
+                             groups=hi - lo) as sp:
                 while int(n_active.max()) > 0:
                     w = elastic_range(cfg, int(n_active.max()))
                     if it >= max_iters:
@@ -783,7 +822,7 @@ def subtree_prepare_stream(
                     f_prime = (compaction_width(int(n_active.max()),
                                                 capacity)
                                if compact else None)
-                    with obs.tracer().span(
+                    with tracer.span(
                             "prepare/step", w=w,
                             n_active=int(n_active.sum()),
                             groups_active=int((n_active > 0).sum()),
@@ -799,7 +838,8 @@ def subtree_prepare_stream(
                     if overlap and standby is None and host_next is not None:
                         # the step above is queued on the compute stream:
                         # the standby copy transfers behind the chunk's loop
-                        t_issue = time.perf_counter()
+                        t_issue = time.perf_counter_ns()
+                        issuer = tracer.current()
                         standby = copy_async(host_next)
                     if stats is not None:
                         total_active = int(n_active.sum())
@@ -814,8 +854,12 @@ def subtree_prepare_stream(
             rep.chunk_iters.append(it)
             # drain this chunk to its host slice (waits on the chunk's
             # compute stream, not on the standby copy)
-            for o, d in zip(out, states):
-                o[lo:hi].copy_(d)
+            nb = _state_nbytes(states)
+            with tracer.span("stream/drain", chunk=ci, bytes=nb):
+                for o, d in zip(out, states):
+                    o[lo:hi].copy_(d)
+            if copies is not None:
+                copies.bytes_to_host += nb
             if host_next is None:
                 continue
             if standby is None:
@@ -824,7 +868,7 @@ def subtree_prepare_stream(
                 states = copy_sync(host_next)
                 continue
             nb = _state_nbytes(host_next)
-            staged, done = standby
+            staged, start, done = standby
             t_wait = time.perf_counter()
             if on_card:
                 done.synchronize()
@@ -832,17 +876,22 @@ def subtree_prepare_stream(
                 for t in staged:
                     t.record_stream(compute)
             wait = time.perf_counter() - t_wait
+            # both events have completed: reading them syncs nothing more
+            copy = start.elapsed_time(done) / 1e3 if on_card else 0.0
+            hidden = max(copy - wait, 0.0)
             states = staged
-            est = max(nb / copy_rate, wait)  # >= the observed blocking time
             rep.bytes_copied += nb
-            rep.copy_s += est
+            if copies is not None:
+                copies.bytes_to_device += nb
+            rep.copy_s += copy
             rep.copy_wait_s += wait
-            rep.copy_hidden_s += est - wait
-            obs.tracer().complete(
-                "stream/standby_copy", int(t_issue * 1e9),
-                int(max(time.perf_counter() - t_issue, 1e-9) * 1e9),
-                chunk=ci + 1, bytes=nb, wait_ms=round(wait * 1e3, 3),
-                hidden_frac=round((est - wait) / est, 4) if est > 0 else 1.0)
+            rep.copy_hidden_s += hidden
+            tracer.complete(
+                "stream/standby_copy", t_issue,
+                time.perf_counter_ns() - t_issue, track="cuda/side_stream",
+                parent=issuer, chunk=ci + 1, bytes=nb,
+                copy_ms=round(copy * 1e3, 3), wait_ms=round(wait * 1e3, 3),
+                hidden_frac=round(hidden / copy, 4) if copy > 0 else 0.0)
         sp_pipe.set(iterations=rep.iterations,
                     copy_ms=round(rep.copy_s * 1e3, 3),
                     hidden_ms=round(rep.copy_hidden_s * 1e3, 3),

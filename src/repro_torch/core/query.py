@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packing as packing_mod
 from repro_torch.kernels import ops as kops
 
@@ -205,66 +206,93 @@ class DeviceIndex:
                      max_pattern_len: int = 512,
                      packing: str = "auto",
                      k_route: int | None = None,
-                     epoch: int = 0, device="cuda") -> "DeviceIndex":
+                     epoch: int = 0, device="cuda",
+                     copies=None) -> "DeviceIndex":
         """Assemble from construction output: sorted prefix tuples, their
         leaf counts and the concatenated leaf arrays (a device tensor from
         the batched engine stays on the device; the routing tables are
-        computed on the host from the prefix metadata)."""
+        computed on the host from the prefix metadata).  Given ``copies``
+        (a ``BuildReport``), the tables, the served text and the leaf
+        order uploaded (where it is not a tensor on the device's type)
+        add to ``copies.bytes_to_device``, ``ell_host`` to
+        ``copies.bytes_to_host``."""
         dev = kops.resolve_device(device)
         base = alphabet.base
         if not prefixes:
             raise ValueError("cannot flatten an empty index")
-        freqs = np.asarray(freqs, np.int32)
-        offs = np.concatenate([[0], np.cumsum(freqs)[:-1]]).astype(np.int32)
-        total = int(freqs.sum())
+        tracer = obs.tracer()
+        with tracer.span("flatten/routes", subtrees=len(prefixes)) as sp:
+            freqs = np.asarray(freqs, np.int32)
+            offs = np.concatenate([[0], np.cumsum(freqs)[:-1]]).astype(np.int32)
+            total = int(freqs.sum())
 
-        max_plen = max(len(p) for p in prefixes)
-        plen = np.array([len(p) for p in prefixes], np.int32)
-        pref = np.full((len(prefixes), max_plen), -1, np.int32)
-        for t, p in enumerate(prefixes):
-            pref[t, : len(p)] = p
+            max_plen = max(len(p) for p in prefixes)
+            plen = np.array([len(p) for p in prefixes], np.int32)
+            pref = np.full((len(prefixes), max_plen), -1, np.int32)
+            for t, p in enumerate(prefixes):
+                pref[t, : len(p)] = p
 
-        if k_route is None:
-            k_route = route_depth(base, max_plen, route_cap)
-        n_cells = base**k_route
+            if k_route is None:
+                k_route = route_depth(base, max_plen, route_cap)
+            n_cells = base**k_route
 
-        # each sub-tree owns the depth-k_route code interval [clo, chi] of
-        # its (truncated) prefix; prefix-freeness keeps them sorted
-        clo = np.zeros(len(prefixes), np.int64)
-        chi = np.zeros(len(prefixes), np.int64)
-        for t, p in enumerate(prefixes):
-            kk = min(len(p), k_route)
-            c = 0
-            for j in range(kk):
-                c = c * base + p[j]
-            clo[t] = c * base ** (k_route - kk)
-            chi[t] = clo[t] + base ** (k_route - kk) - 1
-        codes = np.arange(n_cells, dtype=np.int64)
-        off_ext = np.concatenate([offs, [total]]).astype(np.int32)
-        win_lo = off_ext[np.searchsorted(chi, codes, side="left")]
-        t_last = np.searchsorted(clo, codes, side="right") - 1
-        win_hi = np.where(t_last >= 0, offs[np.maximum(t_last, 0)]
-                          + freqs[np.maximum(t_last, 0)], 0).astype(np.int32)
+            # each sub-tree owns the depth-k_route code interval [clo, chi]
+            # of its (truncated) prefix; prefix-freeness keeps them sorted
+            clo = np.zeros(len(prefixes), np.int64)
+            chi = np.zeros(len(prefixes), np.int64)
+            for t, p in enumerate(prefixes):
+                kk = min(len(p), k_route)
+                c = 0
+                for j in range(kk):
+                    c = c * base + p[j]
+                clo[t] = c * base ** (k_route - kk)
+                chi[t] = clo[t] + base ** (k_route - kk) - 1
+            codes = np.arange(n_cells, dtype=np.int64)
+            off_ext = np.concatenate([offs, [total]]).astype(np.int32)
+            win_lo = off_ext[np.searchsorted(chi, codes, side="left")]
+            t_last = np.searchsorted(clo, codes, side="right") - 1
+            win_hi = np.where(t_last >= 0, offs[np.maximum(t_last, 0)]
+                              + freqs[np.maximum(t_last, 0)],
+                              0).astype(np.int32)
 
-        n_iter = int(np.ceil(np.log2(total + 1))) + 1
-        pows = (base ** np.arange(k_route - 1, -1, -1)).astype(np.int32)
-        spans = (base ** (k_route - np.arange(k_route + 1)) - 1).astype(np.int32)
-        if packing_mod.resolve_dense(packing, alphabet):
-            s_text = packing_mod.pack_text(np.asarray(s), alphabet,
-                                           extra=max_pattern_len + 8,
-                                           device=dev)
-        else:  # the served padding contract: max_pattern_len + 8 (C6)
-            s_text = torch.from_numpy(alphabet.pad_string(
-                np.asarray(s), extra=max_pattern_len + 8)).to(dev)
-        ell_dev = torch.as_tensor(ell).to(device=dev, dtype=torch.int32)
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            n_iter = int(np.ceil(np.log2(total + 1))) + 1
+            pows = (base ** np.arange(k_route - 1, -1, -1)).astype(np.int32)
+            spans = (base ** (k_route - np.arange(k_route + 1))
+                     - 1).astype(np.int32)
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            tables = dict(sub_off=t(offs), sub_freq=t(freqs),
+                          sub_prefix=t(pref), sub_plen=t(plen),
+                          win_lo=t(win_lo), win_hi=t(win_hi), pows=t(pows),
+                          spans=t(spans))
+            nb = sum(a.nbytes for a in tables.values())
+            sp.set(k_route=k_route, bytes=nb)
+        if copies is not None:
+            copies.bytes_to_device += nb
+        with tracer.span("flatten/text") as sp:
+            if packing_mod.resolve_dense(packing, alphabet):
+                s_text = packing_mod.pack_text(np.asarray(s), alphabet,
+                                               extra=max_pattern_len + 8,
+                                               device=dev)
+            else:  # the served padding contract: max_pattern_len + 8 (C6)
+                s_text = torch.from_numpy(alphabet.pad_string(
+                    np.asarray(s), extra=max_pattern_len + 8)).to(dev)
+            sp.set(bytes=s_text.nbytes)
+        if copies is not None:
+            copies.bytes_to_device += s_text.nbytes
+        with tracer.span("flatten/to_host") as sp:
+            upload = not (isinstance(ell, torch.Tensor)
+                          and ell.device.type == dev.type)
+            ell_dev = torch.as_tensor(ell).to(device=dev, dtype=torch.int32)
+            ell_host = ell_dev.cpu().numpy()
+            sp.set(bytes=ell_host.nbytes * (2 if upload else 1))
+        if copies is not None:
+            copies.bytes_to_host += ell_host.nbytes
+            if upload:
+                copies.bytes_to_device += ell_dev.nbytes
         return cls(
             base=base, k_route=k_route, n_iter=n_iter,
             max_pattern_len=max_pattern_len, s_text=s_text,
-            ell=ell_dev, ell_host=ell_dev.cpu().numpy(),
-            sub_off=t(offs), sub_freq=t(freqs), sub_prefix=t(pref),
-            sub_plen=t(plen), win_lo=t(win_lo), win_hi=t(win_hi),
-            pows=t(pows), spans=t(spans), epoch=int(epoch),
+            ell=ell_dev, ell_host=ell_host, epoch=int(epoch), **tables,
         )
 
     # ---- persistence (the JAX package's npz layout) -------------------------

@@ -5,7 +5,11 @@ into sub-trees ``T_p`` indexed by variable-length S-prefixes ``p`` with
 frequency ``0 < f_p <= F_M``, then packs them into virtual trees (groups)
 by first-fit-decreasing.
 
-The string is uploaded to ``device`` once.  Iteration ``t`` of the
+The string is uploaded to ``device`` once.  Given ``copies`` (a
+``BuildReport``), the partition adds the bytes it moves between host and
+device to ``copies.bytes_to_device`` / ``copies.bytes_to_host``: the
+string, and per depth the candidate codes and their counts and the
+survivors' codes and position bounds.  Iteration ``t`` of the
 ``histogram`` strategy extends the rolling base-``|Σ|+1`` window codes of
 every suffix by one symbol on the device and counts the candidate
 prefixes:
@@ -28,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops as kops
 
 _KERNEL_NBINS_MAX = 1 << 16  # kmer_histogram bin bound
@@ -80,11 +85,13 @@ def _window_codes(s_padded: torch.Tensor, n: int, t: int, base: int,
 
 def _candidate_counts(s_padded: torch.Tensor, codes: torch.Tensor, n: int,
                       t: int, base: int, cand: np.ndarray) -> np.ndarray:
-    """Frequency of each candidate depth-``t`` prefix code (int64 numpy)."""
+    """Frequency of each candidate depth-``t`` prefix code (numpy, int32
+    from the kernel's bins, else int64): the codes go to the device and
+    one count each comes back."""
     if base**t <= _KERNEL_NBINS_MAX:
         hist = kops.kmer_histogram(s_padded[:n + max(t, 2)], n, t, base)
         idx = torch.as_tensor(cand, device=hist.device)
-        return hist[idx].cpu().numpy().astype(np.int64)
+        return hist[idx].cpu().numpy()
     cand_t = torch.as_tensor(cand, device=codes.device)
     cand_sorted, order = torch.sort(cand_t)
     idx = torch.searchsorted(cand_sorted, codes)
@@ -103,7 +110,8 @@ class _PositionIndex:
         self.sorted_codes, self.order = torch.sort(codes, stable=True)
 
     def positions_of(self, codes: list[int]) -> list[torch.Tensor]:
-        """Ascending positions of each code, with one host sync for all."""
+        """Ascending positions of each code, with one host sync for all:
+        the codes go to the device, two int64 bounds each come back."""
         c = torch.as_tensor(codes, dtype=torch.int64,
                             device=self.sorted_codes.device)
         lo = torch.searchsorted(self.sorted_codes, c, side="left")
@@ -120,6 +128,7 @@ def vertical_partition(
     strategy: str = "histogram",
     stats: VerticalStats | None = None,
     device="cuda",
+    copies=None,
 ) -> list[SubTreePrefix]:
     """Alg. VerticalPartitioning lines 1–11: the sub-tree prefix set."""
     if f_max < 1:
@@ -136,8 +145,13 @@ def vertical_partition(
 
     terminal = base - 1  # terminal is the largest code; pad continues it
     pad = np.full(max(t_max_code, 2), terminal, dtype=np.uint8)
-    s_padded = torch.from_numpy(
-        np.concatenate([np.asarray(s, np.uint8), pad])).to(dev)  # one upload
+    tracer = obs.tracer()
+    with tracer.span("vertical/upload") as sp:
+        s_padded = torch.from_numpy(
+            np.concatenate([np.asarray(s, np.uint8), pad])).to(dev)  # one upload
+        sp.set(bytes=s_padded.nbytes)
+    if copies is not None:
+        copies.bytes_to_device += s_padded.nbytes
 
     if strategy == "histogram":
         work = [(c,) for c in range(base)]
@@ -148,29 +162,42 @@ def vertical_partition(
             if t > t_max_code:
                 overflow.extend(work)
                 break
-            codes = _window_codes(s_padded, n, t, base, codes)
-            stats.scans += 1
-            stats.bytes_scanned += n
-            cand = np.array(
-                [sum(c * base ** (t - 1 - j) for j, c in enumerate(p)) for p in work],
-                dtype=np.int64,
-            )
-            freq_by_work = _candidate_counts(s_padded, codes, n, t, base, cand)
-            nxt: list[tuple[int, ...]] = []
-            found: list[tuple[tuple[int, ...], int, int]] = []
-            for w_i, p in enumerate(work):
-                f = int(freq_by_work[w_i])
-                if 0 < f <= f_max:
-                    found.append((p, f, int(cand[w_i])))
-                elif f > f_max:
-                    nxt.extend(p + (c,) for c in range(base))
-            if found:  # one grouping pass per iteration
-                pos_index = _PositionIndex(codes)
-                positions = pos_index.positions_of([c for _, _, c in found])
-                del pos_index
-                for (p, f, _), pos in zip(found, positions):
-                    survivors.append((p, f))
-                    survivor_positions[p] = pos
+            with tracer.span("vertical/count", t=t,
+                             candidates=len(work)) as sp:
+                codes = _window_codes(s_padded, n, t, base, codes)
+                stats.scans += 1
+                stats.bytes_scanned += n
+                cand = np.array(
+                    [sum(c * base ** (t - 1 - j) for j, c in enumerate(p))
+                     for p in work],
+                    dtype=np.int64,
+                )
+                freq_by_work = _candidate_counts(s_padded, codes, n, t, base,
+                                                 cand)
+                nxt: list[tuple[int, ...]] = []
+                found: list[tuple[tuple[int, ...], int, int]] = []
+                for w_i, p in enumerate(work):
+                    f = int(freq_by_work[w_i])
+                    if 0 < f <= f_max:
+                        found.append((p, f, int(cand[w_i])))
+                    elif f > f_max:
+                        nxt.extend(p + (c,) for c in range(base))
+                if found:  # one grouping pass per iteration
+                    pos_index = _PositionIndex(codes)
+                    positions = pos_index.positions_of(
+                        [c for _, _, c in found])
+                    del pos_index
+                    for (p, f, _), pos in zip(found, positions):
+                        survivors.append((p, f))
+                        survivor_positions[p] = pos
+                # candidate codes out and their counts back, then int64
+                # survivor codes out and their (lo, hi) bounds back
+                to_dev = cand.nbytes + 8 * len(found)
+                to_host = freq_by_work.nbytes + 16 * len(found)
+                sp.set(found=len(found), bytes=to_dev + to_host)
+            if copies is not None:
+                copies.bytes_to_device += to_dev
+                copies.bytes_to_host += to_host
             work = nxt
         del codes
     else:
@@ -178,36 +205,37 @@ def vertical_partition(
 
     # ---- phase 2: position refinement (beyond-paper / overflow) ----------
     if overflow:
-        pending: list[tuple[tuple[int, ...], torch.Tensor]] = []
-        for p in overflow:
-            t = len(p)
-            if t == 1:
-                pos = torch.nonzero(s_padded[:n] == p[0]).flatten()
-            else:
-                mask = torch.ones(n, dtype=torch.bool, device=dev)
-                for j, c in enumerate(p):
-                    mask &= s_padded[j:j + n] == c
-                pos = torch.nonzero(mask).flatten()
-                stats.bytes_scanned += n
-            pending.append((p, pos))
-        while pending:
-            stats.refine_steps += 1
-            nxt_pending = []
-            for p, pos in pending:
-                f = len(pos)
-                if f == 0:
-                    continue
-                if f <= f_max:
-                    survivors.append((p, f))
-                    survivor_positions[p] = pos
-                    continue
+        with tracer.span("vertical/refine", prefixes=len(overflow)):
+            pending: list[tuple[tuple[int, ...], torch.Tensor]] = []
+            for p in overflow:
                 t = len(p)
-                nxt_sym = s_padded[pos + t]
-                for c in range(base):
-                    child_pos = pos[nxt_sym == c]
-                    if len(child_pos):
-                        nxt_pending.append((p + (c,), child_pos))
-            pending = nxt_pending
+                if t == 1:
+                    pos = torch.nonzero(s_padded[:n] == p[0]).flatten()
+                else:
+                    mask = torch.ones(n, dtype=torch.bool, device=dev)
+                    for j, c in enumerate(p):
+                        mask &= s_padded[j:j + n] == c
+                    pos = torch.nonzero(mask).flatten()
+                    stats.bytes_scanned += n
+                pending.append((p, pos))
+            while pending:
+                stats.refine_steps += 1
+                nxt_pending = []
+                for p, pos in pending:
+                    f = len(pos)
+                    if f == 0:
+                        continue
+                    if f <= f_max:
+                        survivors.append((p, f))
+                        survivor_positions[p] = pos
+                        continue
+                    t = len(p)
+                    nxt_sym = s_padded[pos + t]
+                    for c in range(base):
+                        child_pos = pos[nxt_sym == c]
+                        if len(child_pos):
+                            nxt_pending.append((p + (c,), child_pos))
+                pending = nxt_pending
 
     return [
         SubTreePrefix(symbols=p, freq=f, positions=survivor_positions[p])
@@ -243,10 +271,12 @@ def vertical_partition_grouped(
     group: bool = True,
     stats: VerticalStats | None = None,
     device="cuda",
+    copies=None,
 ) -> list[VirtualTree]:
     """Full vertical partitioning: prefix set + (optional) grouping."""
     prefixes = vertical_partition(s, base, f_max, strategy=strategy,
-                                  stats=stats, device=device)
-    if group:
-        return group_prefixes(prefixes, f_max)
-    return [VirtualTree(prefixes=[p]) for p in prefixes]
+                                  stats=stats, device=device, copies=copies)
+    with obs.tracer().span("vertical/group", prefixes=len(prefixes)):
+        if group:
+            return group_prefixes(prefixes, f_max)
+        return [VirtualTree(prefixes=[p]) for p in prefixes]

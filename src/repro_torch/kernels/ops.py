@@ -77,7 +77,6 @@ from repro_torch.kernels.search import (
     search_loop,
 )
 from repro_torch.kernels.suffix_lcp import suffix_lcp_pairs as _suffix_lcp_bytes
-from repro_torch.roofline.hopper import HopperLimits
 
 KERNELS = {
     "range_gather_words": range_gather_words,
@@ -140,30 +139,20 @@ def reset_launch_counts() -> None:
 _SHAPES_SEEN: set[tuple] = set()
 _SHAPES_LOCK = threading.Lock()
 _BLOCK_THREADS = 256  # threads per block of the recorded launches
-_HBM_BYTES_PER_S = HopperLimits().hbm_bytes_per_s
 
 
-def _record(kernel: str, currency: str, *arrays, w: int,
-            row_bytes) -> None:
+def _record(kernel: str, currency: str, *arrays) -> None:
     """One dispatch of ``kernel`` on ``currency`` over ``arrays`` (the
-    first holds the rows).  ``row_bytes()`` is what the Hopper kernel
-    moves per row at most (inputs read once, text the widest compare
-    reads, outputs written once), so the instant's
-    ``roofline_pred_bytes`` over the card's memory rate is its
-    ``roofline_hbm_us``; it is evaluated only when tracing."""
+    first holds the rows)."""
     tr_on, m_on = obs.trace_enabled(), obs.metrics_enabled()
     if not (tr_on or m_on):
         return
     impl = "cuda" if arrays[0].is_cuda else "ref"
     rows = int(arrays[0].shape[0])
     if tr_on:
-        pred_bytes = rows * row_bytes()
         obs.tracer().instant(
             f"kernel/{kernel}/dispatch", kernel=kernel, impl=impl,
-            currency=currency, rows=rows, tile=_BLOCK_THREADS,
-            roofline_pred_bytes=pred_bytes,
-            roofline_pred_flops=rows * max(w, 1),
-            roofline_hbm_us=pred_bytes / _HBM_BYTES_PER_S * 1e6)
+            currency=currency, rows=rows, tile=_BLOCK_THREADS)
     if not m_on:
         return
     m = obs.metrics()
@@ -179,26 +168,6 @@ def _record(kernel: str, currency: str, *arrays, w: int,
         m.counter("kernel_distinct_shapes_total",
                   "distinct argument shapes per kernel",
                   kernel=kernel, currency=currency).inc()
-
-
-def _text_row_bytes(s_text, syms: int) -> int:
-    """Bytes of text one read of ``syms`` symbols touches: the dense words
-    it spans plus the word a funnel shift straddles, or the bytes plus the
-    word a byte pick straddles."""
-    if isinstance(s_text, PackedText):
-        return (-(-syms * s_text.bits // 32) + 1) * 4
-    return syms + 4
-
-
-def _search_row_bytes(s_text, pat: torch.Tensor, *, n_iter: int,
-                      bounds: int, word: bool) -> int:
-    """Per pattern row of a search: its pattern and mask rows, window (and
-    lengths and limits on words), ``bounds`` results, and per trip of each
-    bound one ``ell`` entry and the text of a full-width compare."""
-    nw = pat.shape[1]
-    syms = nw * (s_text.syms_per_word if word else 4)
-    ins = 2 * nw * 4 + (4 if word else 2) * 4
-    return ins + bounds * (4 + n_iter * (4 + _text_row_bytes(s_text, syms)))
 
 
 def resolve_device(device) -> torch.device:
@@ -222,9 +191,7 @@ def range_gather(s_text, offs: torch.Tensor, w: int,
     terminal-padded byte string — identical keys either way.  Rows whose
     ``mask`` is False are zero, in either kernel."""
     packed = isinstance(s_text, PackedText)
-    _record("range_gather", "packed" if packed else "byte", offs, w=w,
-            row_bytes=lambda: (offs.element_size()
-                               + _text_row_bytes(s_text, w) + w))
+    _record("range_gather", "packed" if packed else "byte", offs)
     if packed:
         return range_gather_packed(s_text, offs, w, mask)
     return range_gather_pack(s_text, offs, w, mask)
@@ -236,9 +203,7 @@ def gather_words(pt: PackedText, offs: torch.Tensor, w: int,
     word currency's gather (``repro.kernels.ops.range_gather_words_impl``),
     one ``range_gather_words`` launch.  Rows whose ``mask`` is False are
     zero."""
-    _record("range_gather", "word", offs, w=w,
-            row_bytes=lambda: (offs.element_size()
-                               + (2 * -(-w // pt.syms_per_word) + 1) * 4))
+    _record("range_gather", "word", offs)
     return range_gather_words(pt, offs, w, mask)
 
 
@@ -255,10 +220,7 @@ def search_bounds(s_text, ell: torch.Tensor, pat: torch.Tensor,
     ``REPRO_WORD_COMPARE=byte``), one ``search_bounds_bytes`` launch on the
     terminal-padded byte string.  ``lengths`` and ``lim_p`` feed the word
     compare only."""
-    _record("pattern_probe", _currency(s_text, word), pat,
-            w=pat.shape[1] * (s_text.syms_per_word if word else 4),
-            row_bytes=lambda: _search_row_bytes(
-                s_text, pat, n_iter=n_iter, bounds=bounds, word=word))
+    _record("pattern_probe", _currency(s_text, word), pat)
     if word:
         return search_bounds_words(s_text, ell, pat, mask, lengths, lim_p,
                                    lo0, hi0, n_iter=n_iter, bounds=bounds)
@@ -281,19 +243,12 @@ def search_fetch(s_text, ell: torch.Tensor, pat: torch.Tensor,
     terminal-padded byte string.  ``lengths`` feed the word compare
     only.  On the byte string the launch records the probe and the gather
     the JAX package composes there."""
-    syms = pat.shape[1] * (s_text.syms_per_word if word else 4)
-    search = lambda: _search_row_bytes(s_text, pat, n_iter=n_iter, bounds=2,
-                                       word=word)
-    # the window: fetch symbols read, written as words, start, count and
-    # verified
-    window = lambda: _text_row_bytes(s_text, fetch) + fetch + 12
     currency = _currency(s_text, word)
     if currency == "byte":
-        _record("pattern_probe", "byte", pat, w=syms, row_bytes=search)
-        _record("range_gather", "byte", pat, w=fetch, row_bytes=window)
+        _record("pattern_probe", "byte", pat)
+        _record("range_gather", "byte", pat)
     else:
-        _record("probe_gather", currency, pat, w=max(syms, fetch),
-                row_bytes=lambda: search() + window())
+        _record("probe_gather", currency, pat)
     if word:
         return search_fetch_words(s_text, ell, pat, mask, lengths, lo0, hi0,
                                   n_iter=n_iter, fetch=fetch)
@@ -311,16 +266,14 @@ def suffix_lcp_pairs(s_text, pos_a: torch.Tensor, pos_b: torch.Tensor,
     kernel (``suffix_lcp_words``) or, under ``REPRO_WORD_COMPARE=byte``,
     two byte-key gathers and ``lcp_pairs``; on a byte string the
     ``suffix_lcp_pairs`` kernel."""
-    row_bytes = lambda: (2 * pos_a.element_size()
-                         + 2 * _text_row_bytes(s_text, w) + 4)
     if isinstance(s_text, PackedText):
         if _use_word_compare():
-            _record("suffix_lcp", "word", pos_a, w=w, row_bytes=row_bytes)
+            _record("suffix_lcp", "word", pos_a)
             return suffix_lcp_words(s_text, pos_a, pos_b, w)
         a = range_gather(s_text, pos_a, w)
         b = range_gather(s_text, pos_b, w)
         return lcp_pairs(a, b, w)[0]
-    _record("suffix_lcp", "byte", pos_a, w=w, row_bytes=row_bytes)
+    _record("suffix_lcp", "byte", pos_a)
     return _suffix_lcp_bytes(s_text, pos_a, pos_b, w)
 
 

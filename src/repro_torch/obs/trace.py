@@ -20,6 +20,15 @@ Two exporters:
 * :meth:`Tracer.to_jsonl` — one plain JSON object per line, for ad-hoc
   ``jq``/pandas analysis without a trace viewer.
 
+Every event carries its own ``id`` (a per-tracer sequence number) and
+the ``id`` of its ``parent``: the span open on the recording thread when
+it began, so a span names the span that caused it.  Work the recording
+thread hands elsewhere (a copy on a side CUDA stream) is recorded after
+the fact by :meth:`Tracer.complete` on a named *track*: its own ``tid``
+and depth 0, out of the recording thread's nesting, its parent the span
+that issued it.  On one thread's own events, at each depth the intervals
+are disjoint and every child lies inside its parent.
+
 Overhead contract (the reason this module has no dependencies and no
 clever features): when tracing is disabled every ``span()`` call returns
 the shared :data:`NULL_SPAN` singleton after one attribute check — no
@@ -32,6 +41,7 @@ programmatically via :func:`repro_torch.obs.configure`.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -60,7 +70,8 @@ class _Span:
     """One live span (context manager); records itself into the tracer
     ring buffer on exit.  ``set(**attrs)`` adds attributes mid-span."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth", "_id",
+                 "_parent")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -68,7 +79,7 @@ class _Span:
         self.attrs = attrs
 
     def __enter__(self):
-        self._depth = self._tracer._push()
+        self._depth, self._id, self._parent = self._tracer._push()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -76,7 +87,8 @@ class _Span:
         dur = time.perf_counter_ns() - self._t0
         self._tracer._pop()
         self._tracer._record(self.name, self._t0, dur, self._depth,
-                             self.attrs)
+                             self.attrs, span_id=self._id,
+                             parent=self._parent)
         return False
 
     def set(self, **attrs) -> None:
@@ -102,6 +114,9 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._t_origin = time.perf_counter_ns()
+        self._ids = itertools.count()
+        self._tracks: dict[str, int] = {}
+        self._builds = 0
         self.n_dropped = 0
 
     # ---- recording --------------------------------------------------------
@@ -112,38 +127,86 @@ class Tracer:
             return NULL_SPAN
         return _Span(self, name, attrs)
 
+    def build_span(self, name: str, **attrs):
+        """A build's root span: :meth:`span` with ``build``, the number of
+        build spans this tracer opened before it, among its attributes."""
+        if not self.enabled:
+            return NULL_SPAN
+        with self._lock:
+            attrs["build"] = self._builds
+            self._builds += 1
+        return _Span(self, name, attrs)
+
+    def current(self) -> int | None:
+        """The ``id`` of the innermost span open on the calling thread
+        (None outside every span, or when disabled)."""
+        stack = getattr(self._local, "stack", None)
+        return stack[-1] if self.enabled and stack else None
+
     def instant(self, name: str, **attrs) -> None:
         """A zero-duration point event (rendered as an arrow/mark)."""
         if not self.enabled:
             return
-        self._record(name, time.perf_counter_ns(), 0,
-                     getattr(self._local, "depth", 0), attrs, ph="i")
+        stack = self._stack()
+        self._record(name, time.perf_counter_ns(), 0, len(stack), attrs,
+                     ph="i", parent=stack[-1] if stack else None)
 
-    def complete(self, name: str, t_start_ns: int, dur_ns: int,
+    def complete(self, name: str, t_start_ns: int, dur_ns: int, *,
+                 track: str | None = None, parent: int | None = None,
                  **attrs) -> None:
         """Record an explicitly-timed span (e.g. a queue wait measured
-        from a request's admission timestamp)."""
+        from a request's admission timestamp); ``t_start_ns`` on the
+        ``time.perf_counter_ns`` clock.  Without ``track`` it sits on the
+        calling thread at the current depth, its parent the open span (or
+        ``parent``).  With ``track`` it goes on that named track (its own
+        ``tid``, depth 0), out of the calling thread's nesting; ``parent``
+        is then the id of the span that issued the work (see
+        :meth:`current`)."""
         if not self.enabled:
             return
-        self._record(name, t_start_ns, dur_ns,
-                     getattr(self._local, "depth", 0), attrs)
+        if track is None:
+            stack = self._stack()
+            depth, tid = len(stack), None
+            if parent is None and stack:
+                parent = stack[-1]
+        else:
+            depth = 0
+            with self._lock:
+                tid = self._tracks.setdefault(track, len(self._tracks) + 1)
+        self._record(name, t_start_ns, dur_ns, depth, attrs, parent=parent,
+                     tid=tid, track=track)
 
-    def _push(self) -> int:
-        depth = getattr(self._local, "depth", 0)
-        self._local.depth = depth + 1
-        return depth
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _push(self) -> tuple[int, int, int | None]:
+        """(depth, id, parent id) of a span opening on this thread."""
+        stack = self._stack()
+        span_id = next(self._ids)
+        parent = stack[-1] if stack else None
+        stack.append(span_id)
+        return len(stack) - 1, span_id, parent
 
     def _pop(self) -> None:
-        self._local.depth = getattr(self._local, "depth", 1) - 1
+        stack = self._stack()
+        if stack:
+            stack.pop()
 
-    def _record(self, name, t0_ns, dur_ns, depth, attrs, ph="X") -> None:
+    def _record(self, name, t0_ns, dur_ns, depth, attrs, ph="X", *,
+                span_id=None, parent=None, tid=None, track=None) -> None:
         evt = {
             "name": name,
             "ph": ph,
             "ts_ns": t0_ns - self._t_origin,
             "dur_ns": dur_ns,
-            "tid": threading.get_ident(),
+            "tid": threading.get_ident() if tid is None else tid,
             "depth": depth,
+            "id": next(self._ids) if span_id is None else span_id,
+            "parent": parent,
+            "track": track,
             "args": attrs,
         }
         with self._lock:
@@ -166,6 +229,7 @@ class Tracer:
         with self._lock:
             self._events.clear()
             self.n_dropped = 0
+            self._builds = 0
 
     def to_chrome(self) -> dict:
         """The Chrome ``trace_event`` object format (Perfetto-loadable).
@@ -174,13 +238,19 @@ class Tracer:
         stamps one on every per-shard dispatch) get that shard id as
         their ``pid``, so a multi-shard run renders as one process track
         per shard and traces from different shards merge side by side;
-        everything else stays on the host process track.
+        everything else stays on the host process track.  Each event's
+        ``id`` and ``parent`` go under ``args`` as ``span_id`` and
+        ``parent_id``; an event on a track gets the track's row, named
+        after it.
         """
         pid = os.getpid()
         out = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
                 "args": {"name": "repro-era"}}]
         shard_pids: set[int] = set()
+        tracks: dict[int, str] = {}
         for e in self.events():
+            if e["track"] is not None:
+                tracks[e["tid"]] = e["track"]
             cat = e["name"].split("/", 1)[0]
             shard = e["args"].get("shard")
             if isinstance(shard, (int, float)) and not isinstance(shard, bool):
@@ -195,20 +265,25 @@ class Tracer:
                 "ts": e["ts_ns"] / 1e3,   # trace_event ts is microseconds
                 "pid": evt_pid,
                 "tid": e["tid"],
-                "args": {k: _jsonable(v) for k, v in e["args"].items()},
+                "args": {**{k: _jsonable(v) for k, v in e["args"].items()},
+                         "span_id": e["id"], "parent_id": e["parent"]},
             }
             if e["ph"] == "X":
                 evt["dur"] = e["dur_ns"] / 1e3
             else:
                 evt["s"] = "t"            # instant scope: thread
             out.append(evt)
+        for tid, track in sorted(tracks.items()):
+            out.insert(1, {"name": "thread_name", "ph": "M", "pid": pid,
+                           "tid": tid, "args": {"name": track}})
         for k in sorted(shard_pids):
             out.insert(1, {"name": "process_name", "ph": "M", "pid": k,
                            "tid": 0, "args": {"name": f"repro-era shard {k}"}})
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
     def to_jsonl(self) -> str:
-        """One JSON object per line: name, ts_ns, dur_ns, tid, depth, args."""
+        """One JSON object per line: name, ph, ts_ns, dur_ns, tid, depth,
+        id, parent, track, args."""
         lines = []
         for e in self.events():
             e = dict(e, args={k: _jsonable(v) for k, v in e["args"].items()})

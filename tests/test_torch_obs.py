@@ -5,13 +5,18 @@ construction, streaming, append, fabric and serving sites record the JAX
 package's spans, instants and metric series.  On the CPU:
 
 (a) the recorders alone, fed the same events with the clock patched to a
-    counter, export the same Chrome trace, JSONL and Prometheus text; the
-    knobs off hand out the shared null span and instrument;
+    counter, export the same Chrome trace, JSONL and Prometheus text but
+    for the port's event ids and parents; the knobs off hand out the
+    shared null span and instrument;
 (b) ``build`` (``node_lcp="words"``), ``build_device``, ``build_stream``
     in several chunks, the serial engine, ``append_device``, and
     ``build_sharded`` / ``find_batch`` / ``find_fetch_batch`` /
-    ``append_sharded`` on 2 shards record the same spans in the same
-    order and at the same depth, with equal timing-free attributes;
+    ``append_sharded`` on 2 shards: the port records every JAX span in
+    JAX's order, with JAX's timing-free attributes and the same nesting
+    among them, once its own spans (``PORT_ONLY``) are taken out; its own
+    spans appear where they should, nest on the recording thread, and the
+    stream's standby copy sits on its own track; the build's timers and
+    byte counters add up to the copies the build makes;
 (c) the serving stack, single and sharded, records the same series and
     label sets, equal counter values and histogram counts, and every
     dispatch's link joins a queue wait;
@@ -27,6 +32,7 @@ fixtures that read them clear JAX's caches first.  Tolerance: exact.
 """
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -48,7 +54,9 @@ from repro.launch import serving as jserving
 from repro_torch import obs as tobs
 from repro_torch.core import iomodel
 from repro_torch.core.alphabet import ALPHABETS
-from repro_torch.core.api import EraConfig, EraIndexer
+from repro_torch.core.api import BuildReport, EraConfig, EraIndexer
+from repro_torch.core.prepare import PrepareStats
+from repro_torch.core.vertical import VerticalStats, vertical_partition
 from repro_torch.data.strings import dataset
 from repro_torch.launch import serving as tserving
 
@@ -58,7 +66,26 @@ N = 2_000
 CFG = dict(memory_bytes=2048, r_bytes=256)
 # attributes that carry wall time, left out of the comparison
 TIMED = {"stream/pipeline": {"copy_ms", "hidden_ms", "overlap_frac"},
-         "stream/standby_copy": {"wait_ms", "hidden_frac"}}
+         "stream/standby_copy": {"wait_ms", "hidden_frac", "copy_ms"}}
+# the port's own spans, which name its host work, and the operations
+# that record each (``vertical/refine`` only under position refinement)
+PORT_SPANS = {
+    "build": {"build/text", "vertical/upload", "vertical/count",
+              "vertical/group", "prepare/init", "build/slice",
+              "nodes/rows", "nodes/lcp", "nodes/cartesian", "nodes/extract"},
+    "build_device": {"build/device", "build/text", "vertical/upload",
+                     "vertical/count", "vertical/group", "prepare/init",
+                     "build/flatten", "flatten/segments", "flatten/routes",
+                     "flatten/text", "flatten/to_host"},
+    "build_stream": {"build/stream", "build/text", "vertical/upload",
+                     "vertical/count", "vertical/group", "stream/host_init",
+                     "stream/copy", "stream/drain", "build/flatten",
+                     "flatten/segments", "flatten/routes", "flatten/text",
+                     "flatten/to_host"},
+}
+PORT_ONLY = set().union(*PORT_SPANS.values()) | {"vertical/refine"}
+ROOTS = {"build": "build/total", "build_device": "build/device",
+         "build_stream": "build/stream"}
 SERVE_COUNTERS = ("serve_requests_total", "serve_batches_total",
                   "serve_rows_real_total", "serve_rows_padded_total",
                   "serve_cache_hits_total", "serve_cache_misses_total",
@@ -91,13 +118,32 @@ def _record(o, fn) -> Capture:
     return Capture(o.tracer().events(), o.metrics().to_prometheus(), result)
 
 
-def _spans(cap: Capture) -> list:
+def _as_jax(events: list) -> list:
+    """The port's events as the JAX package records them: its own spans
+    taken out and every depth recounted over the ancestors left.  JAX
+    records a standby copy in the issuing thread's nesting, at its issuing
+    span's depth; the port puts it on a track, its parent that span."""
+    by_id = {e["id"]: e for e in events}
+
+    def depth(e) -> int:
+        d, parent = 0, e["parent"]
+        while parent is not None:
+            d += by_id[parent]["name"] not in PORT_ONLY
+            parent = by_id[parent]["parent"]
+        return d - (e["track"] is not None)
+
+    return [dict(e, depth=depth(e)) for e in events
+            if e["name"] not in PORT_ONLY]
+
+
+def _spans(cap: Capture, port: bool = False) -> list:
     """(name, depth, timing-free attributes) of every span and complete
-    event, in recording order."""
+    event, in recording order; ``port``: seen as JAX records them."""
+    events = _as_jax(cap.events) if port else cap.events
     return [(e["name"], e["depth"],
              {k: v for k, v in e["args"].items()
               if k not in TIMED.get(e["name"], ())})
-            for e in cap.events if e["ph"] == "X"]
+            for e in events if e["ph"] == "X"]
 
 
 def _series(prom: str) -> dict:
@@ -169,6 +215,14 @@ def _drive(o) -> tuple:
     return tr, m
 
 
+def _without_ids(chrome: dict) -> dict:
+    """A Chrome export without the port's ``span_id`` / ``parent_id``."""
+    events = [dict(e, args={k: v for k, v in e["args"].items()
+                            if k not in ("span_id", "parent_id")})
+              for e in chrome["traceEvents"]]
+    return dict(chrome, traceEvents=events)
+
+
 def test_recorders_export_alike(monkeypatch):
     outs = []
     for o in PKGS:
@@ -176,8 +230,20 @@ def test_recorders_export_alike(monkeypatch):
         monkeypatch.setattr(time, "perf_counter_ns", lambda: next(clock))
         outs.append(_drive(o))
     (jt, jm), (tt, tm) = outs
-    assert tt.to_chrome() == jt.to_chrome()
-    assert tt.to_jsonl() == jt.to_jsonl()
+    assert _without_ids(tt.to_chrome()) == jt.to_chrome()
+    lines = [json.loads(ln) for ln in tt.to_jsonl().splitlines()]
+    assert [{k: v for k, v in e.items() if k not in ("id", "parent", "track")}
+            for e in lines] == [json.loads(ln)
+                                for ln in jt.to_jsonl().splitlines()]
+    # ids in opening order; each event names the span open around it
+    names = {e["id"]: e["name"] for e in lines}
+    assert [(e["name"], names.get(e["parent"])) for e in lines] == [
+        ("kernel/range_gather/dispatch", "prepare/step"),
+        ("prepare/step", "build/total"),
+        ("serve/queue_wait", "build/total"), ("build/total", None),
+        ("fabric/find_batch", None), ("serve/pad_pack", None)]
+    assert len(names) == len(lines) and all(e["track"] is None
+                                            for e in lines)
     no_help = lambda p: [ln for ln in p.splitlines()
                          if not ln.startswith("# HELP")]
     assert no_help(tm.to_prometheus()) == no_help(jm.to_prometheus())
@@ -234,7 +300,9 @@ def builds():
     """Each construction path through both packages with the recorders
     on: {operation: (JAX capture, port capture)}, plus the union of every
     operation's kernel-dispatch labels per package (JAX's caches cleared
-    first, so each jitted path traces inside the window)."""
+    first, so each jitted path traces inside the window), the port's
+    ``BuildReport`` of ``build``, ``build_device`` and ``build_stream``,
+    and the string and indexer they ran on."""
     saved = _saved_state()
     jax.clear_caches()
     s, _ = dataset("dna", N, seed=1)
@@ -247,7 +315,14 @@ def builds():
     groups = ix["torch"].partition(s)
     cap = ix["torch"]._capacity(groups)
     budget = iomodel.state_bytes_per_group(cap) * len(groups) // 2
-    out, labels = {}, {"jax": set(), "torch": set()}
+    out, labels, reports = {}, {"jax": set(), "torch": set()}, {}
+
+    def report(pkg, op):
+        if pkg == "jax":
+            return None
+        reports[op] = BuildReport(VerticalStats(), PrepareStats())
+        return reports[op]
+
     try:
         def run(op, make):
             caps = []
@@ -263,11 +338,13 @@ def builds():
             return EraIndexer(ALPHABETS["dna"], EraConfig(**CFG, **kw),
                               device="cpu")
 
-        run("build", lambda p: indexer(p, node_lcp="words").build(s))
+        run("build", lambda p: indexer(p, node_lcp="words").build(
+            s, report(p, "build")))
         devs = run("build_device", lambda p: ix[p].build_device(
-            s, max_pattern_len=64))
+            s, report(p, "build_device"), max_pattern_len=64))
         run("build_stream", lambda p: ix[p].build_stream(
-            s, device_budget=budget, max_pattern_len=64))
+            s, report(p, "build_stream"), device_budget=budget,
+            max_pattern_len=64))
         run("serial", lambda p: indexer(p, construction="serial").build(s))
         dev = {"jax": devs[0].result, "torch": devs[1].result}
         run("append_device", lambda p: ix[p].append_device(dev[p], s2))
@@ -280,7 +357,7 @@ def builds():
         run("append_sharded", lambda p: ix[p].append_sharded(sh[p], s2))
     finally:
         _restore(saved)
-    return out, labels
+    return out, labels, reports, (s, ix["torch"])
 
 
 @pytest.mark.parametrize("op", ["build", "build_device", "build_stream",
@@ -288,8 +365,10 @@ def builds():
                                 "find_batch", "find_fetch_batch",
                                 "append_sharded"])
 def test_build_spans_match_jax(builds, op):
+    """Every JAX span, in JAX's order and nesting, with JAX's timing-free
+    attributes, once the port's own spans are taken out."""
     jcap, tcap = builds[0][op]
-    want, got = _spans(jcap), _spans(tcap)
+    want, got = _spans(jcap), _spans(tcap, port=True)
     assert [x[:2] for x in got] == [x[:2] for x in want]
     assert got == want
     names = {x[0] for x in got}
@@ -320,6 +399,146 @@ def _as_tracer(events):
     tr = tobs.Tracer(enabled=True)
     tr._events = list(events)
     return tr
+
+
+@pytest.mark.parametrize("op", ["build", "build_device", "build_stream"])
+def test_port_spans_nest(builds, op):
+    """On the recording thread, at each depth the spans are disjoint and
+    every event lies inside the span it names as its parent, one depth
+    below it; the build's own root holds everything."""
+    events = builds[0][op][1].events
+    by_id = {e["id"]: e for e in events}
+    main = [e for e in events if e["track"] is None]
+    assert len({e["tid"] for e in main}) == 1
+    by_depth: dict = {}
+    for e in main:
+        if e["ph"] == "X":
+            by_depth.setdefault(e["depth"], []).append(
+                (e["ts_ns"], e["ts_ns"] + e["dur_ns"]))
+    for rows in by_depth.values():
+        rows.sort()
+        assert all(a[1] <= b[0] for a, b in zip(rows, rows[1:]))
+    for e in main:
+        if e["parent"] is None:
+            assert e["depth"] == 0 and e["ph"] == "X"
+            continue
+        p = by_id[e["parent"]]
+        assert p["depth"] == e["depth"] - 1 and p["ph"] == "X"
+        assert p["ts_ns"] <= e["ts_ns"]
+        assert e["ts_ns"] + e["dur_ns"] <= p["ts_ns"] + p["dur_ns"]
+    roots = [e for e in main if e["parent"] is None]
+    assert [e["name"] for e in roots] == [ROOTS[op]]
+    if op != "build":
+        assert roots[0]["args"] == {"n": N + 1, "build": 0}  # terminal too
+
+
+@pytest.mark.parametrize("op", ["build", "build_device", "build_stream",
+                                "refine"])
+def test_port_spans_recorded(builds, op):
+    """Each of the port's own spans is recorded by the operation that
+    should record it, and those that move data carry their bytes."""
+    if op == "refine":
+        saved = _saved_state()
+        try:
+            tobs.configure(trace=True, clear=True)
+            s, _ = dataset("dna", 600, seed=4)
+            vertical_partition(s, ALPHABETS["dna"].base, 40,
+                               strategy="positions", device="cpu")
+            events = tobs.tracer().events()
+        finally:
+            _restore(saved)
+        assert {e["name"] for e in events} == {"vertical/upload",
+                                               "vertical/refine"}
+        return
+    events = builds[0][op][1].events
+    assert PORT_SPANS[op] <= {e["name"] for e in events}
+    moves = ("vertical/upload", "vertical/count", "build/text", "flatten/",
+             "build/slice", "nodes/rows", "nodes/extract", "stream/host",
+             "stream/copy", "stream/drain")
+    for e in events:
+        if e["name"].startswith(moves):
+            assert e["args"]["bytes"] > 0, e["name"]
+
+
+def test_standby_copy_on_its_own_track(builds):
+    """The stream's standby copies sit on the ``cuda/side_stream`` track,
+    out of the recording thread's nesting, each the child of the
+    ``stream/chunk`` that issued it; Chrome draws the track as a named
+    row of its own."""
+    events = builds[0]["build_stream"][1].events
+    by_id = {e["id"]: e for e in events}
+    main_tid = next(e["tid"] for e in events if e["parent"] is None)
+    copies = [e for e in events if e["name"] == "stream/standby_copy"]
+    assert copies
+    for e in copies:
+        assert (e["track"], e["depth"]) == ("cuda/side_stream", 0)
+        assert e["tid"] != main_tid
+        issuer = by_id[e["parent"]]
+        assert issuer["name"] == "stream/chunk"
+        assert e["args"]["chunk"] == issuer["args"]["chunk"] + 1
+    chrome = _as_tracer(events).to_chrome()["traceEvents"]
+    assert tobs.validate_chrome_trace({"traceEvents": chrome}) == []
+    rows = {e["tid"] for e in chrome if e["name"] == "stream/standby_copy"}
+    assert len(rows) == 1 and {"name": "cuda/side_stream"} in [
+        e["args"] for e in chrome
+        if e["ph"] == "M" and e["name"] == "thread_name"
+        and e["tid"] in rows]
+
+
+def _partition_copies(dev, n: int) -> tuple[int, int]:
+    """(to the device, to the host) bytes of the partition's copies, from
+    the index's prefix table alone: the string and its pad, per depth the
+    int64 candidate codes (every symbol at depth 1, then every symbol
+    after each proper prefix of a sub-tree's prefix) and their counts
+    (int32 kernel bins up to 2^16 of them, else int64), and per
+    sub-tree its int64 code and (lo, hi) bounds."""
+    base = dev.base
+    plen = dev.sub_plen.numpy()
+    prefixes = [tuple(r[:k]) for r, k in zip(dev.sub_prefix.numpy(), plen)]
+    inner = {p[:k] for p in prefixes for k in range(1, len(p))}
+    depths = [1] + [len(q) + 1 for q in inner]  # base candidates each
+    counts = sum(base * (4 if base**t <= 1 << 16 else 8) for t in depths)
+    pad = max(63 // int(np.ceil(np.log2(base))), 2)
+    t_subtrees = len(prefixes)
+    return (n + pad + 8 * base * len(depths) + 8 * t_subtrees,
+            counts + 16 * t_subtrees)
+
+
+def test_build_timers_and_copies(builds):
+    """``t_text``, ``t_flatten`` and ``t_slice`` time their stages;
+    ``build_device`` counts exactly the copies it makes: the partition's,
+    the construction text, the state's four per-segment vectors, the
+    flatten's two segment vectors, the index's tables and served text,
+    and ``ell_host`` back."""
+    _, _, reports, (s, tix) = builds
+    tree, index, stream = (reports[op] for op in
+                           ("build", "build_device", "build_stream"))
+    assert tree.t_text > 0 and tree.t_slice > 0
+    assert tree.t_slice <= tree.t_prepare and tree.t_flatten == 0
+    assert index.t_text > 0 and index.t_flatten > 0 and index.t_slice == 0
+    assert stream.t_text > 0 and stream.t_flatten > 0
+    dev = builds[0]["build_device"][1].result
+    assert index.bytes_to_host >= dev.ell_host.nbytes
+    v_dev, v_host = _partition_copies(dev, len(s))
+    t_subtrees = dev.n_subtrees
+    tables = sum(getattr(dev, k).nbytes for k in (
+        "sub_off", "sub_freq", "sub_prefix", "sub_plen", "win_lo", "win_hi",
+        "pows", "spans"))
+    assert index.bytes_to_host == v_host + dev.ell_host.nbytes
+    assert index.bytes_to_device == (
+        v_dev + tix._device_text(s).nbytes + 24 * t_subtrees
+        + 16 * t_subtrees + tables + dev.s_text.nbytes)
+    # the stream: every chunk's state to the device and back, the
+    # positions read for its host state, ell_host
+    sdev, srep = builds[0]["build_stream"][1].result
+    assert srep.bytes_copied > 0
+    assert stream.bytes_to_device >= srep.bytes_copied + v_dev
+    assert stream.bytes_to_host == (v_host + srep.bytes_copied
+                                    + 8 * (len(s)) + sdev.ell_host.nbytes)
+    # the tree: the state's four fields read for the slicing, the node
+    # sets (three int32 fields of two slots a leaf) and rows sent
+    assert tree.bytes_to_host > 16 * len(s) + 24 * len(s)
+    assert tree.bytes_to_device > tree.bytes_to_host // 8
 
 
 def test_prepare_metrics_match_jax(builds):
@@ -404,9 +623,10 @@ def test_serving_spans_match_jax(served, backend):
     jcap, tcap = served[backend]
     drop = {"serve/queue_wait"}  # its rows and link are compared below
     want = [x for x in _spans(jcap) if x[0] not in drop]
-    got = [x for x in _spans(tcap) if x[0] not in drop]
+    got = [x for x in _spans(tcap, port=True) if x[0] not in drop]
     assert got == want
-    waits = [x for x in _spans(tcap) if x[0] == "serve/queue_wait"]
+    waits = [x for x in _spans(tcap, port=True)
+             if x[0] == "serve/queue_wait"]
     assert waits == [x for x in _spans(jcap) if x[0] == "serve/queue_wait"]
     links = {a["link"] for _, _, a in waits}
     dispatch = [a for n, _, a in got if n == "serve/device_dispatch"]
@@ -499,32 +719,6 @@ def test_kernel_dispatch_labels_match_jax(builds, leg):
                              ("pattern_probe", "packed"),
                              ("probe_gather", "packed")}}[leg]
     assert want <= strip(got["torch"])
-
-
-def test_dispatch_instants_use_hopper_roofline(builds):
-    """The port's ``kernel/<kernel>/dispatch`` instants carry JAX's keys;
-    their predicted bytes are the Hopper kernel's (never JAX's tile-halo
-    model) over ``HopperLimits``' memory rate, at 256 threads a block."""
-    from repro_torch.roofline.hopper import HopperLimits
-    rate = HopperLimits().hbm_bytes_per_s
-    jcap, tcap = builds[0]["build"]
-    inst = lambda cap: [e["args"] for e in cap.events
-                        if e["name"].startswith("kernel/")]
-    want_keys = {frozenset(a) for a in inst(jcap)}
-    got = inst(tcap)
-    assert got and {frozenset(a) for a in got} == want_keys
-    for a in got:
-        assert a["impl"] == "ref" and a["tile"] == 256
-        assert a["roofline_pred_bytes"] > 0
-        assert a["roofline_pred_bytes"] != a["rows"] * 2 * a["tile"] * 4
-        assert a["roofline_hbm_us"] == pytest.approx(
-            a["roofline_pred_bytes"] / rate * 1e6)
-    gathers = [a for a in got if a["kernel"] == "range_gather"]
-    # int32 offsets, then per row the (nw + 1) text words read and the nw
-    # key words written (nw = ceil(w / 16) on 2-bit DNA)
-    for a in gathers:
-        nw = -(-(a["roofline_pred_flops"] // a["rows"]) // 16)
-        assert a["roofline_pred_bytes"] == a["rows"] * (4 + (2 * nw + 1) * 4)
 
 
 # ---- (e) the endpoint and the shard tracks -------------------------------
