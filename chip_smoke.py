@@ -4,6 +4,10 @@
 Drives ``repro_torch`` on one CUDA card, through the entry points a user
 calls, at chromosome scale (n = 2**27 symbols by default) on two paths:
 
+* first, the text packing (phase ``pack_text``) — ``pack_text_dense`` on a
+  2^N DNA string against its plain version and a numpy pack on the host,
+  its device ms beside its byte bound, ``pack_text`` on the host
+  clock;
 * the DNA path — the ``genome`` dataset, dense 2-bit words
   (``range_gather_words``, ``kmer_histogram``, and ``search_bounds_words``:
   each search batch one launch), plus a batch carrying the terminal code
@@ -863,6 +867,14 @@ def require_launches(counts: dict, kernels, what: str) -> None:
             raise AssertionError(f"{name} was never launched on {what}")
 
 
+def require_packs(launches: int, want: int, what: str) -> None:
+    """``pack_text_dense.launches`` (outside ``ops.KERNELS``, so not in
+    ``counts_now``) read after ``what``, counted from 0 just before it."""
+    if launches != want:
+        raise AssertionError(f"{what} launched pack_text_dense {launches} "
+                             f"times, not {want}")
+
+
 def flat_of(dev) -> dict:
     """A DeviceIndex's flat table on the host: its sorted prefixes, their
     leaf counts and ``ell_host`` (the layout ``ShardedIndex.flat_table``
@@ -935,6 +947,67 @@ def attention_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
     pairs = sum(min(i + 1, sk) for i in range(sq))
     return ((2 * b * sq * h * d + 2 * b * sk * kv * d) * itemsize,
             4.0 * b * h * pairs * d)
+
+
+def pack_text_phase(cuda, n_log2: int = 27) -> dict:
+    """``pack_text_dense`` on a 2^n_log2 DNA string with the construction
+    text's tail (``2 * w_max + 8`` = 520): the kernel's device ms (CUDA
+    events over back-to-back launches of the C entry), one wrapper call
+    (launch and flag read), ``pack_text`` on the host clock (the codes'
+    pageable copy, the launch, the flag), the plain version on the card,
+    a numpy pack on the host (``pack_text_stream`` in one chunk: the kind
+    of host work the kernel replaced), and the byte bound; the words held
+    equal to both."""
+    from repro_torch.core import packing
+    from repro_torch.core.alphabet import ALPHABETS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.pack_text import pack_text_dense
+
+    a, extra = ALPHABETS["dna"], 520
+    n = 1 << n_log2
+    s = a.random_string(n, seed=35)
+    n_words = -(-(n + extra) // 16) + 1
+    real = torch.from_numpy(s[:-1].copy()).to(cuda)
+    got = pack_text_dense(real, n_words, 2, "dna")
+    plain = kref.pack_text_dense_ref(real, n_words, 2)
+    t0 = time.perf_counter()
+    want = packing.pack_text_stream([s], a, extra=extra, device="cpu")
+    numpy_s = time.perf_counter() - t0
+    assert_equal(got, plain, "pack_text_dense against its plain version")
+    assert_equal(got.cpu(), want.words,
+                 "pack_text_dense against the numpy pack")
+    fn = _build.entry("pack_text_dense", [ctypes.c_void_p, ctypes.c_longlong,
+                                          ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p])
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_ms = cuda_ms(lambda: _build.check(fn(
+        real.data_ptr(), n, n_words, 2, got.data_ptr(), bad.data_ptr(),
+        stream), "pack_text_dense"), reps=10, inner=20)
+    call_ms = cuda_ms(lambda: pack_text_dense(real, n_words, 2), reps=10)
+    plain_ms = cuda_ms(lambda: kref.pack_text_dense_ref(real, n_words, 2))
+    host = []
+    pack_text_dense.launches = 0
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packing.pack_text(s, a, extra=extra, device=cuda)
+        host.append(time.perf_counter() - t0)
+    if pack_text_dense.launches != len(host):
+        raise AssertionError(f"{len(host)} pack_text calls launched "
+                             f"pack_text_dense {pack_text_dense.launches} "
+                             "times, not once each")
+    bound_ms, bound_by = bound(n + 4 * n_words, 0)
+    del real, got, plain
+    torch.cuda.empty_cache()
+    return {"phase": "pack_text", "n": n, "n_words": n_words,
+            "kernel_ms": kernel_ms, "call_ms": call_ms,
+            "pack_text_s": float(np.median(host)), "plain_ms": plain_ms,
+            "numpy_s": numpy_s, "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_pct": 100 * bound_ms / kernel_ms,
+            "launches_per_pack_text": pack_text_dense.launches // len(host)}
 
 
 def flash_parity(cuda) -> list:
@@ -3135,6 +3208,7 @@ def main() -> int:
     from repro_torch.data.strings import dataset, load_fasta, synthetic_string
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.pack_text import pack_text_dense
     from repro_torch.launch.analytics_serve import make_query, serve_engine
     from repro_torch.launch import gather_bench, hist_lcp_bench
     from repro_torch.launch.gather_bench import persisting_l2_window
@@ -3152,6 +3226,7 @@ def main() -> int:
     )
 
     cuda = torch.device("cuda")
+    emit(pack_text_phase(cuda, args.n_log2))
 
     def dram_round_trip_ms() -> float:
         """Milliseconds of one dependent device-memory round trip
@@ -4503,6 +4578,7 @@ def main() -> int:
 
     # ---- 3-5. the DNA path (build, check, serving; counted) ----------------
     ops.reset_launch_counts()
+    pack_text_dense.launches = 0
     torch.cuda.reset_peak_memory_stats()
     report = BuildReport(VerticalStats(), PrepareStats())
     t0 = time.perf_counter()
@@ -4522,7 +4598,10 @@ def main() -> int:
           "capacity": report.capacity, "n_subtrees": dev.n_subtrees,
           "k_route": dev.k_route, "n_iter": dev.n_iter,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": after_build})
+          "launches": after_build,
+          "pack_text_dense_launches": pack_text_dense.launches})
+    # the dense text packed on the card twice: construction and serving
+    require_packs(pack_text_dense.launches, 2, "the DNA build")
     t_prepare, build_counts = {"genome": report.t_prepare}, after_build
     # the one-shot index's host arrays, which the fabric phases compare with
     one_shot = {"genome": {**flat_of(dev), "t_prepare_s": report.t_prepare,
@@ -4539,8 +4618,10 @@ def main() -> int:
                         planted_frac=0.7)
     dna_counts = counts_now()
     emit({"phase": "serving", "dataset": "genome", **stats,
-          "launches": dna_counts})
+          "launches": dna_counts,
+          "pack_text_dense_launches": pack_text_dense.launches})
     require_launches(dna_counts, DNA_KERNELS, "the DNA path")
+    require_packs(pack_text_dense.launches, 2, "the DNA build and serving")
     for name in ("range_gather_words", "kmer_histogram"):
         if after_build[name] <= 0:
             raise AssertionError(f"{name} was never launched by the build")

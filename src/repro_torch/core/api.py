@@ -321,23 +321,29 @@ class EraIndexer:
     def _device_text(self, s: np.ndarray, report: BuildReport | None = None):
         """The device-resident string for construction reads: the dense
         :class:`packing.PackedText` or the terminal-padded byte string, per
-        ``EraConfig.packing``; construction output is identical.  Both are
-        made on the host and copied once: ``report`` takes the time
-        (``t_text``) and the bytes."""
+        ``EraConfig.packing``; construction output is identical.  The dense
+        words are packed where they live (the real codes copied once, the
+        span's ``where="device"`` on a card), the byte string is padded on
+        the host and copied once: ``report`` takes the time (``t_text``)
+        and the bytes copied."""
         t0 = time.perf_counter()
         dense = packing.resolve_dense(self.config.packing, self.alphabet)
+        on_card = dense and self.device.type == "cuda"
         with obs.tracer().span("build/text",
-                               currency="dense" if dense else "byte") as sp:
+                               currency="dense" if dense else "byte",
+                               where="device" if on_card else "host") as sp:
             if dense:
                 text = packing.pack_text(s, self.alphabet,
                                          extra=2 * self.config.w_max + 8,
                                          device=self.device)
+                copied = len(s) - 1  # the real codes, not the words
             else:
                 text = self._pad(s)
-            sp.set(bytes=text.nbytes)
+                copied = text.nbytes
+            sp.set(bytes=copied)
         if report is not None:
             report.t_text = time.perf_counter() - t0
-            report.bytes_to_device += text.nbytes
+            report.bytes_to_device += copied
         return text
 
     def _prepare_batched(self, s: np.ndarray, report: BuildReport):

@@ -171,6 +171,12 @@ def resolve_dense(mode: str, alphabet) -> bool:
                      "choose 'auto', 'dense' or 'bytes'")
 
 
+def dense_range_error(bits: int, alphabet: str, max_code: int) -> ValueError:
+    """The error of a code string that does not fit ``bits`` bits a symbol."""
+    return ValueError(f"codes exceed {bits}-bit dense range for alphabet "
+                      f"{alphabet!r} (max code {max_code})")
+
+
 def pack_text(codes: np.ndarray, alphabet, *, extra: int = 8,
               device="cuda") -> PackedText:
     """Dense-pack a TERMINATED code string for device-resident reads.
@@ -178,29 +184,25 @@ def pack_text(codes: np.ndarray, alphabet, *, extra: int = 8,
     ``codes``: uint8 codes whose last element is the terminal.  ``extra``:
     how many symbols past the end reads may cover — the word tail is sized
     to ``n_real + extra`` symbols plus one halo word for sub-word shift
-    alignment (the same contract as the JAX ``pack_text``).  Packing runs
-    in numpy on the host; the words are then moved to ``device`` once.
+    alignment (the same contract as the JAX ``pack_text``).  The ``n_real``
+    real codes are copied to ``device`` once and packed there
+    (:func:`repro_torch.kernels.pack_text.pack_text_dense`: the kernel on a
+    CUDA device, its plain version on the CPU); the copy is dropped once
+    the words are made.
     """
+    # imported here: the kernels package imports this module
+    from repro_torch.kernels.pack_text import pack_text_dense
+
     codes = np.asarray(codes, np.uint8)
     if codes.size == 0 or codes[-1] != alphabet.terminal_code:
         raise ValueError("pack_text needs a terminated code string")
     bits = alphabet.dense_bits
     n_real = codes.size - 1
-    real = codes[:n_real]
-    if real.size and int(real.max()) >= (1 << bits):
-        raise ValueError(
-            f"codes exceed {bits}-bit dense range for alphabet "
-            f"{alphabet.name!r} (max code {int(real.max())})")
-    spw = 32 // bits
-    n_words = -(-(n_real + extra) // spw) + 1  # +1 halo for shift alignment
-    grp = np.zeros(n_words * spw, np.uint32)
-    grp[:n_real] = real
-    grp = grp.reshape(n_words, spw)
-    words = np.zeros(n_words, np.uint32)
-    for k in range(spw):  # one field at a time keeps the host peak small
-        words |= grp[:, k] << np.uint32(32 - bits * (k + 1))
-    return PackedText.from_numpy(words, n_real, bits, alphabet.terminal_code,
-                                 device)
+    n_words = -(-(n_real + extra) // (32 // bits)) + 1  # +1 halo word
+    real = torch.from_numpy(np.ascontiguousarray(codes[:n_real])).to(device)
+    words = pack_text_dense(real, n_words, bits, alphabet.name)
+    return PackedText(words=words, n_real=n_real, bits=bits,
+                      terminal=alphabet.terminal_code)
 
 
 def pack_text_stream(chunks, alphabet, *, extra: int = 8,
@@ -245,9 +247,7 @@ def pack_text_stream(chunks, alphabet, *, extra: int = 8,
         pending = int(c[-1])
         real = c[:-1]
         if real.size and int(real.max()) >= (1 << bits):
-            raise ValueError(
-                f"codes exceed {bits}-bit dense range for alphabet "
-                f"{alphabet.name!r} (max code {int(real.max())})")
+            raise dense_range_error(bits, alphabet.name, int(real.max()))
         n_real += real.size
         commit(real)
     if pending is None or pending != alphabet.terminal_code:

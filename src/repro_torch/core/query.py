@@ -212,8 +212,9 @@ class DeviceIndex:
         leaf counts and the concatenated leaf arrays (a device tensor from
         the batched engine stays on the device; the routing tables are
         computed on the host from the prefix metadata).  Given ``copies``
-        (a ``BuildReport``), the tables, the served text and the leaf
-        order uploaded (where it is not a tensor on the device's type)
+        (a ``BuildReport``), the tables, the served text (its real codes
+        when the text is dense: the words are packed where they live) and
+        the leaf order uploaded (where it is not a tensor on the device's type)
         add to ``copies.bytes_to_device``, ``ell_host`` to
         ``copies.bytes_to_host``."""
         dev = kops.resolve_device(device)
@@ -268,17 +269,21 @@ class DeviceIndex:
             sp.set(k_route=k_route, bytes=nb)
         if copies is not None:
             copies.bytes_to_device += nb
-        with tracer.span("flatten/text") as sp:
-            if packing_mod.resolve_dense(packing, alphabet):
+        dense = packing_mod.resolve_dense(packing, alphabet)
+        with tracer.span("flatten/text", where="device" if dense
+                         and dev.type == "cuda" else "host") as sp:
+            if dense:
                 s_text = packing_mod.pack_text(np.asarray(s), alphabet,
                                                extra=max_pattern_len + 8,
                                                device=dev)
+                nb = len(s) - 1  # the real codes, not the words
             else:  # the served padding contract: max_pattern_len + 8 (C6)
                 s_text = torch.from_numpy(alphabet.pad_string(
                     np.asarray(s), extra=max_pattern_len + 8)).to(dev)
-            sp.set(bytes=s_text.nbytes)
+                nb = s_text.nbytes
+            sp.set(bytes=nb)
         if copies is not None:
-            copies.bytes_to_device += s_text.nbytes
+            copies.bytes_to_device += nb
         with tracer.span("flatten/to_host") as sp:
             upload = not (isinstance(ell, torch.Tensor)
                           and ell.device.type == dev.type)

@@ -28,7 +28,7 @@ SOURCES = ("range_gather_words", "pattern_probe_words", "kmer_histogram",
            "flash_attention", "flash_attention_sm90", "search_bounds_words",
            "search_bounds_bytes", "search_fetch_words", "search_fetch_bytes",
            "search_bounds_packed", "search_fetch_packed", "l2_window",
-           "dram_latency")
+           "dram_latency", "pack_text_dense")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -25,6 +25,7 @@ from repro_torch.core.packing import (  # noqa: F401  (shared implementations)
     gather_words_dense,
     lcp_words,
     lcp_words_limited,
+    to_i32,
     word_limit,
 )
 
@@ -234,6 +235,21 @@ def kmer_histogram_ref(s: torch.Tensor, n: int, k: int,
     for d in range(k):
         codes = codes * base + s[d:d + n].to(torch.int64)
     return torch.bincount(codes, minlength=base**k).to(torch.int32)
+
+
+def pack_text_dense_ref(codes: torch.Tensor, n_words: int,
+                        bits: int) -> torch.Tensor:
+    """int32[n_words] dense words of the uint8 ``codes`` (each below
+    ``1 << bits``), ``32 // bits`` symbols a word big-endian, zero past
+    the codes: the words of :func:`repro_torch.core.packing.pack_text`."""
+    spw = 32 // bits
+    grp = torch.zeros(n_words * spw, dtype=torch.uint8, device=codes.device)
+    grp[:codes.shape[0]] = codes
+    grp = grp.view(n_words, spw)
+    words = torch.zeros(n_words, dtype=torch.int64, device=codes.device)
+    for k in range(spw):  # one field at a time keeps the peak small
+        words |= grp[:, k].to(torch.int64) << (32 - bits * (k + 1))
+    return to_i32(words)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,10 +21,11 @@ from repro_torch.core import prepare as tprep
 from repro_torch.core.alphabet import ALPHABETS
 from repro_torch.core.api import EraConfig, EraIndexer
 from repro_torch.core.query import _pack_query_batch, _route_window
-from repro_torch.data.strings import dataset
+from repro_torch.data.strings import dataset, synthetic_string
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmer_histogram as tkmer
 from repro_torch.kernels import lcp as tlcp
+from repro_torch.kernels import pack_text as tpack
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import pattern_probe as tprobe
@@ -1710,3 +1711,73 @@ def test_cuda_dedup_mask_matches_cpu(cuda_device):
     assert ops.launch_counts()["range_gather_words"] > 0
     np.testing.assert_array_equal(keep, dedup_mask(seqs, min_repeat=64, device="cpu"))
     assert not keep[5] or not keep[11]
+
+
+# (alphabet, real symbols, planted repeats): every width at the edges of a
+# word and of a block's words, and the main path's 2^27 DNA strings
+PACK_CASES = [(a, n, False) for a in ("dna", "protein_class", "protein")
+              for n in (0, 1, 3, 4, 15, 16, 17, 4095, 4096, 4097, 100_003)]
+PACK_CASES += [("dna", 1 << 27, False), ("dna", 1 << 27, True),
+               ("byte", 1 << 20, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha, n, planted", PACK_CASES)
+def test_cuda_pack_text_dense(cuda_device, alpha, n, planted):
+    """The kernel's words equal its plain version's on the card and the
+    host numpy pack's (``pack_text_stream``), bit for bit, from an aligned
+    tensor and from a view one byte in (byte loads throughout), under two
+    read tails."""
+    a = ALPHABETS[alpha]
+    s = (synthetic_string(a, n, seed=n + 1, repeat_fraction=0.45)
+         if planted else a.random_string(n, seed=n + 1))
+    real = torch.from_numpy(s[:-1].copy()).to(cuda_device)
+    shifted = torch.cat([real[:1], real])[1:]  # storage offset 1
+    for extra in (8, 264):
+        want = tpk.pack_text_stream([s], a, extra=extra, device="cpu")
+        n_words = want.words.shape[0]
+        plain = tref.pack_text_dense_ref(real, n_words, a.dense_bits)
+        assert torch.equal(plain.cpu(), want.words)
+        for codes in (real, shifted):
+            got = tpack.pack_text_dense(codes, n_words, a.dense_bits, alpha)
+            assert torch.equal(got, plain)
+        pt = tpk.pack_text(s, a, extra=extra, device=cuda_device)
+        assert torch.equal(pt.words, plain) and pt.n_real == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha, at", [("dna", 0), ("dna", 100_000),
+                                       ("protein_class", 99_999)])
+def test_cuda_pack_text_dense_range_error(cuda_device, alpha, at):
+    """A code past the dense width raises ``pack_text``'s ValueError, the
+    largest code in its message, wherever it lies in the string."""
+    a = ALPHABETS[alpha]
+    s = a.random_string(100_001, seed=3)
+    s[at] = (1 << a.dense_bits) + 5
+    msg = (f"codes exceed {a.dense_bits}-bit dense range for alphabet "
+           f"{alpha!r} (max code {(1 << a.dense_bits) + 5})")
+    with pytest.raises(ValueError) as err:
+        tpk.pack_text(s, a, device=cuda_device)
+    assert str(err.value) == msg
+
+
+@pytest.mark.cuda
+def test_cuda_pack_text_dense_launches(cuda_device):
+    """One launch a ``pack_text``, two a DNA ``build_device`` (the
+    construction text and the served text), none on the byte path; a pack
+    leaves ``ops.launch_counts()`` (the build and search kernels) as it was."""
+    a = ALPHABETS["dna"]
+    s = a.random_string(20_000, seed=4)
+    ops.reset_launch_counts()
+    before = tpack.pack_text_dense.launches
+    for k in range(1, 4):
+        tpk.pack_text(s, a, device=cuda_device)
+        assert tpack.pack_text_dense.launches == before + k
+    assert all(v == 0 for v in ops.launch_counts().values())
+    before = tpack.pack_text_dense.launches
+    EraIndexer(a, EraConfig(memory_bytes=1 << 16),
+               device=cuda_device).build_device(s, max_pattern_len=64)
+    assert tpack.pack_text_dense.launches == before + 2
+    EraIndexer(a, EraConfig(memory_bytes=1 << 16, packing="bytes"),
+               device=cuda_device).build_device(s, max_pattern_len=64)
+    assert tpack.pack_text_dense.launches == before + 2

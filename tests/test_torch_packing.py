@@ -12,9 +12,12 @@ import torch
 from repro.core import packing as jpk
 from repro.core.alphabet import BYTE as J_BYTE
 from repro.core.alphabet import DNA as J_DNA
+from repro.core.alphabet import PROTEIN as J_PROTEIN
 from repro.core.alphabet import PROTEIN_CLASS as J_PC
 from repro_torch.core import packing as tpk
 from repro_torch.core.alphabet import ALPHABETS
+from repro_torch.kernels import pack_text as tpack
+from repro_torch.kernels import ref as tref
 
 ALPHAS = [J_DNA, J_PC, J_BYTE]
 IDS = [a.name for a in ALPHAS]
@@ -49,6 +52,75 @@ def test_pack_text_words_equal(alpha, n):
 def test_pack_text_rejects_unterminated():
     with pytest.raises(ValueError, match="terminated"):
         tpk.pack_text(np.zeros(4, np.uint8), ALPHABETS["dna"], device="cpu")
+
+
+# every dense width: 2-bit DNA, 4-bit protein classes, 8-bit protein (the
+# alphabet under packing="dense") and bytes
+DENSE = [J_DNA, J_PC, J_PROTEIN, J_BYTE]
+
+
+@pytest.mark.parametrize("alpha", DENSE, ids=[a.name for a in DENSE])
+@pytest.mark.parametrize("words, delta", [(0, 0), (0, 1), (1, -1), (1, 0),
+                                          (1, 1), (7, -1), (7, 0), (7, 1)])
+@pytest.mark.parametrize("extra", [0, 8, 264])
+def test_pack_text_dense_plain_equals_jax(alpha, words, delta, extra):
+    """The plain version of the ``pack_text_dense`` kernel, its wrapper on
+    the CPU and ``pack_text`` give the JAX words bit for bit, at lengths
+    at, below and above a multiple of the symbols a word, with 0 and 1
+    real symbols, under several read tails."""
+    spw = 32 // alpha.dense_bits
+    n = max(words * spw + delta, 0)
+    s = alpha.random_string(n, seed=1000 * words + 10 * delta + extra + 5)
+    want = np.asarray(jpk.pack_text(s, alpha, extra=extra).words)
+    codes = torch.from_numpy(s[:-1].copy())
+    bits = alpha.dense_bits
+    plain = tref.pack_text_dense_ref(codes, want.size, bits)
+    wrapped = tpack.pack_text_dense(codes, want.size, bits, alpha.name)
+    packed = tpk.pack_text(s, ALPHABETS[alpha.name], extra=extra,
+                           device="cpu")
+    for got in (plain, wrapped, packed.words):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(tpk.words_to_numpy(got), want)
+    assert packed.n_real == n and packed.bits == bits
+
+
+def _bad_string(alpha, case):
+    s = alpha.random_string(40, seed=7)
+    if case == "out_of_range":
+        s[17] = 1 << alpha.dense_bits
+    elif case == "unterminated":
+        s = s[:-1]
+    else:  # empty
+        s = s[:0]
+    return s
+
+
+@pytest.mark.parametrize("alpha", [J_DNA, J_PC], ids=["dna", "protein_class"])
+@pytest.mark.parametrize("case", ["out_of_range", "unterminated", "empty"])
+def test_pack_text_rejects_as_jax(alpha, case):
+    """A code past the dense width, a string without its terminal and an
+    empty one raise the JAX package's ``ValueError``, message and all."""
+    s = _bad_string(alpha, case)
+    with pytest.raises(ValueError) as want:
+        jpk.pack_text(s, alpha, extra=8)
+    with pytest.raises(ValueError) as got:
+        tpk.pack_text(s, ALPHABETS[alpha.name], extra=8, device="cpu")
+    assert str(got.value) == str(want.value)
+    if case == "out_of_range":
+        with pytest.raises(ValueError) as wrapped:
+            tpack.pack_text_dense(torch.from_numpy(s[:-1].copy()), 16,
+                                  alpha.dense_bits, alpha.name)
+        assert str(wrapped.value) == str(want.value)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((torch.zeros(4, dtype=torch.uint8), 2, 3), "bits"),
+    ((torch.zeros(33, dtype=torch.uint8), 2, 2), "cannot hold"),
+    ((torch.zeros(4, dtype=torch.int32), 2, 2), "uint8"),
+])
+def test_pack_text_dense_rejects_arguments(args, match):
+    with pytest.raises(ValueError, match=match):
+        tpack.pack_text_dense(*args)
 
 
 def test_from_numpy_round_trips_jax_words():
